@@ -1,0 +1,536 @@
+"""Graph partitioning and the centralized/decentralized/semi execution plan.
+
+A copy of the dense host tables of ``repro.core.partition`` (numpy), so
+that the port needs nothing of the JAX package. ``partition(graph, k)``
+splits a CSR graph into k clusters and derives the padded device-local
+subgraphs and the halo tables; ``hier_partition`` builds the two-tier
+semi-decentralized hierarchy; ``ExecutionPlan`` runs one GNN in any of the
+three settings on the port's backends:
+
+  * ``jnp``    — plain PyTorch ops (the reference's name for its backend of
+    plain array ops);
+  * ``pallas`` — composed: the hand-written aggregation kernel, then the
+    matmul or the plain crossbar numerics (the reference's name for its
+    backend of hand-written kernels);
+  * ``fused``  — the hand-written fused layer kernels.
+
+Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): the capacity-bucketed layout, kernel tuning, the cost-model
+prediction, the crossbar mapping and the measured-traffic accounting.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .graph import Graph, GraphStats
+
+
+
+@dataclasses.dataclass
+class Partition:
+    assignment: np.ndarray        # [N] int32 cluster id per node
+    n_clusters: int
+    # device-local tensors, all padded to uniform sizes across clusters:
+    local_nodes: np.ndarray       # [K, n_max] int32 global node ids (pad: -1)
+    local_mask: np.ndarray        # [K, n_max] bool
+    halo_nodes: np.ndarray        # [K, h_max] int32 global ids needed from
+    halo_src: np.ndarray          # [K, h_max] int32 owning cluster (pad: -1)
+    comm_volume: np.ndarray       # [K, K] int64 e_ij: feature rows cluster i
+    #                               receives from cluster j per layer (unique
+    #                               remote sources of its boundary edges — the
+    #                               rows the alltoall exchange ships)
+    sample: int | None = None     # the neighbor-sample size the halo/comm
+    #                               tables were pruned to (None: unpruned)
+
+    @property
+    def n_max(self) -> int:
+        return self.local_nodes.shape[1]
+
+    @property
+    def h_max(self) -> int:
+        return self.halo_nodes.shape[1]
+
+    def cluster_stats(self, g: Graph, k: int) -> GraphStats:
+        nodes = self.local_nodes[k][self.local_mask[k]]
+        deg = np.diff(g.indptr)[nodes] if len(nodes) else np.zeros(1)
+        return GraphStats(f"cluster{k}", len(nodes), int(deg.sum()),
+                          g.feature_len, float(deg.mean() if len(deg) else 0))
+
+
+def _bfs_clusters(g: Graph, k: int, seed: int = 0) -> np.ndarray:
+    """Greedy balanced BFS growth from k spread-out seeds."""
+    n = g.n_nodes
+    target = -(-n // k)
+    rng = np.random.default_rng(seed)
+    assignment = np.full(n, -1, np.int32)
+    seeds = rng.choice(n, size=min(k, n), replace=False)
+    frontiers = [[int(s)] for s in seeds]
+    sizes = np.zeros(k, np.int64)
+    for c, s in enumerate(seeds):
+        assignment[s] = c
+        sizes[c] = 1
+    active = True
+    while active:
+        active = False
+        for c in range(k):
+            if sizes[c] >= target or not frontiers[c]:
+                continue
+            nxt = []
+            for u in frontiers[c]:
+                for v in g.indices[g.indptr[u]:g.indptr[u + 1]]:
+                    if assignment[v] == -1 and sizes[c] < target:
+                        assignment[v] = c
+                        sizes[c] += 1
+                        nxt.append(int(v))
+            frontiers[c] = nxt
+            active = active or bool(nxt)
+    # orphans (disconnected): round-robin to the emptiest clusters
+    for u in np.nonzero(assignment == -1)[0]:
+        c = int(np.argmin(sizes))
+        assignment[u] = c
+        sizes[c] += 1
+    return assignment
+
+
+def _chunk_clusters(g: Graph, k: int) -> np.ndarray:
+    """Contiguous node-balanced split: cluster of node i is ``i * k // N``.
+
+    O(N), locality-preserving for graphs whose node order is meaningful
+    (CSR builders emit destination-sorted ids) — the partitioner that makes
+    million-node graphs tractable where the BFS grower's Python frontier
+    loop is not."""
+    n = max(g.n_nodes, 1)
+    return (np.arange(g.n_nodes, dtype=np.int64) * k // n).astype(np.int32)
+
+
+def _edge_clusters(g: Graph, k: int) -> np.ndarray:
+    """Contiguous *edge*-balanced split: each cluster owns ~E/k edges.
+
+    On power-law graphs this deliberately skews the node counts (a chunk of
+    hubs is short, a chunk of leaves is long) — balanced per-device compute,
+    unbalanced per-device rows, which the dense ``[K, n_max, S]`` padding
+    amplifies."""
+    deg = np.diff(g.indptr).astype(np.int64) + 1     # +1 keeps isolated
+    #                                                  nodes spreading
+    before = np.cumsum(deg) - deg                    # edge mass before node i
+    total = max(int(deg.sum()), 1)
+    return np.minimum(before * k // total, k - 1).astype(np.int32)
+
+
+PARTITION_METHODS = ("bfs", "chunk", "edge")
+
+
+def _sample_edge_mask(g: Graph, sample: int | None,
+                      self_loops: bool = True) -> np.ndarray:
+    """Boolean [E] mask of the edges the padded-sample runtime reads.
+
+    ``build_local_subgraphs``/``pad_neighbors`` truncate each node to its
+    first ``sample - 1`` neighbors (one slot is the self loop); halo and
+    comm tables built from *all* edges would ship rows the kernels never
+    touch. ``sample=None`` keeps every edge."""
+    if sample is None:
+        return np.ones(g.n_edges, bool)
+    cap = sample - 1 if self_loops else sample
+    deg = np.diff(g.indptr)
+    pos = np.arange(g.n_edges) - np.repeat(g.indptr[:-1], deg)
+    return pos < cap
+
+
+def partition(g: Graph, n_clusters: int, seed: int = 0,
+              sample: int | None = None,
+              self_loops: bool = True,
+              method: str = "bfs") -> Partition:
+    """Split into ``n_clusters`` clusters and derive all exchange tables.
+
+    ``sample`` (optional) prunes the halo/comm tables to the edges the
+    padded-sample runtime actually reads, so tabulated e_ij equals the rows
+    the alltoall exchange measurably ships (``plan_execution`` passes its
+    sample through here). ``method`` selects the assignment heuristic:
+    ``bfs`` (quality default), ``chunk`` (O(N) node-balanced contiguous) or
+    ``edge`` (O(N) edge-balanced contiguous — skewed node counts on
+    power-law graphs)."""
+    if method not in PARTITION_METHODS:
+        raise ValueError(f"unknown partition method {method!r}; "
+                         f"choose from {PARTITION_METHODS}")
+    if method == "chunk":
+        assignment = _chunk_clusters(g, n_clusters)
+    elif method == "edge":
+        assignment = _edge_clusters(g, n_clusters)
+    else:
+        assignment = _bfs_clusters(g, n_clusters, seed)
+    return _from_assignment(g, assignment, n_clusters, sample=sample,
+                            self_loops=self_loops)
+
+
+@dataclasses.dataclass
+class LocalSubgraph:
+    """Per-device padded subgraph in device-local index space.
+
+    Feature table layout per device: rows [0, n_max) are owned nodes,
+    rows [n_max, n_max + h_max) are halo (received) nodes. Neighbor indices
+    point into this concatenated table.
+    """
+    neighbors: np.ndarray   # [K, n_max, S] int32 local-space indices
+    weights: np.ndarray     # [K, n_max, S] float32 (0 = padding)
+    node_mask: np.ndarray   # [K, n_max] bool
+
+
+def _owner_slots(part: Partition) -> np.ndarray:
+    """[N] local slot of each node in its owning cluster's table.
+
+    Members are stored in ascending global-id order (``np.nonzero``), so a
+    stable argsort of the assignment reproduces every cluster's row order
+    without a per-cluster scan."""
+    a = part.assignment
+    order = np.argsort(a, kind="stable")
+    counts = np.bincount(a, minlength=part.n_clusters)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.empty(len(a), np.int64)
+    slot[order] = np.arange(len(a)) - np.repeat(starts, counts)
+    return slot
+
+
+def _local_tables(g: Graph, part: Partition, cluster_ids, n_rows: int,
+                  s_cap: int, halo_base: int,
+                  self_loops: bool = True):
+    """Vectorized padded neighbor/weight tables for the given clusters.
+
+    Rows are the clusters' owned nodes (ascending global id), columns the
+    first ``s_cap - 1`` CSR neighbors plus the self loop; neighbor indices
+    point into the device-local table (owned rows [0, n_rows), halo rows
+    [halo_base, halo_base + h)). The dense layout passes
+    ``n_rows = n_max`` and ``s_cap = sample``."""
+    cluster_ids = np.asarray(cluster_ids, np.int64)
+    nbr = np.zeros((len(cluster_ids), n_rows, s_cap), np.int32)
+    wts = np.zeros((len(cluster_ids), n_rows, s_cap), np.float32)
+    cap = s_cap - 1 if self_loops else s_cap
+    # self-loop weight honors the graph's normalization (gcn_normalize sets
+    # A_hat's diagonal 1/(d_i+1); unnormalized graphs keep A + I's 1.0)
+    sl = (g.self_loop if g.self_loop is not None
+          else np.ones(g.n_nodes, np.float32))
+    slot = _owner_slots(part)
+    assignment = part.assignment
+    h_counts = (part.halo_src >= 0).sum(axis=1)
+    for out_i, c in enumerate(cluster_ids):
+        rows = part.local_nodes[c][part.local_mask[c]]
+        m = len(rows)
+        if m == 0:
+            continue
+        deg = (g.indptr[rows + 1] - g.indptr[rows]).astype(np.int64)
+        take = np.minimum(deg, cap)
+        if cap > 0 and g.indices.size:  # edgeless graphs: self-loops only
+            e_idx = g.indptr[rows][:, None] + np.arange(cap)[None, :]
+            valid = np.arange(cap)[None, :] < take[:, None]
+            e_idx = np.where(valid, e_idx, 0)
+            v = g.indices[e_idx]
+            w = (g.edge_weight[e_idx] if g.edge_weight is not None
+                 else np.ones_like(e_idx, np.float32))
+            # halo_nodes are unique-sorted, so searchsorted recovers the
+            # halo row of every sample-reachable remote neighbor
+            hn = part.halo_nodes[c][:h_counts[c]]
+            remote = assignment[v] != c
+            loc = np.where(remote,
+                           halo_base + np.searchsorted(hn, v),
+                           slot[v])
+            nbr[out_i, :m, :cap] = np.where(valid, loc, 0)
+            wts[out_i, :m, :cap] = np.where(valid, w, 0.0)
+        if self_loops:
+            nbr[out_i, np.arange(m), take] = np.arange(m)
+            wts[out_i, np.arange(m), take] = sl[rows]
+    return nbr, wts
+
+
+def build_local_subgraphs(g: Graph, part: Partition, sample: int,
+                          self_loops: bool = True) -> LocalSubgraph:
+    if part.sample is not None and sample > part.sample:
+        raise ValueError(
+            f"subgraph sample {sample} exceeds the sample {part.sample} the "
+            f"partition's halo tables were pruned to — neighbors past the "
+            f"pruning cut have no halo row; rebuild the partition with "
+            f"sample >= {sample}")
+    nbr, wts = _local_tables(g, part, np.arange(part.n_clusters),
+                             part.n_max, sample, part.n_max,
+                             self_loops=self_loops)
+    return LocalSubgraph(nbr, wts, part.local_mask)
+
+
+def gather_features(g: Graph, part: Partition) -> np.ndarray:
+    """[K, n_max, F] owned-node features per device (pad rows zero)."""
+    k, n_max = part.n_clusters, part.n_max
+    f = g.feature_len
+    out = np.zeros((k, n_max, f), np.float32)
+    for c in range(k):
+        m = part.local_mask[c]
+        out[c, m] = g.features[part.local_nodes[c][m]]
+    return out
+
+
+@dataclasses.dataclass
+class HierPartition:
+    """Two-tier semi-decentralized partition (the paper's §5 hierarchy).
+
+    The graph is split into ``n_heads`` *regions*, each fronted by a cluster
+    head (an infrastructure edge server). Every region's nodes are spread
+    over ``spokes_per_region`` member edge devices (spokes) that hold the raw
+    features. Tier 0 is the intra-region spoke->head feature upload; tier 1
+    is the head<->head boundary halo exchange over ``region``'s tables.
+    """
+    region: Partition             # tier-1 partition over the R regions
+    n_heads: int
+    spokes_per_region: int
+    spoke_nodes: np.ndarray       # [R, P, m_max] int32 global ids (pad: -1)
+    spoke_mask: np.ndarray        # [R, P, m_max] bool
+    gather_spoke: np.ndarray      # [R, n_max] spoke owning each region row
+    gather_slot: np.ndarray       # [R, n_max] slot in that spoke's table
+
+    @property
+    def m_max(self) -> int:
+        return self.spoke_nodes.shape[2]
+
+
+def hier_partition(g: Graph, n_heads: int, nodes_per_region: int = 4,
+                   sample: int | None = None, seed: int = 0) -> HierPartition:
+    """Region-level partition (cluster heads) nested over member clusters.
+
+    ``nodes_per_region`` is the number of member edge devices (spokes) under
+    each head; a region's owned nodes are split into that many balanced
+    contiguous spoke tables. ``sample`` prunes the tier-1 halo/comm tables
+    exactly as in ``partition``.
+    """
+    region = partition(g, n_heads, seed=seed, sample=sample)
+    p = max(int(nodes_per_region), 1)
+    n_max = region.n_max
+    spoke_id = np.zeros((n_heads, n_max), np.int32)
+    sizes = np.zeros((n_heads, p), np.int64)
+    for r in range(n_heads):
+        m = int(region.local_mask[r].sum())
+        for i in range(m):
+            spoke_id[r, i] = i * p // max(m, 1)
+        np.add.at(sizes[r], spoke_id[r, :m], 1)
+    m_max = max(int(sizes.max()), 1)
+    spoke_nodes = np.full((n_heads, p, m_max), -1, np.int32)
+    spoke_mask = np.zeros((n_heads, p, m_max), bool)
+    gather_spoke = np.zeros((n_heads, n_max), np.int32)
+    gather_slot = np.zeros((n_heads, n_max), np.int32)
+    fill = np.zeros((n_heads, p), np.int64)
+    for r in range(n_heads):
+        m = int(region.local_mask[r].sum())
+        for i in range(m):
+            s = int(spoke_id[r, i])
+            t = int(fill[r, s])
+            fill[r, s] += 1
+            spoke_nodes[r, s, t] = region.local_nodes[r, i]
+            spoke_mask[r, s, t] = True
+            gather_spoke[r, i] = s
+            gather_slot[r, i] = t
+    return HierPartition(region, n_heads, p, spoke_nodes, spoke_mask,
+                         gather_spoke, gather_slot)
+
+
+def gather_spoke_features(g: Graph, hier: HierPartition) -> np.ndarray:
+    """[R, P, m_max, F] spoke-resident node features (pad rows zero)."""
+    r, p, m_max = hier.spoke_nodes.shape
+    out = np.zeros((r, p, m_max, g.feature_len), np.float32)
+    m = hier.spoke_mask
+    out[m] = g.features[hier.spoke_nodes[m]]
+    return out
+
+
+def halo_exchange_tables(part: Partition):
+    """Precomputed gather plan for the halo exchange.
+
+    Returns (src_cluster [K, h_max] int32, src_slot [K, h_max] int32,
+    halo_mask [K, h_max] bool): device c's halo row h is the feature at
+    (src_cluster[c, h], src_slot[c, h]) — an all-gather + gather realizes the
+    exchange (see repro.distributed.halo).
+    """
+    k, h_max = part.n_clusters, part.h_max
+    slot = np.zeros((k, h_max), np.int32)
+    owner_slot = _owner_slots(part)
+    for c in range(k):
+        valid = part.halo_src[c] >= 0
+        slot[c, valid] = owner_slot[part.halo_nodes[c][valid]]
+    return part.halo_src, slot, part.halo_src >= 0
+
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, port queue: "
+        f"{item}); the JAX package has it")
+
+
+@dataclasses.dataclass
+class ExecutionPlan:
+    """One GNN, three execution settings, one switchable kernel backend.
+
+      * ``centralized``   — one device owns the full graph (paper Fig. 4a).
+      * ``decentralized`` — one cluster per device, halo exchange per layer
+        (Fig. 4b), emulated over a leading cluster axis on one card.
+      * ``semi``          — the two-tier hierarchy (paper §5): cluster heads
+        each centralized over a region; spokes upload features to their
+        head (tier 0), heads exchange boundary halos per layer (tier 1).
+
+    ``backend`` is ``jnp``, ``pallas`` or ``fused`` (see the module
+    docstring). Build with ``plan_execution``; ``make_forward`` gives the
+    runnable forward on a device and ``scatter`` maps its device-local
+    output back to global node order.
+    """
+    setting: str
+    backend: str
+    sample: int
+    n_clusters: int
+    graph: Graph
+    part: Partition | None          # None for centralized; the region-level
+    #                                 (tier-1) partition for semi
+    sub: LocalSubgraph | None
+    feats: np.ndarray               # [K, n_max, F] (centralized: [1, N, F];
+    #                                 semi: [R, P, m_max, F] spoke tables)
+    neighbors: np.ndarray           # [K, n_max, S] device-local sample
+    weights: np.ndarray             # [K, n_max, S]
+    hier: HierPartition | None = None   # set for setting == "semi"
+
+    def gnn_config(self, cfg):
+        """Rebind a GNNConfig to this plan's backend and sample."""
+        return dataclasses.replace(cfg, backend=self.backend,
+                                   sample=self.sample)
+
+    def make_forward(self, cfg, mode: str = "alltoall", device="cuda"):
+        """Runnable forward for this plan on ``device``:
+        ``fn(params) -> [K, n_max, out]`` (a tensor on ``device``).
+
+        The plan's host tables are copied to the device once, here.
+        ``mode`` picks the halo-exchange strategy (``allgather`` or
+        ``alltoall``) of the decentralized exchange and of semi's tier-1
+        head<->head exchange; centralized has none."""
+        import torch
+
+        from ..distributed import halo
+        from .._device import resolve_device
+        from .gnn import forward as gnn_forward
+        dev = resolve_device(device)
+        cfg = self.gnn_config(cfg)
+        feats = torch.from_numpy(self.feats).to(dev)
+        nbr = torch.from_numpy(self.neighbors).to(dev)
+        wts = torch.from_numpy(self.weights).to(dev)
+        if self.setting == "centralized":
+            def forward(params):
+                return gnn_forward(params, feats[0], nbr[0], wts[0],
+                                   cfg)[None]
+            return forward
+        if self.setting == "semi":
+            fn = halo.make_emulated_semi_forward(
+                cfg, halo.build_two_tier_plan(self.hier), mode=mode,
+                device=dev)
+        else:
+            fn = halo.make_emulated_forward(
+                cfg, halo.build_halo_plan(self.part), mode=mode, device=dev)
+        return lambda params: fn(params, feats, nbr, wts)
+
+    def scatter(self, out) -> np.ndarray:
+        """Map the forward's per-cluster output [K, n_max, D] (a tensor on
+        any device) to a numpy array in global node order."""
+        out = out.detach().cpu().numpy()
+        if self.setting == "centralized":
+            return out[0]
+        full = np.zeros((self.graph.n_nodes, out.shape[-1]), out.dtype)
+        for c in range(self.n_clusters):
+            m = self.part.local_mask[c]
+            full[self.part.local_nodes[c][m]] = out[c][m]
+        return full
+
+    def tune_kernels(self, cfg, cache=None, **tune_kw):
+        raise _not_ported("kernel tuning", "tuning")
+
+    def predicted_metrics(self, *args, **kwargs):
+        raise _not_ported("the cost-model prediction",
+                          "cost-model lines of the CLI")
+
+    def compile_mapping(self, *args, **kwargs):
+        raise _not_ported("the crossbar mapping",
+                          "cost-model lines of the CLI")
+
+    def measured_traffic(self, cfg=None, mode: str = "alltoall"):
+        raise _not_ported("measured-traffic accounting",
+                          "cost-model lines of the CLI")
+
+
+def plan_execution(g: Graph, setting: str = "centralized",
+                   backend: str = "jnp", sample: int = 16,
+                   n_clusters: int | None = None,
+                   seed: int = 0,
+                   spokes_per_head: int = 4,
+                   buckets=None,
+                   partition_method: str = "bfs") -> ExecutionPlan:
+    """Build the ExecutionPlan for one (setting, backend) combination.
+
+    ``n_clusters`` defaults per setting: 1 (centralized), 8 (decentralized
+    — one per edge device), 4 (semi — cluster heads, each fronting
+    ``spokes_per_head`` member edge devices). Halo/comm tables are pruned
+    to the ``sample``-reachable edges the kernels read. ``buckets`` other
+    than ``None``/``"off"`` (the capacity-bucketed layout) is not ported
+    yet and raises ``NotImplementedError``."""
+    if setting not in ("centralized", "decentralized", "semi"):
+        raise ValueError(f"unknown setting {setting!r}")
+    if buckets not in (None, 0, "off", "dense", False):
+        raise _not_ported(f"buckets={buckets!r} (the capacity-bucketed "
+                          f"layout)", "bucketed layout")
+    if setting == "centralized":
+        nbr, wts = g.neighbor_sample(sample)
+        return ExecutionPlan(setting, backend, sample, 1, g, None, None,
+                             g.features[None], nbr[None], wts[None])
+    k = n_clusters or (8 if setting == "decentralized" else 4)
+    # a cluster must own at least one node
+    k = max(min(k, g.n_nodes), 1)
+    if setting == "semi":
+        hier = hier_partition(g, k, nodes_per_region=spokes_per_head,
+                              sample=sample, seed=seed)
+        sub = build_local_subgraphs(g, hier.region, sample)
+        feats = gather_spoke_features(g, hier)
+        return ExecutionPlan(setting, backend, sample, k, g, hier.region,
+                             sub, feats, sub.neighbors, sub.weights,
+                             hier=hier)
+    part = partition(g, k, seed=seed, sample=sample, method=partition_method)
+    sub = build_local_subgraphs(g, part, sample)
+    feats = gather_features(g, part)
+    return ExecutionPlan(setting, backend, sample, k, g, part, sub,
+                         feats, sub.neighbors, sub.weights)
+
+
+def _from_assignment(g: Graph, assignment: np.ndarray, k: int,
+                     sample: int | None = None,
+                     self_loops: bool = True) -> Partition:
+    """Build full Partition tables from a given node->cluster assignment.
+
+    Halo and comm tables are restricted to ``sample``-reachable edges (see
+    ``_sample_edge_mask``); ``comm_volume[i, j]`` counts the *unique* remote
+    rows i needs from j — the feature rows an alltoall exchange ships, so
+    measured traffic and tabulated e_ij agree by construction."""
+    members = [np.nonzero(assignment == c)[0].astype(np.int32)
+               for c in range(k)]
+    n_max = max(max(len(m) for m in members), 1)
+    halos, comm = [], np.zeros((k, k), np.int64)
+    used = _sample_edge_mask(g, sample, self_loops)
+    dst_cluster = assignment[np.repeat(np.arange(g.n_nodes),
+                                       np.diff(g.indptr))]
+    src_cluster = assignment[g.indices]
+    for c in range(k):
+        mask = used & (dst_cluster == c) & (src_cluster != c)
+        remote = np.unique(g.indices[mask])
+        halos.append(remote.astype(np.int32))
+        pairs, counts = np.unique(assignment[remote], return_counts=True)
+        comm[c, pairs] = counts
+    h_max = max(max((len(h) for h in halos), default=0), 1)
+    local_nodes = np.full((k, n_max), -1, np.int32)
+    local_mask = np.zeros((k, n_max), bool)
+    halo_nodes = np.full((k, h_max), 0, np.int32)
+    halo_src = np.full((k, h_max), -1, np.int32)
+    for c in range(k):
+        local_nodes[c, :len(members[c])] = members[c]
+        local_mask[c, :len(members[c])] = True
+        halo_nodes[c, :len(halos[c])] = halos[c]
+        halo_src[c, :len(halos[c])] = assignment[halos[c]]
+    return Partition(assignment, k, local_nodes, local_mask,
+                     halo_nodes, halo_src, comm, sample=sample)

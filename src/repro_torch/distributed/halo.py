@@ -1,0 +1,203 @@
+"""Decentralized and two-tier semi-decentralized GNN runtimes, emulated.
+
+The counterpart of the mesh-free runtimes of ``repro.distributed.halo``.
+One cluster per edge device; each layer needs the remote neighbor rows of
+its cluster (the paper's e_ij). The clusters lie along a leading axis of
+one tensor on one device, and the halo exchange is done as gathers over
+that axis, in either strategy:
+
+  * ``allgather`` — each halo row is picked straight out of the stacked
+    owned tables.
+  * ``alltoall``  — each cluster packs the rows its peers need (send
+    lists), the cluster axis is transposed, and the received rows are
+    scattered into the halo table: the same tables the wire traffic is
+    billed on.
+
+Both give identical halos. The **semi** setting adds tier 0, the
+spoke->head gather that assembles each region's table from its spokes, and
+runs tier 1 as the decentralized exchange over the region partition.
+
+The SPMD runtime over several cards (``torch.distributed``) is not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.gnn import layer_step as _layer_step
+from ..core.partition import HierPartition, Partition, halo_exchange_tables
+
+EXCHANGE_MODES = ("allgather", "alltoall")
+
+
+@dataclasses.dataclass
+class HaloPlan:
+    """Static exchange plan derived from a Partition (numpy, host-side)."""
+    src_cluster: np.ndarray    # [K, h_max] owner cluster of each halo row
+    src_slot: np.ndarray       # [K, h_max] owner-local slot
+    halo_mask: np.ndarray      # [K, h_max] bool
+    send_slot: np.ndarray      # [K, K, s_max] rows device k sends to peer j
+    send_mask: np.ndarray      # [K, K, s_max] bool
+    recv_to_halo: np.ndarray   # [K, K, s_max] halo row filled by recv (or 0)
+    recv_mask: np.ndarray      # [K, K, s_max] bool
+
+    @property
+    def s_max(self) -> int:
+        return self.send_slot.shape[2]
+
+
+def build_halo_plan(part: Partition) -> HaloPlan:
+    src_c, src_s, mask = halo_exchange_tables(part)
+    k, h_max = src_c.shape
+    # send lists: sends[c][j] = local slots of c needed by j
+    sends = [[[] for _ in range(k)] for _ in range(k)]
+    recv_halo = [[[] for _ in range(k)] for _ in range(k)]
+    for c in range(k):
+        for h in range(h_max):
+            if mask[c, h]:
+                owner = int(src_c[c, h])
+                sends[owner][c].append(int(src_s[c, h]))
+                recv_halo[c][owner].append(h)
+    s_max = max(max((len(s) for row in sends for s in row), default=0), 1)
+    send_slot = np.zeros((k, k, s_max), np.int32)
+    send_mask = np.zeros((k, k, s_max), bool)
+    recv_to_halo = np.zeros((k, k, s_max), np.int32)
+    recv_mask = np.zeros((k, k, s_max), bool)
+    for c in range(k):
+        for j in range(k):
+            s = sends[c][j]
+            send_slot[c, j, :len(s)] = s
+            send_mask[c, j, :len(s)] = True
+            r = recv_halo[c][j]
+            recv_to_halo[c, j, :len(r)] = r
+            recv_mask[c, j, :len(r)] = True
+    return HaloPlan(src_c, src_s, mask, send_slot, send_mask,
+                    recv_to_halo, recv_mask)
+
+
+def _plan_consts(plan: HaloPlan, device) -> dict:
+    """The plan's tables on ``device``: indices as int64, masks as
+    float32 multipliers."""
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    def msk(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+    return dict(src_c=idx(plan.src_cluster), src_s=idx(plan.src_slot),
+                hmask=msk(plan.halo_mask), send_slot=idx(plan.send_slot),
+                send_mask=msk(plan.send_mask),
+                recv_to_halo=idx(plan.recv_to_halo),
+                recv_mask=msk(plan.recv_mask))
+
+
+def _emulated_exchange(x: torch.Tensor, t: dict, mode: str,
+                       h_max: int) -> torch.Tensor:
+    """Halo exchange across the leading cluster axis of x [K, n_max, F].
+    Returns the halos [K, h_max, F]; both modes give the same values.
+
+    The alltoall scatter adds into the halo table with
+    ``index_put_(..., accumulate=True)``: each real halo row receives one
+    row, and every padding slot adds an exact zero (to row 0), so the
+    result does not depend on the order of the adds."""
+    if mode == "allgather":
+        return x[t["src_c"], t["src_s"]] * t["hmask"][..., None]
+    k = x.shape[0]
+    dev = torch.arange(k, device=x.device)[:, None, None]
+    send = x[dev, t["send_slot"]] * t["send_mask"][..., None]  # [K,K,s,F]
+    recv = send.transpose(0, 1)               # recv[c, j] = send[j, c]
+    halo = torch.zeros((k, h_max, x.shape[-1]), dtype=x.dtype,
+                       device=x.device)
+    rows = t["recv_to_halo"]
+    halo.index_put_((dev.expand_as(rows), rows),
+                    recv * t["recv_mask"][..., None], accumulate=True)
+    return halo
+
+
+def _emulated_layers(params, x, nbr, wts, cfg, t, mode, h_max):
+    k = x.shape[0]
+    n_layers = len(params)
+    for i, layer in enumerate(params):
+        halo = _emulated_exchange(x, t, mode, h_max)     # [K, h_max, F]
+        table = torch.cat([x, halo], dim=1)              # [K, n+h, F]
+        act = i < n_layers - 1 or cfg.final_activation
+        x = torch.stack([
+            _layer_step(table[c], nbr[c], wts[c], layer, cfg, act)
+            for c in range(k)])
+    return x
+
+
+def make_emulated_forward(cfg, plan: HaloPlan, mode: str = "allgather",
+                          device="cuda"):
+    """Decentralized forward with the exchange emulated over the leading
+    cluster axis on one device.
+
+    feats/nbr/wts: [K, n_max, {F,S}] tensors on ``device``.
+    Returns ``fn(params, feats, nbr, wts) -> [K, n_max, out_dim]``."""
+    if mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    h_max = plan.src_cluster.shape[1]
+    consts = _plan_consts(plan, device)
+
+    @torch.no_grad()
+    def forward(params, feats, nbr, wts):
+        return _emulated_layers(params, feats, nbr, wts, cfg, consts, mode,
+                                h_max)
+
+    return forward
+
+
+@dataclasses.dataclass
+class TwoTierPlan:
+    """Static two-tier semi-decentralized exchange plan.
+
+    ``region`` drives the tier-1 head<->head halo; the gather tables drive
+    the tier-0 spoke->head assembly of each region's feature table.
+    """
+    region: HaloPlan
+    gather_spoke: np.ndarray   # [R, n_max] spoke owning each region row
+    gather_slot: np.ndarray    # [R, n_max] slot in that spoke's table
+    gather_mask: np.ndarray    # [R, n_max] bool (valid region rows)
+    n_max: int
+
+    @property
+    def h_max(self) -> int:
+        return self.region.src_cluster.shape[1]
+
+
+def build_two_tier_plan(hier: HierPartition) -> TwoTierPlan:
+    return TwoTierPlan(build_halo_plan(hier.region), hier.gather_spoke,
+                       hier.gather_slot, hier.region.local_mask,
+                       hier.region.n_max)
+
+
+def make_emulated_semi_forward(cfg, plan: TwoTierPlan,
+                               mode: str = "allgather", device="cuda"):
+    """Two-tier semi forward on one device: the tier-0 gather, then the
+    tier-1 exchange of ``make_emulated_forward`` over the regions.
+
+    spoke_feats: [R, P, m_max, F]; nbr/wts: [R, n_max, S] region-local.
+    Returns ``fn(params, spoke_feats, nbr, wts) -> [R, n_max, out_dim]``."""
+    if mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    h_max = plan.h_max
+    gspoke = torch.as_tensor(plan.gather_spoke, dtype=torch.int64,
+                             device=device)
+    gslot = torch.as_tensor(plan.gather_slot, dtype=torch.int64,
+                            device=device)
+    gmask = torch.as_tensor(plan.gather_mask, dtype=torch.float32,
+                            device=device)
+    consts = _plan_consts(plan.region, device)
+
+    @torch.no_grad()
+    def forward(params, spoke_feats, nbr, wts):
+        r = spoke_feats.shape[0]
+        heads = torch.arange(r, device=spoke_feats.device)[:, None]
+        x = (spoke_feats[heads, gspoke, gslot]
+             * gmask[..., None])                       # tier 0: [R, n_max, F]
+        return _emulated_layers(params, x, nbr, wts, cfg, consts, mode,
+                                h_max)
+
+    return forward

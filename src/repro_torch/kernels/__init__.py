@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+Each kernel module has ``ref.py`` (plain PyTorch) and ``ops.py`` (the
+wrapper that launches the CUDA kernel from ``repro_torch/csrc`` on a CUDA
+tensor and runs the plain version on a CPU tensor). ``launch_counts`` reads
+the wrappers' launch counters and ``reset_launch_counts`` sets them to 0.
+"""
+from __future__ import annotations
+
+
+def _wrappers() -> dict:
+    from .csr_aggregate.ops import csr_aggregate
+    from .fused_layer.ops import fused_ideal_layer, fused_quant_layer, fused_zmax
+    return {f.__name__: f for f in (fused_ideal_layer, fused_zmax,
+                                    fused_quant_layer, csr_aggregate)}
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` of the four kernel wrappers."""
+    return {name: f.launches for name, f in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for f in _wrappers().values():
+        f.launches = 0

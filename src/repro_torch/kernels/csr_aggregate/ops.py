@@ -1,0 +1,97 @@
+"""Public wrapper of the aggregation-core kernel (``csrc/csr_aggregate.cu``).
+
+``csr_aggregate`` launches the hand-written CUDA kernel on a CUDA tensor
+and runs the plain version (``ref.csr_aggregate_ref``) on a CPU tensor;
+there is no other fallback. ``aggregate`` is the backend switch of the
+composed path:
+
+  * ``jnp``    — the plain PyTorch version on any device (the name is the
+    reference's: its backend of plain array ops).
+  * ``pallas`` — the hand-written kernel (the name is the reference's: its
+    backend of hand-written kernels).
+
+``csr_aggregate.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import csr_aggregate_ref
+
+DEFAULT_BF = 128
+
+
+def _validate_bf(bf) -> None:
+    """An explicit ``bf=0`` is a caller bug, not a default request."""
+    if bf is not None and int(bf) < 1:
+        raise ValueError(f"bf must be a positive feature block size, got "
+                         f"{bf!r} (pass None for the default)")
+
+
+def check_gather_inputs(x: torch.Tensor, neighbors: torch.Tensor,
+                        weights: torch.Tensor) -> None:
+    """Raise unless (x, neighbors, weights) are what the gather kernels
+    take: contiguous float32 [N, F], int32 [Nd, S] and float32 [Nd, S] on
+    one device."""
+    if x.dim() != 2 or neighbors.dim() != 2 \
+            or weights.shape != neighbors.shape:
+        raise ValueError(f"want x [N, F] and neighbors/weights [Nd, S]; got "
+                         f"{tuple(x.shape)}, {tuple(neighbors.shape)}, "
+                         f"{tuple(weights.shape)}")
+    if (x.dtype, neighbors.dtype, weights.dtype) != (
+            torch.float32, torch.int32, torch.float32):
+        raise TypeError(f"want float32/int32/float32; got {x.dtype}, "
+                        f"{neighbors.dtype}, {weights.dtype}")
+    if not (neighbors.device == weights.device == x.device):
+        raise ValueError("x, neighbors and weights must share a device")
+    if not (x.is_contiguous() and neighbors.is_contiguous()
+            and weights.is_contiguous()):
+        raise ValueError("x, neighbors and weights must be contiguous")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def csr_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Weighted neighbor-feature aggregation ``z[i] = sum_s w[i,s] *
+    x[nbr[i,s]]`` (slot order). x: [N, F] float32; neighbors: [Nd, S]
+    int32 in [0, N); weights: [Nd, S] float32. Returns [Nd, F] float32."""
+    check_gather_inputs(x, neighbors, weights)
+    if x.device.type == "cpu":
+        return csr_aggregate_ref(x, neighbors, weights)
+    nd, s = neighbors.shape
+    out = torch.empty((nd, x.shape[1]), dtype=torch.float32, device=x.device)
+    if nd and x.shape[1]:
+        fn = _build.c_function("csr_aggregate", "csr_aggregate_f32", (
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p))
+        _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
+                        weights.data_ptr(), out.data_ptr(), nd, s,
+                        x.shape[1], stream_ptr(x)), "csr_aggregate")
+        csr_aggregate.launches += 1
+    return out
+
+
+csr_aggregate.launches = 0
+
+
+def aggregate(x: torch.Tensor, neighbors: torch.Tensor,
+              weights: torch.Tensor, backend: str = "jnp",
+              bf: int | None = None) -> torch.Tensor:
+    """Weighted neighbor aggregation ``Z = sum_s w[:, s] * X[nbr[:, s]]``.
+
+    ``bf`` is kept for the reference's contract (a non-positive value
+    raises); the kernel's column slice is fixed at 128 and results do not
+    depend on it."""
+    _validate_bf(bf)
+    if backend == "jnp":
+        return csr_aggregate_ref(x, neighbors, weights)
+    if backend != "pallas":
+        raise ValueError(f"unknown aggregation backend {backend!r}")
+    return csr_aggregate(x, neighbors, weights)

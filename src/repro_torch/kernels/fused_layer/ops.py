@@ -1,0 +1,237 @@
+"""Public wrappers of the fused GNN-layer kernels (``csrc/fused_layer.cu``).
+
+Three kernels share one gather loop, ``z = sum_s w[i,s] * x[nbr[i,s]]``,
+and keep Z out of device memory:
+
+  * ``fused_ideal_layer`` — ``act(z @ W + b)`` in float32 (ideal numerics).
+  * ``fused_zmax``        — per node ``(max(max(z,0)), max(max(-z,0)))``,
+    the scale pass of the bit-accurate layer ([Nd, 2] instead of Z).
+  * ``fused_quant_layer`` — DAC codes of z against the two global scales,
+    then the bit-serial crossbar MVM with an ADC per (K-tile, bit).
+
+Each wrapper launches its CUDA kernel on a CUDA tensor and runs the plain
+PyTorch version beside it (``*_plain``) on a CPU tensor; it counts its
+launches in ``<wrapper>.launches``. ``fused_gnn_layer`` is the layer the
+``fused`` backend runs: one launch on the ideal path; zmax, the global
+scales, the weight codes and the quant kernel on the bit-accurate one.
+No padding to a block grid is needed: the kernels mask ragged edges.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..crossbar_mvm.ref import (CrossbarNumerics, _adc,
+                                apply_conductance_noise, quantize_weights)
+from ..csr_aggregate.ops import check_gather_inputs, stream_ptr
+from ..csr_aggregate.ref import csr_aggregate_ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _check_layer(x, neighbors, weights, w, b):
+    check_gather_inputs(x, neighbors, weights)
+    f, h = w.shape
+    if f != x.shape[1] or b.shape != (h,):
+        raise ValueError(f"want w [F, H] and b [H] for x [N, F]; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    if w.dtype != torch.float32 or b.dtype != torch.float32 \
+            or w.device != x.device or b.device != x.device \
+            or not (w.is_contiguous() and b.is_contiguous()):
+        raise TypeError("w and b must be contiguous float32 on x's device")
+
+
+# ---------------------------------------------------------------- ideal
+
+
+def fused_ideal_layer_plain(x, neighbors, weights, w, b, *,
+                            relu: bool = False) -> torch.Tensor:
+    """Plain version of ``fused_ideal_layer``: Z materialized, then one
+    matmul."""
+    h = csr_aggregate_ref(x, neighbors, weights) @ w + b
+    return torch.clamp_min(h, 0.0) if relu else h
+
+
+def fused_ideal_layer(x: torch.Tensor, neighbors: torch.Tensor,
+                      weights: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
+    """``act((A_hat @ X) @ W + b)`` in one kernel, ideal float numerics.
+
+    x: [N, F]; neighbors/weights: [Nd, S]; w: [F, H]; b: [H].
+    Returns [Nd, H] float32."""
+    _check_layer(x, neighbors, weights, w, b)
+    if x.device.type == "cpu":
+        return fused_ideal_layer_plain(x, neighbors, weights, w, b,
+                                       relu=relu)
+    nd, s = neighbors.shape
+    f, h = w.shape
+    out = torch.empty((nd, h), dtype=torch.float32, device=x.device)
+    if nd and h:
+        fn = _build.c_function("fused_layer", "fused_ideal_layer_f32", (
+            _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P))
+        _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
+                        weights.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), nd, s, f, h, int(relu),
+                        stream_ptr(x)), "fused_ideal_layer")
+        fused_ideal_layer.launches += 1
+    return out
+
+
+fused_ideal_layer.launches = 0
+
+
+# ---------------------------------------------------------------- zmax
+
+
+def fused_zmax_plain(x, neighbors, weights) -> torch.Tensor:
+    """Plain version of ``fused_zmax``."""
+    z = csr_aggregate_ref(x, neighbors, weights)
+    return torch.stack([torch.clamp_min(z, 0.0).amax(dim=1),
+                        torch.clamp_min(-z, 0.0).amax(dim=1)], dim=1)
+
+
+def fused_zmax(x: torch.Tensor, neighbors: torch.Tensor,
+               weights: torch.Tensor) -> torch.Tensor:
+    """Per-node ``(max(max(z, 0)), max(max(-z, 0)))`` of ``Z = A_hat @ X``
+    without writing Z. Returns [Nd, 2] float32."""
+    check_gather_inputs(x, neighbors, weights)
+    if x.shape[1] == 0:
+        raise ValueError("fused_zmax needs at least one feature column")
+    if x.device.type == "cpu":
+        return fused_zmax_plain(x, neighbors, weights)
+    nd, s = neighbors.shape
+    out = torch.empty((nd, 2), dtype=torch.float32, device=x.device)
+    if nd:
+        fn = _build.c_function("fused_layer", "fused_zmax_f32", (
+            _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P))
+        _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
+                        weights.data_ptr(), out.data_ptr(), nd, s,
+                        x.shape[1], stream_ptr(x)), "fused_zmax")
+        fused_zmax.launches += 1
+    return out
+
+
+fused_zmax.launches = 0
+
+
+# ---------------------------------------------------------------- quant
+
+
+def _bit_serial_mvm(codes: torch.Tensor, wq: torch.Tensor,
+                    cfg: CrossbarNumerics) -> torch.Tensor:
+    """Bit-serial crossbar MVM of int32 DAC codes [M, K] against the codes
+    [K, H]: ADC per (K-tile, bit) partial, shift and add within the tile,
+    then the digital add across tiles — the order of the quant kernel and
+    of ``crossbar_matmul_ref``."""
+    r = cfg.rows_per_xbar
+    acc = torch.zeros((codes.shape[0], wq.shape[1]), dtype=torch.float32,
+                      device=codes.device)
+    for t0 in range(0, codes.shape[1], r):
+        codes_t, wq_t = codes[:, t0:t0 + r], wq[t0:t0 + r]
+        tile = torch.zeros_like(acc)
+        for b in range(cfg.in_bits):
+            plane = ((codes_t >> b) & 1).float()
+            tile = tile + _adc(plane @ wq_t, cfg) * (2.0 ** b)
+        acc = acc + tile
+    return acc
+
+
+def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
+                            cfg: CrossbarNumerics, *,
+                            relu: bool = False) -> torch.Tensor:
+    """Plain version of ``fused_quant_layer``."""
+    z = csr_aggregate_ref(x, neighbors, weights)
+    mvm = []
+    for sign, scale in ((1.0, scales[0]), (-1.0, scales[1])):
+        part = torch.clamp_min(sign * z, 0.0)
+        codes = torch.clamp(torch.round(part / scale), 0, cfg.in_levels)
+        mvm.append(_bit_serial_mvm(codes.to(torch.int32), wq, cfg))
+    h = (mvm[0] * (scales[0] * scales[2])
+         - mvm[1] * (scales[1] * scales[2])) + b
+    return torch.clamp_min(h, 0.0) if relu else h
+
+
+def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
+                      weights: torch.Tensor, wq: torch.Tensor,
+                      b: torch.Tensor, scales: torch.Tensor,
+                      cfg: CrossbarNumerics, *,
+                      relu: bool = False) -> torch.Tensor:
+    """Bit-accurate fused layer on programmed conductance codes.
+
+    wq: [F, H] signed conductance codes (float32); b: [H]; scales: [3] =
+    (dac_scale_pos, dac_scale_neg, w_scale) on x's device. Returns [Nd, H]
+    float32 == act(signed crossbar MVM of Z against wq, rescaled, + b),
+    rounded as the composed oracle ``crossbar_matmul_signed_ref`` rounds:
+    each tile's shifted ADC outputs are summed before the cross-tile add,
+    and each sign pass is scaled by ``scale * w_scale`` before the
+    subtraction. The two bit-accurate paths therefore agree bit for bit
+    on the same codes; a layer's output feeds the next layer's DAC, where
+    one ulp can move a code and its ADC output by a whole step."""
+    _check_layer(x, neighbors, weights, wq, b)
+    if scales.shape != (3,) or scales.dtype != torch.float32 \
+            or scales.device != x.device:
+        raise ValueError("scales must be float32 [3] on x's device")
+    if x.device.type == "cpu":
+        return fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
+                                       cfg, relu=relu)
+    if not 1 <= cfg.in_bits <= 8:
+        raise ValueError(f"the quant kernel keeps DAC codes in 8 bits; "
+                         f"in_bits={cfg.in_bits}")
+    nd, s = neighbors.shape
+    f, h = wq.shape
+    out = torch.empty((nd, h), dtype=torch.float32, device=x.device)
+    if nd and h:
+        fn = _build.c_function("fused_layer", "fused_quant_layer_f32", (
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+            _I, _I, ctypes.c_float, ctypes.c_float, _I, _P))
+        _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
+                        weights.data_ptr(), wq.data_ptr(), b.data_ptr(),
+                        scales.data_ptr(), out.data_ptr(), nd, s, f, h,
+                        cfg.rows_per_xbar, cfg.in_bits, cfg.full_scale,
+                        cfg.lsb, int(relu), stream_ptr(x)),
+                     "fused_quant_layer")
+        fused_quant_layer.launches += 1
+    return out
+
+
+fused_quant_layer.launches = 0
+
+
+# ---------------------------------------------------------------- layer
+
+
+def quant_operands(zmax: torch.Tensor, w: torch.Tensor,
+                   cfg: CrossbarNumerics,
+                   w_noise: torch.Tensor | None = None):
+    """(wq, scales) for ``fused_quant_layer`` from the zmax pass: the global
+    DAC scales of max(Z, 0) and max(-Z, 0) (floor 1e-8, over ``in_levels``)
+    and the programmed, optionally perturbed, conductance codes."""
+    levels = torch.tensor(float(cfg.in_levels), dtype=torch.float32,
+                          device=zmax.device)
+    scale_pos = torch.clamp_min(zmax[:, 0].max(), 1e-8) / levels
+    scale_neg = torch.clamp_min(zmax[:, 1].max(), 1e-8) / levels
+    wq, w_scale = quantize_weights(w, cfg)
+    wq = apply_conductance_noise(wq, w_noise, cfg).contiguous()
+    return wq, torch.stack([scale_pos, scale_neg, w_scale])
+
+
+def fused_gnn_layer(x: torch.Tensor, neighbors: torch.Tensor,
+                    weights: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    cfg: CrossbarNumerics = CrossbarNumerics(ideal=True),
+                    *, relu: bool = False,
+                    w_noise: torch.Tensor | None = None) -> torch.Tensor:
+    """``act((A_hat @ X) @ W + b)`` with Z kept out of device memory.
+
+    Matches ``ref.fused_layer_ref`` for ideal and bit-accurate ``cfg``.
+    ``w_noise``: optional [F, H] conductance-code perturbation, ignored on
+    the ideal path."""
+    if cfg.ideal:
+        return fused_ideal_layer(x, neighbors, weights, w, b, relu=relu)
+    zmax = fused_zmax(x, neighbors, weights)
+    wq, scales = quant_operands(zmax, w, cfg, w_noise)
+    return fused_quant_layer(x, neighbors, weights, wq, b, scales, cfg,
+                             relu=relu)
