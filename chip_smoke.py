@@ -7,27 +7,53 @@ Phases, each printing its lines, each failing the run on any error:
 
   1. the card (``nvidia-smi`` name and power limit), the torch, CUDA and
      nvcc versions; the kernels built from ``src/repro_torch/csrc`` (one
-     nvcc per source, in parallel).
-  2. each of the four kernels against its plain PyTorch version at the
-     serving path's shapes (collab-like F=496 -> H=64 and 64 -> 16, S=8,
-     372,475 destination rows with some zero-degree rows), on ideal,
-     default bit-accurate and 12-bit-ADC/64-row numerics and both ``relu``
-     values. Aggregation and zmax must be equal bit for bit; the layers
-     agree within rtol 1e-5, atol 1e-5 * max|ref| (the matmul sums in
-     another order).
-  3. ``GNNServer`` end to end, GNNConfig(in_dim=496, hidden_dims=(64,),
-     out_dim=16, sample=8): centralized on collab at scale 1.0,
-     decentralized on 8 clusters in both exchange modes and semi on
-     4 heads x 4 spokes at scale 0.1, each refreshed and answering 64
-     batches of 16 lookups on the ``fused`` and ``pallas`` backends with
-     ideal and bit-accurate numerics, against the ``jnp`` backend on the
-     card at rtol and atol 1e-4 * max|ref|. The launch counters are set to
-     0 before each run and read after it; every kernel the path runs must
-     have launched.
-  4. each kernel's time (CUDA events) at layer 1 and layer 2 of the
-     centralized path, beside its plain version's, its bound on an H100
-     SXM and, for aggregation, ``torch.sparse.mm`` of the CSR sample
-     matrix as the library yardstick.
+     nvcc per source, all started together).
+  2. each of the six kernels against its plain PyTorch version on the
+     same inputs, at the shapes its path gives it:
+       * the serving kernels at collab-like F=496 -> H=64 and 64 -> 16,
+         S=8, 372,475 destination rows with some zero-degree rows, on
+         ideal, default bit-accurate and 12-bit-ADC/64-row numerics and
+         both ``relu`` values. Aggregation and zmax must be equal bit for
+         bit; the layers agree within rtol 1e-5, atol 1e-5 * max|ref|
+         (the ideal matmul sums in another order).
+       * ``cam_search`` at one k-NN launch of the recsys scenario at 20,000
+         nodes (Q = 104 tagged query ids against E = 160,000 entries), at
+         a ragged Q = 7, E = 160,001, and with negative queries: exact.
+       * ``crossbar_matmul_quantized`` at 32 x 216 x 64 (the variation
+         bounds) and 372,475 x 496 x 64 (layer 1 of the centralized collab
+         path), default and 12-bit-ADC/64-row numerics, clean and noisy
+         conductance codes: exact; and ``crossbar_matmul_signed`` on the
+         kernel equal to ``crossbar_matmul_signed_ref`` bit for bit.
+  3. the paths, each driven through its entry points with the launch
+     counters set to 0 just before and read just after; every kernel a
+     path runs must have launched:
+       * serving: ``GNNServer`` with GNNConfig(in_dim=496, hidden_dims=(64,),
+         out_dim=16, sample=8), centralized on collab at scale 1.0,
+         decentralized on 8 clusters in both exchange modes and semi on
+         4 heads x 4 spokes at scale 0.1, each refreshed and answering 64
+         batches of 16 lookups on ``fused`` and ``pallas`` with ideal and
+         bit-accurate numerics, against ``jnp`` on the card at rtol and
+         atol 1e-4 * max|ref|.
+       * path A, CAM-built k-NN serving: the recsys and anomaly graphs at
+         20,000 nodes (F=32, 8 bands x 8 bits, k=8) built on the
+         ``cam-pallas``, ``cam`` and ``topk`` paths must be equal bit for
+         bit, ``cam_search`` launched ceil(N / 13) times per build; a
+         centralized plan on that graph served as above (in_dim=32); and
+         the CLI driven once with ``--dataset recsys --neighbor-mode
+         cam-pallas --setting centralized --scale 0.1``.
+       * path B, conductance-variation bounds: ``mvm_error_bounds`` for the
+         four technologies, ``pallas`` (18 crossbar launches each) equal
+         to ``jnp`` field for field; ``noisy_forward`` with ReRAM noise on
+         collab at scale 0.1, 4 trials, on ``fused`` and ``pallas`` against
+         ``jnp`` at 1e-4 * max|ref|; ``accuracy_bounds`` for the same
+         configuration, printed.
+  4. each kernel's time (CUDA events) beside its plain version's, its
+     bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
+     CSR sample matrix as the library yardstick: the serving kernels at
+     layer 1 and layer 2 of the centralized path, ``cam_search`` at
+     Q = 104, E = 160,000 and ``crossbar_matmul_quantized`` at
+     372,475 x 496 x 64 (both numerics), 372,475 x 64 x 16 and
+     32 x 216 x 64.
 
 The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -49,16 +75,22 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import devices, neighbors  # noqa: E402
 from repro_torch.core import dataset_like, gnn  # noqa: E402
 from repro_torch.core.partition import plan_execution  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
+from repro_torch.kernels import crossbar_mvm as xb  # noqa: E402
+from repro_torch.kernels.cam_match import (  # noqa: E402
+    cam_search, cam_search_ref)
 from repro_torch.kernels.crossbar_mvm import CrossbarNumerics  # noqa: E402
 from repro_torch.kernels.csr_aggregate.ops import csr_aggregate  # noqa: E402
 from repro_torch.kernels.csr_aggregate.ref import (  # noqa: E402
     csr_aggregate_ref)
 from repro_torch.kernels.fused_layer import ops as fl  # noqa: E402
+from repro_torch.launch import gnn as cli  # noqa: E402
 from repro_torch.launch.gnn import GNNServer  # noqa: E402
+from repro_torch.neighbors import knn  # noqa: E402
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 flop/s on the CUDA
 # cores, int8 op/s on the tensor cores.
@@ -68,6 +100,8 @@ INT8_OPS = 1979e12
 
 HIDDEN, OUT, SAMPLE = 64, 16, 8
 QUANT = dict(in_bits=8, w_bits=8, adc_bits=12, rows_per_xbar=64)
+SCENARIO_NODES = 20_000        # the CLI's --scale 0.1 (200,000 * 0.1)
+TECHS = ("sot-mram", "reram", "sram", "fefet")
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "fused_ideal_layer": ("src/repro_torch/csrc/fused_layer.cu",
@@ -78,6 +112,11 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                           "src/repro/kernels/fused_layer/fused_layer.py:202"),
     "csr_aggregate": ("src/repro_torch/csrc/csr_aggregate.cu",
                       "src/repro/kernels/csr_aggregate/csr_aggregate.py:39"),
+    "crossbar_matmul_quantized": (
+        "src/repro_torch/csrc/crossbar_mvm.cu",
+        "src/repro/kernels/crossbar_mvm/crossbar_mvm.py:59"),
+    "cam_search": ("src/repro_torch/csrc/cam_match.cu",
+                   "src/repro/kernels/cam_match/cam_match.py:34"),
 }
 
 
@@ -113,35 +152,36 @@ def cuda_ms(fn, iters: int) -> float:
 # ------------------------------------------------------------------ phase 2
 
 
-def kernel_checks(x1, x2, nbr, wts, params, device) -> dict:
-    """Each kernel against its plain version on the same inputs. Returns
-    {kernel: max abs error over its cases}."""
+def record(err: dict, name, got, ref, exact, label) -> None:
+    """Hold one kernel output to its plain version's; fold the error into
+    ``err[name]``."""
+    torch.cuda.synchronize()
+    require(got.shape == ref.shape and got.dtype == ref.dtype
+            and bool(torch.isfinite(got).all()),
+            f"{name} {label}: shape, type or non-finite values")
+    diff = (got.double() - ref.double()).abs()
+    e = float(diff.max()) if diff.numel() else 0.0
+    err[name] = max(err[name], e)
+    if exact:
+        ok = torch.equal(got, ref)
+        tol = "exact"
+    else:
+        scale = float(ref.abs().max()) or 1.0
+        ok = bool((diff <= 1e-5 * scale + 1e-5 * ref.abs()).all())
+        tol = f"rtol 1e-5 atol {1e-5 * scale:.3e}"
+    print(f"[kernels] {name:18s} {label:34s} max|err| {e:.3e} ({tol}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"{name} {label} disagrees with its plain version")
+
+
+def kernel_checks(x1, x2, nbr, wts, params, device, err: dict) -> None:
+    """The serving kernels against their plain versions on the same
+    inputs."""
     gen = torch.Generator(device=device).manual_seed(7)
-    err = {k: 0.0 for k in KERNELS}
-
-    def record(name, got, ref, exact, label):
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        require(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-                f"{name} {label}: shape or non-finite values")
-        diff = (got - ref).abs()
-        e = float(diff.max()) if diff.numel() else 0.0
-        err[name] = max(err[name], e)
-        if exact:
-            ok = torch.equal(got, ref)
-            tol = "exact"
-        else:
-            scale = float(ref.abs().max()) or 1.0
-            ok = bool((diff <= 1e-5 * scale + 1e-5 * ref.abs()).all())
-            tol = f"rtol 1e-5 atol {1e-5 * scale:.3e}"
-        print(f"[kernels] {name:18s} {label:34s} max|err| {e:.3e} ({tol}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        require(ok, f"{name} {label} disagrees with its plain version")
-
     for x, tag in ((x1, "F=496"), (x2, "F=64")):
-        record("csr_aggregate", csr_aggregate(x, nbr, wts),
+        record(err, "csr_aggregate", csr_aggregate(x, nbr, wts),
                csr_aggregate_ref(x, nbr, wts), True, tag)
-        record("fused_zmax", fl.fused_zmax(x, nbr, wts),
+        record(err, "fused_zmax", fl.fused_zmax(x, nbr, wts),
                fl.fused_zmax_plain(x, nbr, wts), True, tag)
     numerics = {"default": CrossbarNumerics(), "QUANT": CrossbarNumerics(
         **QUANT)}
@@ -150,20 +190,93 @@ def kernel_checks(x1, x2, nbr, wts, params, device) -> dict:
         w = layer["w"]
         b = 0.1 * torch.randn(w.shape[1], generator=gen, device=device)
         for relu in (True, False):
-            record("fused_ideal_layer",
+            record(err, "fused_ideal_layer",
                    fl.fused_ideal_layer(x, nbr, wts, w, b, relu=relu),
                    fl.fused_ideal_layer_plain(x, nbr, wts, w, b, relu=relu),
                    False, f"{tag} relu={relu}")
             for nname, cfg in numerics.items():
                 wq, scales = fl.quant_operands(
                     fl.fused_zmax_plain(x, nbr, wts), w, cfg)
-                record("fused_quant_layer",
+                record(err, "fused_quant_layer",
                        fl.fused_quant_layer(x, nbr, wts, wq, b, scales, cfg,
                                             relu=relu),
                        fl.fused_quant_layer_plain(x, nbr, wts, wq, b, scales,
                                                   cfg, relu=relu),
                        False, f"{tag} {nname} relu={relu}")
-    return err
+
+
+def cam_inputs(device) -> tuple:
+    """(entries [E], queries [Q]) of one k-NN launch of the recsys scenario
+    at SCENARIO_NODES nodes: every node's tagged band signatures, and the
+    tagged signatures of the first query chunk."""
+    x, _ = neighbors.scenario_features("recsys", n_nodes=SCENARIO_NODES,
+                                       feature_len=32)
+    sigs = neighbors.lsh_signatures(x)
+    n, b = sigs.shape
+    chunk = knn._BITMAP_BUDGET // (n * b * b)
+    entries = torch.from_numpy(neighbors.tag_bands(sigs)).to(device)
+    return entries, entries[:chunk * b].clone()
+
+
+def mvm_inputs(device) -> tuple:
+    """(x, w) of ``mvm_error_bounds`` at its default 32 x 216 x 64."""
+    rng = np.random.default_rng(0x0DA7A)
+    x = torch.from_numpy(rng.standard_normal((32, 216)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((216, 64)) * 0.1)
+                         .astype(np.float32))
+    return x.to(device), w.to(device)
+
+
+def crossbar_codes(x, w, cfg, noisy: bool) -> tuple:
+    """(xq, wq) the kernel gets from ``crossbar_matmul`` on (x, w): DAC
+    codes of max(x, 0), conductance codes with a ReRAM noise draw."""
+    xq, _ = xb.quantize_inputs(torch.clamp_min(x, 0.0), cfg)
+    wq, _ = xb.quantize_weights(w, cfg)
+    if noisy:
+        wq = xb.apply_conductance_noise(wq, torch.from_numpy(
+            devices.sample_conductance_noise(1, tuple(w.shape), "reram",
+                                             cfg)).to(w.device), cfg)
+    return xq, wq.contiguous()
+
+
+def new_kernel_checks(z1, w1, device, err: dict) -> None:
+    """``cam_search`` and ``crossbar_matmul_quantized`` against their
+    plain versions, exactly, at their paths' shapes."""
+    entries, queries = cam_inputs(device)
+    ragged_e = torch.cat([entries, entries[:1]])
+    negative = queries.clone()
+    negative[::5] = -1
+    negative[1::7] = -(1 << 20)
+    for ci, q, tag in ((entries, queries, "Q=104 E=160000"),
+                       (ragged_e, queries[:7].clone(), "Q=7 E=160001"),
+                       (entries, negative, "Q=104 negative queries")):
+        match, counts = cam_search(ci, q)
+        ref_match, ref_counts = cam_search_ref(ci, q)
+        record(err, "cam_search", match, ref_match, True, f"{tag} bitmap")
+        record(err, "cam_search", counts, ref_counts, True, f"{tag} counts")
+    x_small, w_small = mvm_inputs(device)
+    for x, w, tag in ((x_small, w_small, "32x216x64"),
+                      (z1, w1, "372475x496x64")):
+        for nname, cfg in (("default", CrossbarNumerics()),
+                           ("QUANT", CrossbarNumerics(**QUANT))):
+            for noisy in (False, True):
+                xq, wq = crossbar_codes(x, w, cfg, noisy)
+                record(err, "crossbar_matmul_quantized",
+                       xb.crossbar_matmul_quantized(xq, wq, cfg),
+                       xb.crossbar_matmul_quantized_plain(xq, wq, cfg),
+                       True, f"{tag} {nname} noisy={noisy}")
+    for nname, cfg in (("default", CrossbarNumerics()),
+                       ("QUANT", CrossbarNumerics(**QUANT))):
+        nz = torch.from_numpy(devices.sample_conductance_noise(
+            2, (216, 64), "reram", cfg)).to(device)
+        got = xb.crossbar_matmul_signed(x_small, w_small, cfg, w_noise=nz)
+        ref = xb.crossbar_matmul_signed_ref(x_small, w_small, cfg,
+                                            w_noise=nz)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref)
+        print(f"[kernels] crossbar_matmul_signed 32x216x64 {nname} noisy: "
+              f"equal to crossbar_matmul_signed_ref: {ok}", flush=True)
+        require(ok, "crossbar_matmul_signed differs from its oracle")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -229,6 +342,138 @@ def serve_cases(plan, cfg, modes, device, counted: bool, totals: dict,
                 del srv
 
 
+def counted(what: str, fn, expect: dict, totals: dict):
+    """Run ``fn`` with every launch counter at 0 and read the counters
+    after it: ``expect`` maps a kernel to its exact launch count, or to
+    None for "at least once". Adds the counts to ``totals``; returns what
+    ``fn`` returns."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[launches] {what}: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    for k, n in expect.items():
+        require(counts[k] > 0 if n is None else counts[k] == n,
+                f"{what}: {k} launched {counts[k]} times, want "
+                f"{'> 0' if n is None else n}")
+    for k, v in counts.items():
+        totals[k] += v
+    return out
+
+
+def path_a(device, totals: dict) -> None:
+    """CAM-built k-NN serving: both scenarios' graphs on the three paths,
+    a centralized plan served on them, and the CLI."""
+    n = SCENARIO_NODES
+    per_launch = knn._BITMAP_BUDGET // (n * 64)        # query nodes
+    launches = -(-n // per_launch)
+    cfg = gnn.GNNConfig(in_dim=32, hidden_dims=(HIDDEN,), out_dim=OUT,
+                        sample=SAMPLE)
+    for name in neighbors.SCENARIOS:
+        graphs = {}
+        for mode, backend in (("cam", "pallas"), ("cam", "jnp"),
+                              ("topk", "jnp")):
+            t0 = time.perf_counter()
+            graphs[mode, backend] = counted(
+                f"{name} k-NN {mode}/{backend}",
+                lambda mode=mode, backend=backend: neighbors.scenario_graph(
+                    name, n_nodes=n, feature_len=32, k=SAMPLE,
+                    neighbor_mode=mode, backend=backend, device=device),
+                {"cam_search": launches if backend == "pallas" else 0},
+                totals)
+            g = graphs[mode, backend]
+            print(f"[pathA] {name} {mode}/{backend}: {g.n_nodes} nodes, "
+                  f"{g.n_edges} edges, built in "
+                  f"{time.perf_counter() - t0:.2f} s (host clock)",
+                  flush=True)
+        ref = graphs["cam", "pallas"]
+        for (mode, backend), g in graphs.items():
+            require(all(np.array_equal(getattr(g, a), getattr(ref, a))
+                        for a in ("indptr", "indices", "edge_weight")),
+                    f"{name}: the {mode}/{backend} graph differs from "
+                    f"cam/pallas")
+        print(f"[pathA] {name}: cam-pallas, cam and topk graphs equal bit "
+              f"for bit ({launches} cam_search launches per build)",
+              flush=True)
+        plan = plan_execution(ref.gcn_normalize(), "centralized",
+                              sample=SAMPLE)
+        serve_cases(plan, cfg, ("alltoall",), device, True, totals)
+    counted("CLI --dataset recsys --neighbor-mode cam-pallas",
+            lambda: cli.main(["--dataset", "recsys", "--neighbor-mode",
+                              "cam-pallas", "--setting", "centralized",
+                              "--scale", "0.1"]),
+            {"cam_search": launches, "fused_ideal_layer": None}, totals)
+
+
+def path_b(device, g, totals: dict) -> None:
+    """Conductance-variation bounds: MVM bounds of the four technologies
+    on both crossbar backends, noisy forwards on the three GNN backends,
+    and the end-to-end bounds."""
+    for tech in TECHS:
+        plain = counted(
+            f"mvm_error_bounds {tech} jnp",
+            lambda tech=tech: devices.mvm_error_bounds(
+                tech, backend="jnp", device=device),
+            {"crossbar_matmul_quantized": 0}, totals)
+        kernel = counted(
+            f"mvm_error_bounds {tech} pallas",
+            lambda tech=tech: devices.mvm_error_bounds(
+                tech, backend="pallas", device=device),
+            {"crossbar_matmul_quantized": 18}, totals)
+        print(f"[pathB] mvm_error_bounds {tech}: pallas == jnp field for "
+              f"field: {kernel == plain}; {kernel}", flush=True)
+        require(kernel == plain, f"mvm_error_bounds {tech}: the backends "
+                f"differ")
+    numerics = CrossbarNumerics()
+    cfg = gnn.GNNConfig(in_dim=g.feature_len, hidden_dims=(HIDDEN,),
+                        out_dim=OUT, sample=SAMPLE, numerics=numerics)
+    params = gnn.init_params(cfg, seed=0, device=device)
+    nb, wt = g.neighbor_sample(SAMPLE)
+    xs = tuple(torch.from_numpy(a).to(device) for a in (g.features, nb, wt))
+    noise = [devices.layer_noise([0, t], params, "reram", numerics)
+             for t in range(4)]
+
+    def trials(backend):
+        c = dataclasses.replace(cfg, backend=backend)
+        return [devices.noisy_forward(params, *xs, c, nz).cpu().numpy()
+                for nz in noise]
+    ref = trials("jnp")
+    for backend, expect in (("fused", {"fused_zmax": None,
+                                       "fused_quant_layer": None}),
+                            ("pallas", {"csr_aggregate": None})):
+        t0 = time.perf_counter()
+        outs = counted(f"noisy_forward reram {backend}",
+                       lambda backend=backend: trials(backend), expect,
+                       totals)
+        dt = time.perf_counter() - t0
+        for t, (got, r) in enumerate(zip(outs, ref)):
+            scale = float(np.abs(r).max()) or 1.0
+            diff = np.abs(got - r)
+            ok = bool((diff <= 1e-4 * scale + 1e-4 * np.abs(r)).all()
+                      and got.shape == (g.n_nodes, OUT))
+            print(f"[pathB] noisy_forward reram collab 0.1 {backend:6s} "
+                  f"trial {t}: max|err| {float(diff.max()):.3e} vs jnp "
+                  f"(tol {1e-4 * scale:.3e}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            require(ok, f"noisy_forward {backend} trial {t} disagrees "
+                    f"with jnp")
+        print(f"[pathB] noisy_forward {backend}: 4 trials in {dt:.2f} s "
+              f"(host clock)", flush=True)
+    acc = counted(
+        "accuracy_bounds reram collab 0.1 fused",
+        lambda: devices.accuracy_bounds(
+            "reram", dataset="collab", scale=0.1, trials=4,
+            backend="fused", hidden=HIDDEN, out_dim=OUT, sample=SAMPLE,
+            device=device),
+        {"fused_zmax": None, "fused_quant_layer": None}, totals)
+    require(np.isfinite([acc.mean_err, acc.p99_err, acc.ci95,
+                         acc.flip_rate]).all(), "accuracy_bounds not finite")
+    print(f"[pathB] accuracy_bounds reram collab 0.1 (hidden 64, out 16, "
+          f"S=8, 4 trials): {acc}", flush=True)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -236,6 +481,14 @@ def live_counts(nbr, wts) -> tuple:
     """(slots with a non-zero weight, distinct rows they read)."""
     live = wts != 0
     return int(live.sum()), int(torch.unique(nbr[live]).numel())
+
+
+def bound(nbytes: int, t_ops: float) -> tuple:
+    """(least ms, what bounds it): ``nbytes`` over the HBM rate against
+    ``t_ops`` seconds of operations at their peak rate."""
+    t_mem = nbytes / HBM_BPS
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations")
 
 
 def bounds(x, nbr, wts, h: int, in_bits: int) -> dict:
@@ -247,11 +500,6 @@ def bounds(x, nbr, wts, h: int, in_bits: int) -> dict:
     nnz, rows = live_counts(nbr, wts)
     read = rows * f * 4 + nd * s * 8          # gathered rows + tables
     gather_flops = 2 * nnz * f
-
-    def bound(nbytes, t_ops):
-        t_mem = nbytes / HBM_BPS
-        return (max(t_mem, t_ops) * 1e3,
-                "bytes" if t_mem >= t_ops else "operations")
     return {
         "csr_aggregate": bound(read + nd * f * 4, gather_flops / F32_FLOPS),
         "fused_zmax": bound(read + nd * 8,
@@ -317,6 +565,51 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
     return rec
 
 
+def new_timings(z1, w1, z2, w2, device) -> dict:
+    """Kernel, plain and bound times of ``cam_search`` at one k-NN launch
+    and of ``crossbar_matmul_quantized`` at layer 1 of the centralized
+    collab path (the kernels line's record); the crossbar also with
+    12-bit-ADC/64-row numerics, at layer 2 (64 -> 16) and at the variation
+    bounds' 32 x 216 x 64. Neither kernel has one PyTorch call that
+    computes the same function."""
+    rec = {}
+    entries, queries = cam_inputs(device)
+    e, q = entries.numel(), queries.numel()
+    ms, by = bound(4 * e + 4 * q + q * e + 4 * q, q * e / F32_FLOPS)
+    rec["cam_search"] = dict(
+        ms=cuda_ms(lambda: cam_search(entries, queries), 200),
+        plain_ms=cuda_ms(lambda: cam_search_ref(entries, queries), 20),
+        bound_ms=ms, bound_by=by, library_ms=None)
+    r = rec["cam_search"]
+    print(f"[time] cam_search Q={q} E={e}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {ms:.4f} ms ({by}; bitmap "
+          f"{q * e} B written)", flush=True)
+    x_small, w_small = mvm_inputs(device)
+    for x, w, nname, cfg, iters in (
+            (z1, w1, "default", CrossbarNumerics(), 5),
+            (z1, w1, "QUANT", CrossbarNumerics(**QUANT), 5),
+            (z2, w2, "default", CrossbarNumerics(), 20),
+            (x_small, w_small, "default", CrossbarNumerics(), 200)):
+        xq, wq = crossbar_codes(x, w, cfg, noisy=True)
+        m, k = xq.shape
+        n = wq.shape[1]
+        ms, by = bound(4 * m * k + 4 * k * n + 4 * m * n,
+                       2 * cfg.in_bits * m * k * n / INT8_OPS)
+        r = dict(
+            ms=cuda_ms(lambda: xb.crossbar_matmul_quantized(xq, wq, cfg),
+                       iters),
+            plain_ms=cuda_ms(
+                lambda: xb.crossbar_matmul_quantized_plain(xq, wq, cfg),
+                min(iters, 3)),
+            bound_ms=ms, bound_by=by, library_ms=None)
+        print(f"[time] crossbar_matmul_quantized {m}x{k}x{n} {nname} "
+              f"numerics, noisy codes: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {ms:.4f} ms ({by})",
+              flush=True)
+        rec.setdefault("crossbar_matmul_quantized", r)
+    return rec
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -357,15 +650,16 @@ def main() -> None:
     x1 = torch.from_numpy(plan_c.feats[0]).to(device)
     nbr = torch.from_numpy(plan_c.neighbors[0]).to(device)
     wts = torch.from_numpy(plan_c.weights[0]).to(device)
-    x2 = torch.clamp_min(csr_aggregate_ref(x1, nbr, wts) @ params[0]["w"],
-                         0.0)        # layer 2's input
+    z1 = csr_aggregate_ref(x1, nbr, wts)    # layer 1's Z
+    x2 = torch.clamp_min(z1 @ params[0]["w"], 0.0)   # layer 2's input
     wts_zero = wts.clone()
     wts_zero[::97] = 0.0                    # zero-degree rows
-    errs = kernel_checks(x1, x2, nbr, wts_zero, params, device)
+    errs = {k: 0.0 for k in KERNELS}
+    kernel_checks(x1, x2, nbr, wts_zero, params, device, errs)
+    new_kernel_checks(z1, params[0]["w"], device, errs)
 
-    # ---- the serving paths, counted
+    # ---- the paths, counted
     totals = {k: 0 for k in KERNELS}
-    reset_launch_counts()
     serve_cases(plan_c, cfg, ("alltoall",), device, True, totals)
     t0 = time.perf_counter()
     g01 = dataset_like("collab", scale=0.1, seed=0).gcn_normalize()
@@ -380,14 +674,19 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s (host set-up)", flush=True)
     serve_cases(plan_d, cfg, ("allgather", "alltoall"), device, True, totals)
     serve_cases(plan_s, cfg, ("alltoall",), device, True, totals)
-    print(f"[serve] launches over all serving runs {json.dumps(totals)}",
+    path_a(device, totals)
+    path_b(device, g01, totals)
+    print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
     require(all(v > 0 for v in totals.values()),
-            "a kernel of the serving path never launched")
+            "a kernel of the paths never launched")
 
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)
     timings(x2, nbr, wts, params[1], "layer2 64->16", iters=20)
+    rec1.update(new_timings(z1, params[0]["w"],
+                            csr_aggregate_ref(x2, nbr, wts), params[1]["w"],
+                            device))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

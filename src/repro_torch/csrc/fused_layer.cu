@@ -29,10 +29,13 @@
 //     in any order, so it reproduces the reference's integer-domain ADC
 //     inputs exactly. An int8 tensor-core version is later work. Codes are
 //     kept as bytes in shared memory so a 512-row crossbar tile of 16 rows
-//     and both signs takes 16 KB.
+//     and both signs takes 16 KB. The tile loop and the ADC are shared with
+//     crossbar_mvm.cu (crossbar_tile.cuh).
 //
-// Numerics: DAC codes and the ADC use IEEE division (__fdiv_rn) and rintf
-// (round half to even, as jnp.round and torch.round do); the build has no
+// Numerics: DAC codes use IEEE division by the runtime scale (__fdiv_rn);
+// the ADC multiplies by the f32 reciprocal of its constant step, as XLA
+// computes the reference's division by that constant; both round with rintf
+// (half to even, as jnp.round and torch.round do); the build has no
 // --use_fast_math. The quant kernel sums each crossbar tile's shifted ADC
 // outputs before adding it to the running sum, and rescales each sign pass
 // by scale * w_scale before the subtraction: the rounding order of the
@@ -41,6 +44,8 @@
 // hundreds of integer units wide, so one ulp of difference in a layer's
 // output can move a DAC code of the next layer and its ADC output by a step.
 #include <cuda_runtime.h>
+
+#include "crossbar_tile.cuh"
 
 namespace {
 
@@ -161,44 +166,37 @@ fused_ideal_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
 
 // ----------------------------------------------------------------- quant
 
-constexpr int kQBM = 16;   // destination rows per block (one per tr)
-constexpr int kQKS = 64;   // conductance rows staged per step
-constexpr int kMaxBits = 8;
-
-__device__ __forceinline__ float adc(float partial, float fs, float lsb) {
-  const float c = fminf(fmaxf(partial, -fs), fs);
-  return __fmul_rn(rintf(__fdiv_rn(c, lsb)), lsb);
-}
-
 __device__ __forceinline__ unsigned char dac(float part, float scale,
                                              float levels) {
   return (unsigned char)fminf(fmaxf(rintf(__fdiv_rn(part, scale)), 0.f),
                               levels);
 }
 
-// Dynamic shared memory: ws[kQKS][kHT] floats, then the DAC codes of one
-// crossbar tile as bytes, codes[sign][kQBM][r].
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory (xbar::smem_bytes(2, r)): the staged conductance
+// codes, then the DAC codes of one crossbar tile as bytes,
+// codes[sign][xbar::kRows][r].
+__global__ void __launch_bounds__(xbar::kThreads)
 fused_quant_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
                    const float* __restrict__ wts,
                    const float* __restrict__ wq, const float* __restrict__ b,
                    const float* __restrict__ scales, float* __restrict__ out,
                    long long nd, int s, int f, int h, int r, int nbits,
-                   float fs, float lsb, int relu) {
+                   float fs, float lsb, float inv_lsb, int relu) {
+  using namespace xbar;
   extern __shared__ float4 smem[];
-  float(*ws)[kHT] = reinterpret_cast<float(*)[kHT]>(smem);
+  float* ws = reinterpret_cast<float*>(smem);
   unsigned char* codes = reinterpret_cast<unsigned char*>(smem) +
-                         sizeof(float) * kQKS * kHT;
+                         sizeof(float) * kStage * kCols;
   const int t = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * kQBM;
-  const int col0 = blockIdx.y * kHT;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int col0 = blockIdx.y * kCols;
   const int tc = t % 16, tr = t / 16;  // outputs: row tr; cols tc+16j
   const float sp = scales[0], sn = scales[1], w_scale = scales[2];
   const float levels = (float)((1 << nbits) - 1);
   float mvm[2][4] = {};  // shift-and-add accumulators per sign
   for (int t0 = 0; t0 < f; t0 += r) {
     const int kt = min(r, f - t0);  // rows of this crossbar tile within F
-    for (int e = t; e < kQBM * r; e += kThreads) {
+    for (int e = t; e < kRows * r; e += xbar::kThreads) {
       const int rr = e / r, k = e % r;
       const long long row = row0 + rr;
       const float z =
@@ -206,54 +204,19 @@ fused_quant_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
               ? gather_z(x, nbr + row * s, wts + row * s, s, f, t0 + k)
               : 0.f;
       codes[rr * r + k] = dac(fmaxf(z, 0.f), sp, levels);
-      codes[(kQBM + rr) * r + k] = dac(fmaxf(-z, 0.f), sn, levels);
+      codes[(kRows + rr) * r + k] = dac(fmaxf(-z, 0.f), sn, levels);
     }
     float part[2][4][kMaxBits] = {};  // exact integer-domain partials
-    for (int k0 = 0; k0 < kt; k0 += kQKS) {
-      __syncthreads();  // codes written / previous ws reads done
-      for (int e = t; e < kQKS * kHT; e += kThreads) {
-        const int k = e / kHT, c = e % kHT;
-        ws[k][c] = (k0 + k < kt && col0 + c < h)
-                       ? wq[(long long)(t0 + k0 + k) * h + col0 + c]
-                       : 0.f;
-      }
-      __syncthreads();
-      const int kn = min(kQKS, kt - k0);
-      for (int k = 0; k < kn; ++k) {
-        const unsigned cp = codes[tr * r + k0 + k];
-        const unsigned cn = codes[(kQBM + tr) * r + k0 + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float wv = ws[k][tc + 16 * j];
-#pragma unroll
-          for (int bit = 0; bit < kMaxBits; ++bit) {
-            if (bit < nbits) {
-              part[0][j][bit] = fmaf((float)((cp >> bit) & 1u), wv,
-                                     part[0][j][bit]);
-              part[1][j][bit] = fmaf((float)((cn >> bit) & 1u), wv,
-                                     part[1][j][bit]);
-            }
-          }
-        }
-      }
-    }
+    tile_partials<2>(codes, r, kt, wq, h, t0, col0, ws, nbits, part);
     // ADC per (tile, bit), shift-and-add into this tile's sum, then the
     // digital add across tiles: the order of the composed oracle
     // (crossbar_matmul_ref), so both paths round alike.
 #pragma unroll
     for (int sg = 0; sg < 2; ++sg) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float tile = 0.f;
-#pragma unroll
-        for (int bit = 0; bit < kMaxBits; ++bit) {
-          if (bit < nbits) {
-            tile = __fadd_rn(tile, __fmul_rn(adc(part[sg][j][bit], fs, lsb),
-                                             (float)(1u << bit)));
-          }
-        }
-        mvm[sg][j] = __fadd_rn(mvm[sg][j], tile);
-      }
+      for (int j = 0; j < 4; ++j)
+        mvm[sg][j] = __fadd_rn(
+            mvm[sg][j], adc_shift_add(part[sg][j], nbits, fs, lsb, inv_lsb));
     }
     __syncthreads();  // all reads of this tile's codes done
   }
@@ -304,23 +267,22 @@ extern "C" int fused_quant_layer_f32(const void* x, const void* nbr,
                                      const void* b, const void* scales,
                                      void* out, long long nd, int s, int f,
                                      int h, int rows_per_xbar, int in_bits,
-                                     float full_scale, float lsb, int relu,
-                                     void* stream) {
-  if (in_bits < 1 || in_bits > kMaxBits || rows_per_xbar < 1)
+                                     float full_scale, float lsb,
+                                     float inv_lsb, int relu, void* stream) {
+  if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kQKS * kHT +
-                      2 * (size_t)kQBM * (size_t)rows_per_xbar;
+  const size_t smem = xbar::smem_bytes(2, rows_per_xbar);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fused_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned)((nd + kQBM - 1) / kQBM),
-                  (unsigned)((h + kHT - 1) / kHT));
-  fused_quant_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((nd + xbar::kRows - 1) / xbar::kRows),
+                  (unsigned)((h + xbar::kCols - 1) / xbar::kCols));
+  fused_quant_kernel<<<grid, xbar::kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const int*)nbr, (const float*)wts, (const float*)wq,
       (const float*)b, (const float*)scales, (float*)out, nd, s, f, h,
-      rows_per_xbar, in_bits, full_scale, lsb, relu);
+      rows_per_xbar, in_bits, full_scale, lsb, inv_lsb, relu);
   return (int)cudaGetLastError();
 }

@@ -9,14 +9,17 @@ from __future__ import annotations
 
 
 def _wrappers() -> dict:
+    from .cam_match.ops import cam_search
+    from .crossbar_mvm.ops import crossbar_matmul_quantized
     from .csr_aggregate.ops import csr_aggregate
     from .fused_layer.ops import fused_ideal_layer, fused_quant_layer, fused_zmax
     return {f.__name__: f for f in (fused_ideal_layer, fused_zmax,
-                                    fused_quant_layer, csr_aggregate)}
+                                    fused_quant_layer, csr_aggregate,
+                                    crossbar_matmul_quantized, cam_search)}
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` of the four kernel wrappers."""
+    """``{kernel name: launches}`` of the six kernel wrappers."""
     return {name: f.launches for name, f in _wrappers().items()}
 
 

@@ -3,7 +3,8 @@
 Each ``repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into its own
 shared library with a plain C interface, at first use, into
 ``build/repro_torch/`` at the root of the checkout. The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
+hash of the source, of every header it includes with quotes (recursively),
+and of the flags, so an edited source or header is rebuilt and an
 unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together.
 
@@ -21,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,7 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("csr_aggregate", "fused_layer")
+SOURCES = ("cam_match", "crossbar_mvm", "csr_aggregate", "fused_layer")
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -45,10 +48,27 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin; the CUDA kernels cannot be built")
 
 
+def source_files(path: Path) -> list:
+    """``path`` and every header it includes with quotes, recursively,
+    each resolved against the directory of the file that includes it."""
+    files, todo = [], [path.resolve()]
+    while todo:
+        f = todo.pop()
+        if f in files:
+            continue
+        files.append(f)
+        for inc in _QUOTED_INCLUDE.findall(f.read_text()):
+            todo.append((f.parent / inc).resolve())
+    return files
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source, headers and flags."""
+    h = hashlib.sha256()
+    for f in source_files(CSRC / f"{name}.cu"):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -13,15 +13,21 @@ The counterpart of ``repro.kernels.crossbar_mvm.ref``, step for step:
                  digitally after the ADC.
 
 Codes are int32 where the reference uses uint32; they never exceed 255.
-``torch.round`` rounds half to even, as ``jnp.round`` does. Every division
-in the DAC and ADC steps divides by a tensor on the input's device: PyTorch
-may turn a division by a Python number into a multiplication by its
-reciprocal, which can move a code that sits on a rounding tie.
+``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+The DAC divides by its runtime scale with IEEE division, by a tensor on the
+input's device: PyTorch may turn a division by a Python number into a
+multiplication by its reciprocal, which can move a code that sits on a
+rounding tie. The ADC step ``lsb`` is a constant, and XLA rewrites the
+reference's ``p / lsb`` as ``p * (1 / lsb)`` with the float32 reciprocal;
+the ADC here multiplies by that same reciprocal (``inv_lsb``), so noisy
+partial sums (multiples of 1/8) land on the reference's codes.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -51,6 +57,12 @@ class CrossbarNumerics:
     @property
     def lsb(self) -> float:
         return self.full_scale / (2 ** self.adc_bits - 1)
+
+    @property
+    def inv_lsb(self) -> float:
+        """float32 reciprocal of the float32 ADC step: what the ADC
+        multiplies by."""
+        return float(np.float32(1.0) / np.float32(self.lsb))
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -92,10 +104,41 @@ def apply_conductance_noise(wq: torch.Tensor, w_noise,
 
 def _adc(partial: torch.Tensor, cfg: CrossbarNumerics) -> torch.Tensor:
     """ADC transfer function on one partial sum (integer domain):
-    clip to the full scale, quantize to ``adc_bits`` mid-tread."""
+    clip to the full scale, quantize to ``adc_bits`` mid-tread by a
+    multiplication with the float32 reciprocal of the step."""
     fs = cfg.full_scale
+    inv_lsb = _const(cfg.inv_lsb, partial)
     lsb = _const(cfg.lsb, partial)
-    return torch.round(torch.clamp(partial, -fs, fs) / lsb) * lsb
+    return torch.round(torch.clamp(partial, -fs, fs) * inv_lsb) * lsb
+
+
+def crossbar_matmul_quantized_plain(xq: torch.Tensor, wq: torch.Tensor,
+                                    cfg: CrossbarNumerics) -> torch.Tensor:
+    """Plain version of the bit-serial crossbar kernel on codes.
+
+    xq: [M, K] int32 DAC codes (bits at and above ``in_bits`` are not
+    read); wq: [K, N] float32 signed conductance codes. Per
+    ``rows_per_xbar`` K tile and per input bit: the 0/1 plane times the
+    codes, the ADC, shift and add within the tile; then the digital add
+    across tiles, in tile order. Returns the integer-domain [M, N]
+    float32 sum (the caller rescales)."""
+    r = cfg.rows_per_xbar
+    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.float32,
+                      device=xq.device)
+    for t0 in range(0, xq.shape[1], r):            # digital cross-tile add
+        xq_t, wq_t = xq[:, t0:t0 + r], wq[t0:t0 + r]
+        tile = torch.zeros_like(acc)
+        for b in range(cfg.in_bits):               # bit-serial DAC cycles
+            plane = ((xq_t >> b) & 1).float()
+            tile = tile + _adc(plane @ wq_t, cfg) * (2.0 ** b)
+        acc = acc + tile
+    return acc
+
+
+def check_matmul_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"inner dims differ: {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
 
 
 def crossbar_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -107,24 +150,11 @@ def crossbar_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     conductance-code perturbation. Returns [M, N] float32."""
     if cfg.ideal:
         return x.float() @ w.float()
-    m, k = x.shape
-    k2, n = w.shape
-    if k != k2:
-        raise ValueError(f"inner dims differ: {tuple(x.shape)} @ "
-                         f"{tuple(w.shape)}")
+    check_matmul_shapes(x, w)
     xq, xs = quantize_inputs(x, cfg)
     wq, ws = quantize_weights(w, cfg)
     wq = apply_conductance_noise(wq, w_noise, cfg)
-    r = cfg.rows_per_xbar
-    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    for t0 in range(0, k, r):                      # digital cross-tile add
-        xq_t, wq_t = xq[:, t0:t0 + r], wq[t0:t0 + r]
-        tile = torch.zeros_like(acc)
-        for b in range(cfg.in_bits):               # bit-serial DAC cycles
-            plane = ((xq_t >> b) & 1).float()
-            tile = tile + _adc(plane @ wq_t, cfg) * (2.0 ** b)
-        acc = acc + tile
-    return acc * (xs * ws)
+    return crossbar_matmul_quantized_plain(xq, wq, cfg) * (xs * ws)
 
 
 def crossbar_matmul_signed_ref(x: torch.Tensor, w: torch.Tensor,

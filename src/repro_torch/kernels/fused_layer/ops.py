@@ -23,8 +23,9 @@ import ctypes
 import torch
 
 from .. import _build
-from ..crossbar_mvm.ref import (CrossbarNumerics, _adc,
-                                apply_conductance_noise, quantize_weights)
+from ..crossbar_mvm.ref import (CrossbarNumerics, apply_conductance_noise,
+                                crossbar_matmul_quantized_plain,
+                                quantize_weights)
 from ..csr_aggregate.ops import check_gather_inputs, stream_ptr
 from ..csr_aggregate.ref import csr_aggregate_ref
 
@@ -121,25 +122,6 @@ fused_zmax.launches = 0
 # ---------------------------------------------------------------- quant
 
 
-def _bit_serial_mvm(codes: torch.Tensor, wq: torch.Tensor,
-                    cfg: CrossbarNumerics) -> torch.Tensor:
-    """Bit-serial crossbar MVM of int32 DAC codes [M, K] against the codes
-    [K, H]: ADC per (K-tile, bit) partial, shift and add within the tile,
-    then the digital add across tiles — the order of the quant kernel and
-    of ``crossbar_matmul_ref``."""
-    r = cfg.rows_per_xbar
-    acc = torch.zeros((codes.shape[0], wq.shape[1]), dtype=torch.float32,
-                      device=codes.device)
-    for t0 in range(0, codes.shape[1], r):
-        codes_t, wq_t = codes[:, t0:t0 + r], wq[t0:t0 + r]
-        tile = torch.zeros_like(acc)
-        for b in range(cfg.in_bits):
-            plane = ((codes_t >> b) & 1).float()
-            tile = tile + _adc(plane @ wq_t, cfg) * (2.0 ** b)
-        acc = acc + tile
-    return acc
-
-
 def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
                             cfg: CrossbarNumerics, *,
                             relu: bool = False) -> torch.Tensor:
@@ -149,7 +131,8 @@ def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
     for sign, scale in ((1.0, scales[0]), (-1.0, scales[1])):
         part = torch.clamp_min(sign * z, 0.0)
         codes = torch.clamp(torch.round(part / scale), 0, cfg.in_levels)
-        mvm.append(_bit_serial_mvm(codes.to(torch.int32), wq, cfg))
+        mvm.append(crossbar_matmul_quantized_plain(codes.to(torch.int32), wq,
+                                                   cfg))
     h = (mvm[0] * (scales[0] * scales[2])
          - mvm[1] * (scales[1] * scales[2])) + b
     return torch.clamp_min(h, 0.0) if relu else h
@@ -187,12 +170,12 @@ def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
     if nd and h:
         fn = _build.c_function("fused_layer", "fused_quant_layer_f32", (
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
-            _I, _I, ctypes.c_float, ctypes.c_float, _I, _P))
+            _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _P))
         _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
                         weights.data_ptr(), wq.data_ptr(), b.data_ptr(),
                         scales.data_ptr(), out.data_ptr(), nd, s, f, h,
                         cfg.rows_per_xbar, cfg.in_bits, cfg.full_scale,
-                        cfg.lsb, int(relu), stream_ptr(x)),
+                        cfg.lsb, cfg.inv_lsb, int(relu), stream_ptr(x)),
                      "fused_quant_layer")
         fused_quant_layer.launches += 1
     return out

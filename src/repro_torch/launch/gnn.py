@@ -8,10 +8,21 @@ plan's forward (centralized, decentralized or semi-decentralized) on the
   PYTHONPATH=src python -m repro_torch.launch.gnn --setting decentralized \
       --clusters 8
 
+Feature-similarity scenarios (``--dataset recsys|anomaly``) arrive as bare
+feature vectors: the served graph is built by k-NN search over LSH band
+signatures (``repro_torch.neighbors``) on the ``--neighbor-mode`` path —
+``cam`` runs the band matching through the CAM search's plain version,
+``cam-pallas`` through the hand-written CAM kernel, ``topk`` through a
+direct signature compare; all three build the same graph:
+
+  PYTHONPATH=src python -m repro_torch.launch.gnn --dataset recsys \
+      --neighbor-mode cam-pallas --setting centralized --scale 0.1
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-host. Not ported yet: ``--plan auto``, ``--stream``, ``--tech``,
-``--neighbor-mode``, ``--metrics``/``--trace``, ``--tune``, ``--buckets``,
-``--mapping`` and the cost-model report lines.
+host. Not ported yet: ``--plan auto``, ``--stream`` (and with it the CAM
+dirty-frontier modes of ``--neighbor-mode``), ``--tech``,
+``--metrics``/``--trace``, ``--tune``, ``--buckets``, ``--mapping`` and
+the cost-model report lines.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch
 from .._device import resolve_device
 from ..core import dataset_like, gnn
 from ..core.partition import ExecutionPlan, plan_execution
+from ..neighbors import SCENARIOS, scenario_graph
 
 
 class GNNServer:
@@ -103,8 +115,14 @@ def main(argv=None) -> None:
                     choices=("centralized", "decentralized", "semi"))
     ap.add_argument("--backend", default="fused", choices=gnn.BACKENDS)
     ap.add_argument("--dataset", default="collab",
-                    help="a Table-2 name or 'taxi' (dataset_like)")
+                    help="a Table-2 name / 'taxi' (dataset_like), or a "
+                         "feature-similarity scenario 'recsys'/'anomaly' "
+                         "whose graph is built by k-NN search")
     ap.add_argument("--scale", type=float, default=0.001)
+    ap.add_argument("--neighbor-mode", default="topk", dest="neighbor_mode",
+                    choices=("topk", "cam", "cam-pallas"),
+                    help="scenario k-NN construction: direct compare, CAM "
+                         "plain version, or the CAM kernel (same graph)")
     ap.add_argument("--clusters", type=int, default=0,
                     help="default: one per CUDA device (decentralized) / "
                          "4 heads (semi)")
@@ -122,7 +140,19 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    g = dataset_like(args.dataset, scale=args.scale, seed=0).gcn_normalize()
+    if args.dataset in SCENARIOS:
+        g = scenario_graph(
+            args.dataset, n_nodes=max(int(200_000 * args.scale), 32),
+            feature_len=32, k=args.sample,
+            neighbor_mode="topk" if args.neighbor_mode == "topk" else "cam",
+            backend="pallas" if args.neighbor_mode == "cam-pallas"
+            else "jnp", device=device).gcn_normalize()
+        print(f"{args.dataset}: built k-NN graph on the "
+              f"{args.neighbor_mode} path — {g.n_nodes} nodes, "
+              f"{g.n_edges} similarity edges")
+    else:
+        g = dataset_like(args.dataset, scale=args.scale,
+                         seed=0).gcn_normalize()
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     k = args.clusters or (n_dev if args.setting == "decentralized" else 4)
     plan = plan_execution(g, args.setting, backend=args.backend,

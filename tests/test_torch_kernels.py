@@ -8,7 +8,12 @@ where each wrapper runs its kernel's plain version. Tolerances:
     ``tests/test_kernels_fused_layer.py``): matmul and gather sums run in
     another order;
   * aggregation: rtol 1e-5, atol 1e-4 (``test_kernels_csr_aggregate.py``);
-  * quantizers: exact (same f32 divisions, round half to even).
+  * quantizers: exact (same f32 divisions, round half to even);
+  * the crossbar pass on codes: rtol 1e-6, atol 1e-6 * max|ref|, well
+    below one ADC step (the tile sums are added in another order);
+  * the signed crossbar product: rtol/atol 1e-5 (float rounding of the
+    rescale and of the pos - neg recombination);
+  * the CAM search: exact.
 """
 import numpy as np
 import pytest
@@ -16,11 +21,16 @@ import jax.numpy as jnp
 import torch
 
 from repro.kernels import crossbar_mvm as jx_xbar
+from repro.kernels.cam_match import scan as jx_scan
+from repro.kernels.cam_match import search as jx_search
+from repro.kernels.crossbar_mvm.crossbar_mvm import (
+    crossbar_matmul_quantized as jx_xbar_quantized)
 from repro.kernels.csr_aggregate import aggregate as jx_aggregate
 from repro.kernels.fused_layer import fused_gnn_layer as jx_fused_layer
 from repro.kernels.fused_layer import fused_zmax as jx_zmax
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels import crossbar_mvm as pt_xbar
+from repro_torch.kernels.cam_match import cam_search, scan, search
 from repro_torch.kernels.csr_aggregate import aggregate, csr_aggregate
 from repro_torch.kernels.fused_layer import (fused_gnn_layer,
                                              fused_ideal_layer_plain,
@@ -176,6 +186,123 @@ def test_crossbar_oracles_match_reference(numerics):
     _close(got, ref, rtol=1e-5, atol_rel=1e-5)
 
 
+def _noisy_codes(m, k, n, seed, noisy=True):
+    """DAC codes [M, K] and conductance codes [K, N]; with ``noisy``, the
+    codes carry a conductance-noise draw on the 1/8 grid (sigma 0.05 * 127
+    codes, as ``devices.variation`` makes for ReRAM)."""
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(0, 256, size=(m, k)).astype(np.int32)
+    wq = np.clip(np.round(rng.normal(size=(k, n)) * 60), -127, 127)
+    if noisy:
+        nz = np.round(rng.normal(size=(k, n)) * 0.05 * 127 * 8) / 8
+        wq = np.clip(wq + nz, -127, 127)
+    return xq, wq.astype(np.float32)
+
+
+@pytest.mark.parametrize("numerics,m,k,n,noisy", [
+    (QUANT, 64, 256, 64, True),     # 12-bit ADC: ties of p / lsb move
+    (QUANT, 16, 192, 32, False),
+    (DEFAULT, 16, 512, 128, True),
+])
+def test_crossbar_code_pass_matches_reference_kernel(numerics, m, k, n,
+                                                     noisy):
+    """The ADC multiplies by the f32 reciprocal of its step, as XLA
+    computes the reference's division by the constant step: on noisy
+    codes an IEEE division lands a whole ADC code (x 2^b) away."""
+    xq, wq = _noisy_codes(m, k, n, seed=m + k, noisy=noisy)
+    ref = np.asarray(jx_xbar_quantized(
+        jnp.asarray(xq.astype(np.uint32)), jnp.asarray(wq),
+        jx_xbar.CrossbarNumerics(**numerics), bm=m, bn=n, interpret=True))
+    got = pt_xbar.crossbar_matmul_quantized(
+        *_t(xq, wq), pt_xbar.CrossbarNumerics(**numerics))
+    _close(got, ref, rtol=1e-6, atol_rel=1e-6)
+
+
+def test_crossbar_quantized_wrapper_is_its_plain_version_on_cpu():
+    """Ragged M, K and N need no padding; the block knobs are validated
+    and change nothing."""
+    xq, wq = _noisy_codes(7, 150, 11, seed=1)
+    cfg = pt_xbar.CrossbarNumerics(**QUANT)
+    plain = pt_xbar.crossbar_matmul_quantized_plain(*_t(xq, wq), cfg)
+    for blocks in (dict(), dict(bm=8, bn=16, depth=3), dict(depth=1)):
+        assert torch.equal(pt_xbar.crossbar_matmul_quantized(
+            *_t(xq, wq), cfg, **blocks), plain)
+    for bad in (dict(bm=0), dict(bn=-1), dict(depth=2), dict(depth=0)):
+        with pytest.raises(ValueError):
+            pt_xbar.crossbar_matmul_quantized(*_t(xq, wq), cfg, **bad)
+    with pytest.raises(TypeError):
+        pt_xbar.crossbar_matmul_quantized(*_t(xq.astype(np.int64), wq), cfg)
+    with pytest.raises(NotImplementedError, match="tuning"):
+        pt_xbar.crossbar_matmul(*_t(np.abs(wq.T), wq), cfg, tuned={})
+
+
+@pytest.mark.parametrize("numerics", [QUANT, DEFAULT])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_crossbar_matmul_signed_matches_reference(numerics, noisy):
+    """The kernel-backed signed product against the reference's Pallas
+    ops path; on one device it equals the port's plain oracle exactly."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(9, 130)).astype(np.float32)
+    w = (rng.normal(size=(130, 24)) * 0.1).astype(np.float32)
+    nz = (np.round(rng.normal(size=(130, 24)) * 0.05 * 127 * 8) / 8
+          ).astype(np.float32) if noisy else None
+    jc = jx_xbar.CrossbarNumerics(**numerics)
+    pc = pt_xbar.CrossbarNumerics(**numerics)
+    ref = jx_xbar.crossbar_matmul_signed(
+        jnp.asarray(x), jnp.asarray(w), jc, interpret=True,
+        w_noise=None if nz is None else jnp.asarray(nz))
+    tn = None if nz is None else torch.from_numpy(nz)
+    got = pt_xbar.crossbar_matmul_signed(*_t(x, w), pc, w_noise=tn)
+    _close(got, ref, rtol=1e-5, atol_rel=1e-5)
+    assert torch.equal(got, pt_xbar.crossbar_matmul_signed_ref(
+        *_t(x, w), pc, w_noise=tn))
+    unsigned = pt_xbar.crossbar_matmul(*_t(np.abs(x), w), pc, w_noise=tn)
+    assert torch.equal(unsigned, pt_xbar.crossbar_matmul_ref(
+        *_t(np.abs(x), w), pc, w_noise=tn))
+
+
+@pytest.mark.parametrize("e,q", [(256, 16), (1000, 7), (5, 33), (0, 4),
+                                 (9, 0)])
+def test_cam_search_matches_reference(e, q):
+    """Ragged shapes and negative queries (which match nothing) give the
+    reference's bitmap and counts exactly (its Pallas path takes no empty
+    operand; its jnp oracle does)."""
+    rng = np.random.default_rng(e + q)
+    ci = rng.integers(-2, 20, size=e).astype(np.int32)
+    queries = rng.integers(-3, 20, size=q).astype(np.int32)
+    ref_match, ref_counts = jx_search(
+        jnp.asarray(ci), jnp.asarray(queries),
+        backend="pallas" if e and q else "jnp", interpret=True)
+    match, counts = cam_search(*_t(ci, queries))
+    assert match.dtype == torch.int8 and counts.dtype == torch.int32
+    np.testing.assert_array_equal(match.numpy(), np.asarray(ref_match))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
+    for backend in ("jnp", "pallas"):
+        m2, c2 = search(*_t(ci, queries), backend=backend, bq=4, be=64)
+        assert torch.equal(m2, match) and torch.equal(c2, counts)
+    if q:
+        assert int(counts[queries < 0].abs().sum()) == 0
+
+
+def test_cam_search_contract_errors_and_scan():
+    ci, queries = _t(np.arange(8, dtype=np.int32),
+                     np.array([1, 2], np.int32))
+    for bad in (dict(bq=0), dict(be=-128)):
+        with pytest.raises(ValueError):
+            search(ci, queries, backend="pallas", **bad)
+    with pytest.raises(NotImplementedError, match="tuning"):
+        search(ci, queries, backend="pallas", tuned={})
+    with pytest.raises(ValueError, match="backend"):
+        search(ci, queries, backend="mosaic")
+    with pytest.raises(TypeError):
+        cam_search(ci.long(), queries)
+    rp = np.array([0, 2, 2, 5, 9], np.int32)
+    pos = np.arange(9, dtype=np.int32)
+    np.testing.assert_array_equal(
+        scan(*_t(rp, pos)).numpy(),
+        np.asarray(jx_scan(jnp.asarray(rp), jnp.asarray(pos))))
+
+
 def test_launch_counters_stay_zero_on_cpu():
     """On CPU tensors the wrappers run the plain versions and count no
     kernel launch."""
@@ -185,8 +312,14 @@ def test_launch_counters_stay_zero_on_cpu():
         fused_gnn_layer(*_t(x, nbr, wts, w, b),
                         pt_xbar.CrossbarNumerics(**numerics))
     csr_aggregate(*_t(x, nbr, wts))
-    assert launch_counts() == {"fused_ideal_layer": 0, "fused_zmax": 0,
-                               "fused_quant_layer": 0, "csr_aggregate": 0}
+    xq, wq = _noisy_codes(4, 32, 8, seed=0)
+    pt_xbar.crossbar_matmul_quantized(*_t(xq, wq),
+                                      pt_xbar.CrossbarNumerics(**QUANT))
+    cam_search(*_t(nbr.reshape(-1), np.arange(4, dtype=np.int32)))
+    assert launch_counts() == {
+        "fused_ideal_layer": 0, "fused_zmax": 0, "fused_quant_layer": 0,
+        "csr_aggregate": 0, "crossbar_matmul_quantized": 0,
+        "cam_search": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import devices, neighbors
 from repro_torch.core import gnn
 from repro_torch.core.graph import random_graph
 from repro_torch.core.partition import plan_execution
@@ -131,6 +132,16 @@ def test_cli_serves_on_cpu(capsys):
     assert "decentralized/fused" in out and "served 12 lookups" in out
 
 
+def test_cli_serves_a_cam_built_scenario_on_cpu(capsys):
+    main(["--dataset", "recsys", "--neighbor-mode", "cam-pallas",
+          "--device", "cpu", "--setting", "centralized", "--scale",
+          "0.0005", "--requests", "2", "--batch", "4", "--hidden", "8"])
+    out = capsys.readouterr().out
+    assert "recsys: built k-NN graph on the cam-pallas path — 100 nodes" \
+        in out
+    assert "centralized/fused" in out and "served 8 lookups" in out
+
+
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -153,7 +164,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("call", [
-    "init_params", "params_from_numpy", "server", "make_forward", "cli"])
+    "init_params", "params_from_numpy", "server", "make_forward", "cli",
+    "knn_graph", "scenario_graph", "mvm_error_bounds", "accuracy_bounds"])
 def test_entry_points_raise_without_cuda(call, monkeypatch):
     """Asked for the default device on a host without CUDA, an entry point
     raises; it never falls back to the CPU on its own."""
@@ -167,6 +179,12 @@ def test_entry_points_raise_without_cuda(call, monkeypatch):
         "server": lambda: GNNServer(plan, cfg),
         "make_forward": lambda: plan.make_forward(cfg),
         "cli": lambda: main(["--scale", "0.0002"]),
+        "knn_graph": lambda: neighbors.knn_graph(g.features, k=2),
+        "scenario_graph": lambda: neighbors.scenario_graph(
+            "anomaly", n_nodes=16, neighbor_mode="cam", backend="pallas"),
+        "mvm_error_bounds": lambda: devices.mvm_error_bounds(
+            "reram", backend="pallas"),
+        "accuracy_bounds": lambda: devices.accuracy_bounds("reram"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()
