@@ -13,9 +13,15 @@ Phases, each printing its lines, each failing the run on any error:
        * the serving kernels at collab-like F=496 -> H=64 and 64 -> 16,
          S=8, 372,475 destination rows with some zero-degree rows, on
          ideal, default bit-accurate and 12-bit-ADC/64-row numerics and
-         both ``relu`` values. Aggregation and zmax must be equal bit for
-         bit; the layers agree within rtol 1e-5, atol 1e-5 * max|ref|
-         (the ideal matmul sums in another order).
+         both ``relu`` values; the quant layer also on ReRAM-noisy codes
+         (its two-digit int8 path), at a ragged 67 -> 64 and, on 3,000
+         rows, at the F of cora (1433), citeseer (3703) and 3704 -> 64,
+         where its shared memory holds fewer columns a block; aggregation
+         also at F=67, with an x off 16-byte alignment (the scalar
+         variants) and on rows whose only live slot is slot 5.
+         Aggregation, zmax and the quant layer must be equal bit for bit;
+         the ideal layer agrees within rtol 1e-5, atol 1e-5 * max|ref|
+         (its matmul sums in another order).
        * ``cam_search`` at one k-NN launch of the recsys scenario at 20,000
          nodes (Q = 104 tagged query ids against E = 160,000 entries), at
          a ragged Q = 7, E = 160,001, and with negative queries: exact.
@@ -50,10 +56,13 @@ Phases, each printing its lines, each failing the run on any error:
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
-     layer 1 and layer 2 of the centralized path, ``cam_search`` at
-     Q = 104, E = 160,000 and ``crossbar_matmul_quantized`` at
-     372,475 x 496 x 64 (both numerics), 372,475 x 64 x 16 and
-     32 x 216 x 64.
+     layer 1 and layer 2 of the centralized path (the quant layer with
+     the programming of its weights, as every serving call runs it, and
+     per numerics and codes also its launch alone), ``cam_search`` at
+     Q = 104, E = 160,000 and
+     ``crossbar_matmul_quantized`` at 372,475 x 496 x 64 (both numerics),
+     372,475 x 64 x 16 and 32 x 216 x 64. The build lines give each
+     kernel's registers and spills.
 
 The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -176,33 +185,75 @@ def record(err: dict, name, got, ref, exact, label) -> None:
 
 def kernel_checks(x1, x2, nbr, wts, params, device, err: dict) -> None:
     """The serving kernels against their plain versions on the same
-    inputs."""
+    inputs; aggregation, zmax and the quant layer bit for bit. Beside the
+    serving shapes: a ragged F = 67 and an x that is not 16-byte aligned
+    (the scalar variants), and rows whose only live slot is slot 5."""
     gen = torch.Generator(device=device).manual_seed(7)
+    x67 = x1[:, :67].contiguous()
+    x_off = x1.reshape(-1)[1:1 + x1.numel() - x1.shape[1]].view(
+        -1, x1.shape[1])            # N - 1 rows of F = 496, 4 bytes off 16
+    nbr_off = torch.clamp_max(nbr, x_off.shape[0] - 1)
+    wts_late = wts.clone()
+    wts_late[1::5] = 0.0
+    wts_late[1::5, 5] = 0.5         # only slot 5 live
+    for x, nb, w_, tag in ((x1, nbr, wts, "F=496"), (x2, nbr, wts, "F=64"),
+                           (x67, nbr, wts, "F=67 (scalar variant)"),
+                           (x1, nbr, wts_late, "F=496 only slot 5 live"),
+                           (x_off, nbr_off, wts, "F=496 x 4 B off 16 "
+                                                 "(scalar variant)")):
+        record(err, "csr_aggregate", csr_aggregate(x, nb, w_),
+               csr_aggregate_ref(x, nb, w_), True, tag)
     for x, tag in ((x1, "F=496"), (x2, "F=64")):
-        record(err, "csr_aggregate", csr_aggregate(x, nbr, wts),
-               csr_aggregate_ref(x, nbr, wts), True, tag)
         record(err, "fused_zmax", fl.fused_zmax(x, nbr, wts),
                fl.fused_zmax_plain(x, nbr, wts), True, tag)
     numerics = {"default": CrossbarNumerics(), "QUANT": CrossbarNumerics(
         **QUANT)}
-    for x, layer, tag in ((x1, params[0], "496->64"),
-                          (x2, params[1], "64->16")):
-        w = layer["w"]
+    for x, w, tag in ((x1, params[0]["w"], "496->64"),
+                      (x2, params[1]["w"], "64->16"),
+                      (x67, params[0]["w"][:67].contiguous(),
+                       "67->64 (scalar variant)")):
         b = 0.1 * torch.randn(w.shape[1], generator=gen, device=device)
         for relu in (True, False):
-            record(err, "fused_ideal_layer",
-                   fl.fused_ideal_layer(x, nbr, wts, w, b, relu=relu),
-                   fl.fused_ideal_layer_plain(x, nbr, wts, w, b, relu=relu),
-                   False, f"{tag} relu={relu}")
+            if x is not x67:
+                record(err, "fused_ideal_layer",
+                       fl.fused_ideal_layer(x, nbr, wts, w, b, relu=relu),
+                       fl.fused_ideal_layer_plain(x, nbr, wts, w, b,
+                                                  relu=relu),
+                       False, f"{tag} relu={relu}")
             for nname, cfg in numerics.items():
-                wq, scales = fl.quant_operands(
-                    fl.fused_zmax_plain(x, nbr, wts), w, cfg)
-                record(err, "fused_quant_layer",
-                       fl.fused_quant_layer(x, nbr, wts, wq, b, scales, cfg,
-                                            relu=relu),
-                       fl.fused_quant_layer_plain(x, nbr, wts, wq, b, scales,
-                                                  cfg, relu=relu),
-                       False, f"{tag} {nname} relu={relu}")
+                for noisy in (False, True):
+                    nz = torch.from_numpy(devices.sample_conductance_noise(
+                        3, tuple(w.shape), "reram", cfg)).to(device) \
+                        if noisy else None
+                    quant_check(err, x, nbr, wts, w, b, cfg, nz, relu,
+                                f"{tag} {nname} noisy={noisy} relu={relu}")
+    src = 4000                      # rows of x for the wide-F checks
+    nbr_w = torch.remainder(nbr[:3000], src)
+    wts_w = wts[:3000].contiguous()
+    for f in (1433, 3703, 3704):
+        x = torch.randn((src, f), generator=gen, device=device)
+        w = 0.05 * torch.randn((f, HIDDEN), generator=gen, device=device)
+        b = 0.1 * torch.randn(HIDDEN, generator=gen, device=device)
+        for nname, cfg in numerics.items():
+            for noisy in (False, True):
+                nz = torch.from_numpy(devices.sample_conductance_noise(
+                    f, (f, HIDDEN), "reram", cfg)).to(device) \
+                    if noisy else None
+                quant_check(err, x, nbr_w, wts_w, w, b, cfg, nz, True,
+                            f"3000 rows {f}->64 {nname} noisy={noisy}")
+
+
+def quant_check(err, x, nbr, wts, w, b, cfg, nz, relu, label) -> None:
+    """The quant layer on programmed codes against its plain version, bit
+    for bit."""
+    codes, scales = fl.quant_operands(fl.fused_zmax_plain(x, nbr, wts), w,
+                                      cfg, nz)
+    record(err, "fused_quant_layer",
+           fl.fused_quant_layer(x, nbr, wts, codes, b, scales, cfg,
+                                relu=relu),
+           fl.fused_quant_layer_plain(x, nbr, wts, codes.wq, b, scales, cfg,
+                                      relu=relu),
+           True, label)
 
 
 def cam_inputs(device) -> tuple:
@@ -518,7 +569,8 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
     """Kernel, plain and library times at one layer's shapes."""
     cfg = CrossbarNumerics()
     w, b = layer["w"], layer["b"]
-    wq, scales = fl.quant_operands(fl.fused_zmax_plain(x, nbr, wts), w, cfg)
+    codes, scales = fl.quant_operands(fl.fused_zmax_plain(x, nbr, wts), w,
+                                      cfg)
     runs = {
         "csr_aggregate": (lambda: csr_aggregate(x, nbr, wts),
                           lambda: csr_aggregate_ref(x, nbr, wts)),
@@ -528,11 +580,12 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
             lambda: fl.fused_ideal_layer(x, nbr, wts, w, b, relu=True),
             lambda: fl.fused_ideal_layer_plain(x, nbr, wts, w, b,
                                                relu=True)),
-        "fused_quant_layer": (
-            lambda: fl.fused_quant_layer(x, nbr, wts, wq, b, scales, cfg,
-                                         relu=True),
-            lambda: fl.fused_quant_layer_plain(x, nbr, wts, wq, b, scales,
-                                               cfg, relu=True)),
+        "fused_quant_layer": (      # with the programming of the weights
+            lambda: fl.fused_quant_layer(
+                x, nbr, wts, fl.program_conductances(w, cfg), b, scales, cfg,
+                relu=True),
+            lambda: fl.fused_quant_layer_plain(x, nbr, wts, codes.wq, b,
+                                               scales, cfg, relu=True)),
     }
     nd, s = nbr.shape
     with warnings.catch_warnings():     # "sparse CSR support is in beta"
@@ -559,9 +612,30 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
         lib_txt = (f", torch.sparse.mm {r['library_ms']:.3f} ms "
                    f"(max|diff| {lib_err:.2e})"
                    if r["library_ms"] is not None else "")
-        print(f"[time] {tag} {name:18s} kernel {r['ms']:.3f} ms, plain "
+        what = ("kernel with the programming of the weights"
+                if name == "fused_quant_layer" else "kernel")
+        print(f"[time] {tag} {name:18s} {what} {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}){lib_txt}", flush=True)
+    for nname, qcfg in (("default", cfg), ("QUANT", CrossbarNumerics(
+            **QUANT))):
+        for noisy in (False, True):
+            nz = torch.from_numpy(devices.sample_conductance_noise(
+                3, tuple(w.shape), "reram", qcfg)).to(x.device) \
+                if noisy else None
+            codes, scales = fl.quant_operands(
+                fl.fused_zmax_plain(x, nbr, wts), w, qcfg, nz)
+            ms = cuda_ms(lambda: fl.fused_quant_layer(
+                x, nbr, wts, codes, b, scales, qcfg, relu=True), iters)
+            ms_prog = cuda_ms(lambda: fl.fused_quant_layer(
+                x, nbr, wts, fl.program_conductances(w, qcfg, nz), b, scales,
+                qcfg, relu=True), iters)
+            d = codes.digits.shape[0]
+            print(f"[time] {tag} fused_quant_layer {nname} numerics, "
+                  f"{'noisy' if noisy else 'clean'} codes ({d} int8 digit"
+                  f"{'s' if d > 1 else ''}): with the programming of the "
+                  f"weights {ms_prog:.3f} ms, launch alone {ms:.3f} ms",
+                  flush=True)
     return rec
 
 
@@ -634,7 +708,8 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill")):
                 print(f"[build] {name}: {line.strip()}")
 
     # ---- the centralized collab path: host tables, then the card

@@ -20,16 +20,16 @@
 // bound by operations; an int8 tensor-core version is later work. What the
 // design does: each int32 code is read from device memory once per block,
 // kept as one byte in shared memory (in_bits <= 8), and the staged
-// conductance codes are reused by the block's 16 rows. The tile loop and the
-// ADC are shared with the fused quant layer (crossbar_tile.cuh), so both
-// paths round alike and equal the plain version bit for bit.
+// conductance codes are reused by the block's 16 rows. The ADC is shared with
+// the fused quant layer (crossbar_tile.cuh), so both paths round alike and
+// equal the plain version bit for bit.
 #include <cuda_runtime.h>
 
 #include "crossbar_tile.cuh"
 
 namespace {
 
-// Dynamic shared memory (xbar::smem_bytes(1, r)): the staged conductance
+// Dynamic shared memory (xbar::smem_bytes(r)): the staged conductance
 // codes, then the DAC codes of one crossbar tile as bytes, codes[kRows][r].
 __global__ void __launch_bounds__(xbar::kThreads)
 crossbar_kernel(const int* __restrict__ xq, const float* __restrict__ wq,
@@ -53,12 +53,12 @@ crossbar_kernel(const int* __restrict__ xq, const float* __restrict__ wq,
       codes[rr * r + kk] =
           (row < m && kk < kt) ? (unsigned char)xq[row * k + t0 + kk] : 0;
     }
-    float part[1][4][kMaxBits] = {};  // exact integer-domain partials
-    tile_partials<1>(codes, r, kt, wq, n, t0, col0, ws, nbits, part);
+    float part[4][kMaxBits] = {};  // exact integer-domain partials
+    tile_partials(codes, r, kt, wq, n, t0, col0, ws, nbits, part);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       acc[j] = __fadd_rn(acc[j],
-                         adc_shift_add(part[0][j], nbits, fs, lsb, inv_lsb));
+                         adc_shift_add(part[j], nbits, fs, lsb, inv_lsb));
     __syncthreads();  // all reads of this tile's codes done
   }
   const long long row = row0 + tr;
@@ -77,7 +77,7 @@ extern "C" int crossbar_matmul_quantized_f32(
     float inv_lsb, void* stream) {
   if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = xbar::smem_bytes(1, rows_per_xbar);
+  const size_t smem = xbar::smem_bytes(rows_per_xbar);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         crossbar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,12 +1,13 @@
-// One crossbar tile of the bit-serial MVM, shared by the bit-accurate
-// kernels: fused_quant_kernel (fused_layer.cu) and crossbar_kernel
-// (crossbar_mvm.cu).
+// One crossbar tile of the bit-serial MVM as f32 FMAs, for crossbar_kernel
+// (crossbar_mvm.cu), and the ADC shared by both bit-accurate kernels: the
+// fused quant layer (fused_layer.cu) runs its tile on the int8 tensor cores
+// (crossbar_mma.cuh) and applies the same adc_shift_add.
 //
 // A block of kThreads threads owns kRows output rows and kCols output
 // columns; thread t holds row t / 16 and columns t % 16 + 16 j, j < 4. Per
 // crossbar tile of r rows the block's DAC codes sit in shared memory as
-// bytes, codes[(sign * kRows + row) * r + k], and the conductance codes are
-// staged kStage rows at a time beside them.
+// bytes, codes[row * r + k], and the conductance codes are staged kStage
+// rows at a time beside them.
 //
 // Numerics. A bit-plane product sums 0/1 times conductance codes: integers,
 // or multiples of 1/8 under conductance noise, with |sum| <= r * 127 < 2^21,
@@ -29,10 +30,9 @@ constexpr int kStage = 64;     // conductance rows staged per step
 constexpr int kMaxBits = 8;    // DAC codes are kept as bytes
 
 // Dynamic shared memory of a block: the staged conductance codes, then the
-// byte codes of `signs` planes of one r-row tile.
-inline size_t smem_bytes(int signs, int r) {
-  return sizeof(float) * kStage * kCols +
-         (size_t)signs * kRows * (size_t)r;
+// byte codes of one r-row tile.
+inline size_t smem_bytes(int r) {
+  return sizeof(float) * kStage * kCols + (size_t)kRows * (size_t)r;
 }
 
 __device__ __forceinline__ float adc(float partial, float fs, float lsb,
@@ -43,13 +43,12 @@ __device__ __forceinline__ float adc(float partial, float fs, float lsb,
 
 // Bit-plane partial sums of one tile: rows [t0, t0 + kt) of wq ([*, h],
 // row-major) against the codes in shared memory.
-// part[sg][j][b] += sum_k bit_b(codes[sg][t / 16][k]) * wq[t0 + k][col_j].
+// part[j][b] += sum_k bit_b(codes[t / 16][k]) * wq[t0 + k][col_j].
 // Starts with a barrier, so the caller's writes of the codes are seen.
-template <int kSigns>
 __device__ __forceinline__ void tile_partials(
     const unsigned char* codes, int r, int kt, const float* __restrict__ wq,
     int h, int t0, int col0, float* ws_smem, int nbits,
-    float (&part)[kSigns][4][kMaxBits]) {
+    float (&part)[4][kMaxBits]) {
   float(*ws)[kCols] = reinterpret_cast<float(*)[kCols]>(ws_smem);
   const int t = threadIdx.x, tc = t % 16, tr = t / 16;
   for (int k0 = 0; k0 < kt; k0 += kStage) {
@@ -63,21 +62,15 @@ __device__ __forceinline__ void tile_partials(
     __syncthreads();
     const int kn = min(kStage, kt - k0);
     for (int k = 0; k < kn; ++k) {
-      unsigned code[kSigns];
-#pragma unroll
-      for (int sg = 0; sg < kSigns; ++sg)
-        code[sg] = codes[(sg * kRows + tr) * r + k0 + k];
+      const unsigned code = codes[tr * r + k0 + k];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float wv = ws[k][tc + 16 * j];
 #pragma unroll
         for (int bit = 0; bit < kMaxBits; ++bit) {
-          if (bit < nbits) {
-#pragma unroll
-            for (int sg = 0; sg < kSigns; ++sg)
-              part[sg][j][bit] = fmaf((float)((code[sg] >> bit) & 1u), wv,
-                                      part[sg][j][bit]);
-          }
+          if (bit < nbits)
+            part[j][bit] =
+                fmaf((float)((code >> bit) & 1u), wv, part[j][bit]);
         }
       }
     }

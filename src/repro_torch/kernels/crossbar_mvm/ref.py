@@ -66,8 +66,9 @@ class CrossbarNumerics:
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A float32 scalar on ``like``'s device, for an exact division."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """A float32 scalar on ``like``'s device, for an exact division; a fill
+    on the device, so no copy from the host waits for the stream."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def quantize_inputs(x: torch.Tensor, cfg: CrossbarNumerics):

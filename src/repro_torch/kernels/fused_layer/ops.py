@@ -7,7 +7,9 @@ and keep Z out of device memory:
   * ``fused_zmax``        — per node ``(max(max(z,0)), max(max(-z,0)))``,
     the scale pass of the bit-accurate layer ([Nd, 2] instead of Z).
   * ``fused_quant_layer`` — DAC codes of z against the two global scales,
-    then the bit-serial crossbar MVM with an ADC per (K-tile, bit).
+    then the bit-serial crossbar MVM with an ADC per (K-tile, bit), its
+    bit-plane products on the int8 tensor cores, against the weights'
+    int8 digits (``program_conductances``).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs the plain
 PyTorch version beside it (``*_plain``) on a CPU tensor; it counts its
@@ -19,11 +21,14 @@ No padding to a block grid is needed: the kernels mask ragged edges.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
-from ..crossbar_mvm.ref import (CrossbarNumerics, apply_conductance_noise,
+from ..crossbar_mvm.ref import (CrossbarNumerics, _const,
+                                apply_conductance_noise,
                                 crossbar_matmul_quantized_plain,
                                 quantize_weights)
 from ..csr_aggregate.ops import check_gather_inputs, stream_ptr
@@ -138,45 +143,183 @@ def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
     return torch.clamp_min(h, 0.0) if relu else h
 
 
+# codes under conductance noise are multiples of 1/GRID
+# (devices.variation.NOISE_GRID); GRID·code = DIGIT_BASE·hi + lo
+GRID = 8
+DIGIT_BASE = 32
+# largest w_levels whose GRID·code splits into int8 digits: hi in
+# [-128, 127]
+MAX_DIGIT_CODE = 511
+# largest tile-padded depth (``digit_tiles``) whose block of the quant
+# kernel fits the card's 227 KiB of shared memory: its narrowest column
+# group of int8 digits and one m16 row tile of both signs' codes. At a
+# rows_per_xbar that is a multiple of 32 that is F <= 4,768.
+MAX_DEPTH = 4768
+
+
+class Conductances(NamedTuple):
+    """One weight matrix programmed onto crossbars (``program_conductances``).
+
+    wq: [F, H] signed conductance codes, float32 (what the plain version
+    multiplies); w_scale: their float32 0-dim scale; digits: on the card,
+    the quant kernel's int8 operand [D, H, Kp] (``digit_tiles`` of
+    ``conductance_digits``), None on the CPU; kp: its depth."""
+    wq: torch.Tensor
+    w_scale: torch.Tensor
+    digits: torch.Tensor | None
+    kp: int
+
+
+def _check_exact_partials(cfg: CrossbarNumerics) -> None:
+    """Raise unless every (crossbar tile, bit) partial sum is exact in f32:
+    an integer count of eighths of magnitude <= rows_per_xbar · 8 ·
+    w_levels, below 2^24. Above that the plain version's f32 matmul rounds
+    in an order the kernel's int32 sums cannot follow."""
+    if cfg.rows_per_xbar * 8 * cfg.w_levels >= 1 << 24:
+        raise ValueError(
+            f"rows_per_xbar * 8 * w_levels = "
+            f"{cfg.rows_per_xbar * 8 * cfg.w_levels} >= 2^24: the bit-plane "
+            f"partials are not exact in float32")
+
+
+def tile_depth(f: int, rows_per_xbar: int) -> int:
+    """Depth of ``f`` rows with each crossbar tile of ``rows_per_xbar``
+    rows starting at a multiple of 32: a multiple of 32."""
+    if not f:
+        return 0
+    r = rows_per_xbar
+    tiles = -(-f // r)
+    last = f - (tiles - 1) * r
+    return (tiles - 1) * (-(-r // 32) * 32) + -(-last // 32) * 32
+
+
+def two_digits(cfg: CrossbarNumerics, noisy: bool) -> bool:
+    """Whether the codes take two int8 digits: under conductance noise
+    (multiples of 1/GRID) or beyond +-127. Read from the configuration, not
+    from the codes."""
+    return noisy or cfg.w_levels > 127
+
+
+def conductance_digits(wq: torch.Tensor, two: bool) -> torch.Tensor:
+    """The int8 digits of conductance codes that the quant kernel's tensor
+    cores multiply, [D, F, H].
+
+    One digit (D = 1, ``two`` false): the code itself, for integer codes
+    with |code| <= 127. Two (D = 2): GRID·code, an integer for codes on the
+    1/GRID grid, split as ``DIGIT_BASE·hi + lo`` with lo in [0, 31] and hi
+    in [-128, 127]. The codes are not read on the host; codes outside these
+    cases give other digits (``program_conductances`` makes none)."""
+    if not two:
+        return wq.to(torch.int8)[None]
+    w8 = (wq * float(GRID)).to(torch.int32)
+    return torch.stack([w8 >> 5, w8 & (DIGIT_BASE - 1)]).to(torch.int8)
+
+
+def digit_tiles(digits: torch.Tensor, rows_per_xbar: int):
+    """``digits`` [D, F, H] in the kernel's layout, [D, H, Kp] with the
+    depth contiguous: crossbar tile t's rows start at t·rpad, rpad =
+    rows_per_xbar rounded up to 32, and the pads are 0. Returns
+    (layout, Kp); Kp = ``tile_depth(F, rows_per_xbar)``."""
+    d, f, h = digits.shape
+    r = rows_per_xbar
+    rpad = -(-r // 32) * 32
+    tiles = -(-f // r)
+    kp = tile_depth(f, r)
+    by_tile = F.pad(digits.transpose(1, 2), (0, tiles * r - f))
+    by_tile = F.pad(by_tile.reshape(d, h, tiles, r), (0, rpad - r))
+    return by_tile.reshape(d, h, tiles * rpad)[:, :, :kp].contiguous(), kp
+
+
+def check_noise_grid(w_noise: torch.Tensor) -> None:
+    """Raise unless every entry of a conductance-noise draw is a finite
+    multiple of 1/GRID, as ``devices.sample_conductance_noise`` draws them.
+    One read of the draw (a host sync on the card)."""
+    w8 = w_noise.float() * float(GRID)
+    if not bool((torch.isfinite(w8) & (w8 == torch.round(w8))).all()):
+        raise ValueError(f"conductance noise must be finite multiples of "
+                         f"1/{GRID} (the 1/{GRID} grid of "
+                         f"devices.sample_conductance_noise)")
+
+
+def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
+                         w_noise: torch.Tensor | None = None
+                         ) -> Conductances:
+    """Program ``w`` [F, H] onto crossbars: symmetric conductance codes
+    (``quantize_weights``), plus ``w_noise`` clipped to +-w_levels
+    (``apply_conductance_noise``), and on the card the quant kernel's int8
+    digits. Raises, on every device, for a draw off the 1/GRID grid, for
+    w_levels above ``MAX_DIGIT_CODE`` and where the partials leave f32
+    exactness. Without ``w_noise`` nothing is read back to the host."""
+    _check_exact_partials(cfg)
+    if cfg.w_levels > MAX_DIGIT_CODE:
+        raise ValueError(f"w_levels={cfg.w_levels} > {MAX_DIGIT_CODE}: "
+                         f"{GRID}·code does not split into two int8 digits")
+    if w_noise is not None:
+        check_noise_grid(w_noise)
+    wq, w_scale = quantize_weights(w, cfg)
+    wq = apply_conductance_noise(wq, w_noise, cfg).contiguous()
+    if wq.device.type == "cpu":
+        return Conductances(wq, w_scale, None, 0)
+    digits, kp = digit_tiles(
+        conductance_digits(wq, two_digits(cfg, w_noise is not None)),
+        cfg.rows_per_xbar)
+    return Conductances(wq, w_scale, digits, kp)
+
+
 def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
-                      weights: torch.Tensor, wq: torch.Tensor,
+                      weights: torch.Tensor, codes: Conductances,
                       b: torch.Tensor, scales: torch.Tensor,
                       cfg: CrossbarNumerics, *,
                       relu: bool = False) -> torch.Tensor:
     """Bit-accurate fused layer on programmed conductance codes.
 
-    wq: [F, H] signed conductance codes (float32); b: [H]; scales: [3] =
-    (dac_scale_pos, dac_scale_neg, w_scale) on x's device. Returns [Nd, H]
-    float32 == act(signed crossbar MVM of Z against wq, rescaled, + b),
-    rounded as the composed oracle ``crossbar_matmul_signed_ref`` rounds:
-    each tile's shifted ADC outputs are summed before the cross-tile add,
-    and each sign pass is scaled by ``scale * w_scale`` before the
-    subtraction. The two bit-accurate paths therefore agree bit for bit
-    on the same codes; a layer's output feeds the next layer's DAC, where
-    one ulp can move a code and its ADC output by a whole step."""
+    codes: ``program_conductances`` of the layer's [F, H] weights (on the
+    card, its int8 digits are what the kernel multiplies); b: [H];
+    scales: [3] = (dac_scale_pos, dac_scale_neg, w_scale) on x's device.
+    Returns [Nd, H] float32 == act(signed crossbar MVM of Z against
+    codes.wq, rescaled, + b), rounded as the composed oracle
+    ``crossbar_matmul_signed_ref`` rounds: each tile's shifted ADC outputs
+    are summed before the cross-tile add, and each sign pass is scaled by
+    ``scale * w_scale`` before the subtraction. The two bit-accurate paths
+    therefore agree bit for bit on the same codes; a layer's output feeds
+    the next layer's DAC, where one ulp can move a code and its ADC output
+    by a whole step. Raises, on every device, where the partials leave f32
+    exactness and above a tile-padded depth of ``MAX_DEPTH``."""
+    wq = codes.wq
     _check_layer(x, neighbors, weights, wq, b)
     if scales.shape != (3,) or scales.dtype != torch.float32 \
             or scales.device != x.device:
         raise ValueError("scales must be float32 [3] on x's device")
+    _check_exact_partials(cfg)
+    depth = tile_depth(wq.shape[0], cfg.rows_per_xbar)
+    if depth > MAX_DEPTH:
+        raise ValueError(
+            f"F={wq.shape[0]} at rows_per_xbar={cfg.rows_per_xbar} has a "
+            f"tile-padded depth of {depth} > {MAX_DEPTH}: a block of the "
+            f"quant kernel keeps its digits in shared memory")
     if x.device.type == "cpu":
         return fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
                                        cfg, relu=relu)
     if not 1 <= cfg.in_bits <= 8:
         raise ValueError(f"the quant kernel keeps DAC codes in 8 bits; "
                          f"in_bits={cfg.in_bits}")
+    if codes.digits is None or codes.digits.device != x.device:
+        raise ValueError("codes were not programmed on x's device")
     nd, s = neighbors.shape
     f, h = wq.shape
     out = torch.empty((nd, h), dtype=torch.float32, device=x.device)
     if nd and h:
         fn = _build.c_function("fused_layer", "fused_quant_layer_f32", (
-            _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
-            _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _P))
+            _P, _P, _P, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+            _I, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_float, _I,
+            _P))
         _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
-                        weights.data_ptr(), wq.data_ptr(), b.data_ptr(),
+                        weights.data_ptr(), codes.digits.data_ptr(),
+                        codes.digits.shape[0], b.data_ptr(),
                         scales.data_ptr(), out.data_ptr(), nd, s, f, h,
-                        cfg.rows_per_xbar, cfg.in_bits, cfg.full_scale,
-                        cfg.lsb, cfg.inv_lsb, int(relu), stream_ptr(x)),
-                     "fused_quant_layer")
+                        cfg.rows_per_xbar, codes.kp, cfg.in_bits,
+                        cfg.full_scale, cfg.lsb, cfg.inv_lsb, int(relu),
+                        stream_ptr(x)), "fused_quant_layer")
         fused_quant_layer.launches += 1
     return out
 
@@ -190,16 +333,15 @@ fused_quant_layer.launches = 0
 def quant_operands(zmax: torch.Tensor, w: torch.Tensor,
                    cfg: CrossbarNumerics,
                    w_noise: torch.Tensor | None = None):
-    """(wq, scales) for ``fused_quant_layer`` from the zmax pass: the global
-    DAC scales of max(Z, 0) and max(-Z, 0) (floor 1e-8, over ``in_levels``)
-    and the programmed, optionally perturbed, conductance codes."""
-    levels = torch.tensor(float(cfg.in_levels), dtype=torch.float32,
-                          device=zmax.device)
+    """(codes, scales) for ``fused_quant_layer`` from the zmax pass: the
+    programmed, optionally perturbed, conductance codes
+    (``program_conductances``) and the global DAC scales of max(Z, 0) and
+    max(-Z, 0) (floor 1e-8, over ``in_levels``) beside their w_scale."""
+    levels = _const(cfg.in_levels, zmax)
     scale_pos = torch.clamp_min(zmax[:, 0].max(), 1e-8) / levels
     scale_neg = torch.clamp_min(zmax[:, 1].max(), 1e-8) / levels
-    wq, w_scale = quantize_weights(w, cfg)
-    wq = apply_conductance_noise(wq, w_noise, cfg).contiguous()
-    return wq, torch.stack([scale_pos, scale_neg, w_scale])
+    codes = program_conductances(w, cfg, w_noise)
+    return codes, torch.stack([scale_pos, scale_neg, codes.w_scale])
 
 
 def fused_gnn_layer(x: torch.Tensor, neighbors: torch.Tensor,
@@ -211,10 +353,11 @@ def fused_gnn_layer(x: torch.Tensor, neighbors: torch.Tensor,
 
     Matches ``ref.fused_layer_ref`` for ideal and bit-accurate ``cfg``.
     ``w_noise``: optional [F, H] conductance-code perturbation, ignored on
-    the ideal path."""
+    the ideal path; on every device it must be multiples of 1/GRID, as
+    ``devices.sample_conductance_noise`` draws them (raises otherwise)."""
     if cfg.ideal:
         return fused_ideal_layer(x, neighbors, weights, w, b, relu=relu)
     zmax = fused_zmax(x, neighbors, weights)
-    wq, scales = quant_operands(zmax, w, cfg, w_noise)
-    return fused_quant_layer(x, neighbors, weights, wq, b, scales, cfg,
+    codes, scales = quant_operands(zmax, w, cfg, w_noise)
+    return fused_quant_layer(x, neighbors, weights, codes, b, scales, cfg,
                              relu=relu)

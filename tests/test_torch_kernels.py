@@ -13,7 +13,9 @@ where each wrapper runs its kernel's plain version. Tolerances:
     below one ADC step (the tile sums are added in another order);
   * the signed crossbar product: rtol/atol 1e-5 (float rounding of the
     rescale and of the pos - neg recombination);
-  * the CAM search: exact.
+  * the CAM search: exact;
+  * the quant kernel's int8 digits and integer formulation against the
+    f32 partials of the plain version: exact.
 """
 import numpy as np
 import pytest
@@ -34,7 +36,9 @@ from repro_torch.kernels.cam_match import cam_search, scan, search
 from repro_torch.kernels.csr_aggregate import aggregate, csr_aggregate
 from repro_torch.kernels.fused_layer import (fused_gnn_layer,
                                              fused_ideal_layer_plain,
-                                             fused_layer_ref, fused_zmax)
+                                             fused_layer_ref,
+                                             fused_quant_layer, fused_zmax)
+from repro_torch.kernels.fused_layer import ops as fl_ops
 
 QUANT = dict(in_bits=8, w_bits=8, adc_bits=12, rows_per_xbar=64)
 IDEAL = dict(ideal=True)
@@ -331,3 +335,197 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         csr_aggregate(xt.t(), nt, wt)
     with pytest.raises(ValueError):
         fused_gnn_layer(xt, nt, wt, Wt[:-1].contiguous(), bt)
+
+
+# ---- the quant kernel's int8 tensor-core formulation, checked on the CPU
+
+
+def _grid_codes(k, n, w_bits, noisy, seed):
+    """Conductance codes as the serving path programs them: quantized
+    weights, and with ``noisy`` a ReRAM-sized draw on the 1/8 grid, clipped
+    to +-w_levels (``quant_operands`` with ``w_noise``)."""
+    rng = np.random.default_rng(seed)
+    cfg = pt_xbar.CrossbarNumerics(w_bits=w_bits)
+    wq, _ = pt_xbar.quantize_weights(
+        torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)), cfg)
+    if noisy:
+        nz = np.round(rng.normal(size=(k, n)) * 0.05 * cfg.w_levels * 8) / 8
+        wq = pt_xbar.apply_conductance_noise(
+            wq, torch.from_numpy(nz.astype(np.float32)), cfg)
+    return wq.contiguous(), cfg
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("w_bits", [2, 3, 4, 5, 6, 7, 8])
+def test_conductance_digits_reconstruct_eight_times_the_code(w_bits, noisy):
+    """Clean codes are one int8 digit, the code; codes on the 1/8 grid are
+    two, 8 * code = 32 * hi + lo, hi in [-32, 31] and lo in [0, 31]. The
+    count comes from the configuration and the noise flag alone."""
+    wq, cfg = _grid_codes(70, 12, w_bits, noisy, seed=w_bits)
+    two = fl_ops.two_digits(cfg, noisy)
+    assert two == noisy
+    digits = fl_ops.conductance_digits(wq, two)
+    assert digits.dtype == torch.int8
+    d = digits.to(torch.int32)
+    w8 = (wq * 8).to(torch.int32)
+    assert digits.shape == ((2 if two else 1), 70, 12)
+    if two:
+        hi, lo = d
+        assert int(lo.min()) >= 0 and int(lo.max()) <= 31
+        assert int(hi.min()) >= -32 and int(hi.max()) <= 31
+        assert torch.equal(fl_ops.DIGIT_BASE * hi + lo, w8)
+    else:
+        assert torch.equal(8 * d[0], w8)
+        assert int(d.abs().max()) <= cfg.w_levels
+
+
+def test_conductance_digits_refuse_what_the_kernel_cannot_hold():
+    """Noise off the 1/8 grid and w_levels above 511 are refused where the
+    weights are programmed, on every device, so the plain version and the
+    kernel take the same inputs; codes above 127 (w_bits 9, 10) take the
+    two-digit path."""
+    cfg = pt_xbar.CrossbarNumerics()
+    w = torch.ones(2, 2)
+    for bad in (0.3, 0.0625, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="1/8"):
+            fl_ops.program_conductances(w, cfg, torch.tensor([[0.0, bad],
+                                                              [0.5, 1.0]]))
+    with pytest.raises(ValueError, match="w_levels"):
+        fl_ops.program_conductances(w, pt_xbar.CrossbarNumerics(w_bits=11))
+    wide = pt_xbar.CrossbarNumerics(w_bits=10)
+    assert fl_ops.two_digits(wide, noisy=False)
+    wq = torch.tensor([[511.0, -511.0], [200.0, 3.0]])
+    hi, lo = fl_ops.conductance_digits(wq, True).to(torch.int32)
+    assert torch.equal(32 * hi + lo, (8 * wq).to(torch.int32))
+
+
+def test_fused_layer_refuses_noise_off_the_grid_on_every_device():
+    """``fused_gnn_layer(w_noise=...)`` takes draws on the 1/8 grid (what
+    ``devices.sample_conductance_noise`` makes) and raises for any other
+    perturbation, on the CPU as on the card; ``program_conductances`` on
+    the CPU equals quantize-then-perturb and builds no digits."""
+    x, nbr, wts, w, b = _t(*_case(10, 24, 6, 9, 3))
+    on_grid = torch.full_like(w, 0.375)
+    with pytest.raises(ValueError, match="1/8"):
+        fused_gnn_layer(x, nbr, wts, w, b, pt_xbar.CrossbarNumerics(),
+                        w_noise=on_grid + 0.01)
+    fused_gnn_layer(x, nbr, wts, w, b, pt_xbar.CrossbarNumerics(),
+                    w_noise=on_grid)
+    cfg = pt_xbar.CrossbarNumerics()
+    codes = fl_ops.program_conductances(w, cfg, on_grid)
+    wq, w_scale = pt_xbar.quantize_weights(w, cfg)
+    assert torch.equal(codes.wq, pt_xbar.apply_conductance_noise(
+        wq, on_grid, cfg))
+    assert torch.equal(codes.w_scale, w_scale)
+    assert codes.digits is None and codes.kp == 0
+
+
+@pytest.mark.parametrize("f,r", [(496, 512), (496, 64), (130, 50), (7, 4),
+                                 (0, 64)])
+def test_digit_tiles_put_each_crossbar_tile_at_a_multiple_of_32(f, r):
+    """[D, H, Kp]: row k of the codes sits at depth (k // r) * rpad + k % r,
+    rpad = r rounded up to 32; every other depth holds 0."""
+    digits = torch.randint(-128, 128, (2, f, 5), dtype=torch.int8)
+    layout, kp = fl_ops.digit_tiles(digits, r)
+    rpad = -(-r // 32) * 32
+    assert kp % 32 == 0 and layout.shape == (2, 5, kp)
+    assert layout.is_contiguous()
+    k = torch.arange(f)
+    pos = k // r * rpad + k % r
+    assert torch.equal(layout[:, :, pos], digits.transpose(1, 2))
+    rest = torch.ones(kp, dtype=torch.bool)
+    rest[pos] = False
+    assert int(layout[:, :, rest].abs().sum()) == 0
+    if f:
+        assert kp == int(pos[-1]) // 32 * 32 + 32
+
+
+def _int8_tile_partials(codes_t, digits_t, in_bits):
+    """The kernel's integer formulation of one crossbar tile: DAC codes
+    packed four to a 32-bit word, plane b as (word >> b) & 0x01010101,
+    int32 products against each int8 digit, 32 * hi + lo, times 0.125 on
+    the two-digit path. Returns the f32 partials, [in_bits, M, N]."""
+    m, kt = codes_t.shape
+    packed = torch.zeros((m, -(-kt // 4) * 4), dtype=torch.uint8)
+    packed[:, :kt] = codes_t.to(torch.uint8)
+    words = packed.view(torch.int32)
+    out = []
+    for b in range(in_bits):
+        plane = ((words >> b) & 0x01010101).view(torch.uint8)[:, :kt]
+        acc = [plane.to(torch.int32) @ d.to(torch.int32) for d in digits_t]
+        if len(acc) == 1:
+            out.append(acc[0].to(torch.float32))
+        else:
+            val = fl_ops.DIGIT_BASE * acc[0] + acc[1]
+            out.append(val.to(torch.float32) * 0.125)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("numerics", [DEFAULT, QUANT])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_int8_formulation_equals_the_f32_bit_plane_partials(numerics, noisy):
+    """Every (tile, bit) partial of the integer formulation equals the f32
+    product of the plain version bit for bit, and the ADC'd, shifted and
+    tile-summed result equals ``crossbar_matmul_quantized_plain``."""
+    from repro_torch.kernels.crossbar_mvm.ref import _adc
+    cfg = pt_xbar.CrossbarNumerics(**numerics)
+    xq, wq = _noisy_codes(24, 600, 20, seed=5, noisy=noisy)
+    xq, wq = _t(xq, wq)
+    digits = fl_ops.conductance_digits(wq, fl_ops.two_digits(cfg, noisy))
+    assert digits.shape[0] == (2 if noisy else 1)
+    r = cfg.rows_per_xbar
+    acc = torch.zeros((24, 20), dtype=torch.float32)
+    for t0 in range(0, 600, r):
+        parts = _int8_tile_partials(xq[:, t0:t0 + r],
+                                    digits[:, t0:t0 + r], cfg.in_bits)
+        tile = torch.zeros_like(acc)
+        for b in range(cfg.in_bits):
+            plane = ((xq[:, t0:t0 + r] >> b) & 1).float()
+            assert torch.equal(parts[b], plane @ wq[t0:t0 + r])
+            tile = tile + _adc(parts[b], cfg) * (2.0 ** b)
+        acc = acc + tile
+    assert torch.equal(acc, pt_xbar.crossbar_matmul_quantized_plain(
+        xq, wq, cfg))
+
+
+def test_quant_layer_raises_where_partials_leave_f32_exactness():
+    """rows_per_xbar * 8 * w_levels must stay below 2^24: the wrapper (and
+    the fused backend through it) raises above, on any device."""
+    x, nbr, wts, w, b = _t(*_case(12, 32, 8, 12, 4))
+    scales = torch.tensor([0.1, 0.1, 0.01])
+    fits = pt_xbar.CrossbarNumerics(rows_per_xbar=16513)    # 16,777,208
+    assert fits.rows_per_xbar * 8 * fits.w_levels < 1 << 24
+    fused_quant_layer(x, nbr, wts, fl_ops.program_conductances(w, fits), b,
+                      scales, fits)
+    codes = fl_ops.program_conductances(w, pt_xbar.CrossbarNumerics())
+    for big in (pt_xbar.CrossbarNumerics(rows_per_xbar=16514),
+                pt_xbar.CrossbarNumerics(rows_per_xbar=1 << 15),
+                pt_xbar.CrossbarNumerics(w_bits=16, rows_per_xbar=512)):
+        with pytest.raises(ValueError, match="2\\^24"):
+            fused_quant_layer(x, nbr, wts, codes, b, scales, big)
+        with pytest.raises(ValueError, match="2\\^24"):
+            fused_gnn_layer(x, nbr, wts, w, b, big)
+
+
+@pytest.mark.parametrize("f,r,depth", [(4768, 512, 4768), (4769, 512, 4800),
+                                       (4700, 50, 6016),
+                                       (3703, 512, 3712), (1433, 64, 1440)])
+def test_quant_layer_raises_above_its_shared_memory_depth(f, r, depth):
+    """A block of the quant kernel keeps its digits at the tile-padded
+    depth in shared memory: up to 4,768, F <= 4,768 where rows_per_xbar is
+    a multiple of 32. The wrapper raises above it, on any device."""
+    assert fl_ops.tile_depth(f, r) == depth
+    cfg = pt_xbar.CrossbarNumerics(rows_per_xbar=r)
+    rng = np.random.default_rng(f)
+    x = torch.from_numpy(rng.normal(size=(6, f)).astype(np.float32))
+    nbr = torch.zeros((3, 2), dtype=torch.int32)
+    wts = torch.full((3, 2), 0.5)
+    w = torch.from_numpy(rng.normal(size=(f, 2)).astype(np.float32))
+    b = torch.zeros(2)
+    codes, scales = fl_ops.quant_operands(
+        fl_ops.fused_zmax_plain(x, nbr, wts), w, cfg)
+    if depth <= fl_ops.MAX_DEPTH:
+        fused_quant_layer(x, nbr, wts, codes, b, scales, cfg)
+    else:
+        with pytest.raises(ValueError, match="depth"):
+            fused_quant_layer(x, nbr, wts, codes, b, scales, cfg)
