@@ -24,10 +24,14 @@ Phases, each printing its lines, each failing the run on any error:
          (its matmul sums in another order).
        * ``cam_search`` at one k-NN launch of the recsys scenario at 20,000
          nodes (Q = 104 tagged query ids against E = 160,000 entries), at
-         a ragged Q = 7, E = 160,001, and with negative queries: exact.
+         a ragged Q = 7, E = 160,001, with negative queries, and at
+         Q = 600,000, E = 64 (past the grid's query limit): exact.
        * ``crossbar_matmul_quantized`` at 32 x 216 x 64 (the variation
-         bounds) and 372,475 x 496 x 64 (layer 1 of the centralized collab
-         path), default and 12-bit-ADC/64-row numerics, clean and noisy
+         bounds), 372,475 x 496 x 64 (layer 1 of the centralized collab
+         path) and, on 3,000 rows, at K = 1,100 (ragged crossbar tiles)
+         and K = 5,000 (deeper than the quant layer's limit), through the
+         conductance-code and the programmed-weights entry points,
+         default and 12-bit-ADC/64-row numerics, clean and noisy
          conductance codes: exact; and ``crossbar_matmul_signed`` on the
          kernel equal to ``crossbar_matmul_signed_ref`` bit for bit.
   3. the paths, each driven through its entry points with the launch
@@ -59,10 +63,13 @@ Phases, each printing its lines, each failing the run on any error:
      layer 1 and layer 2 of the centralized path (the quant layer with
      the programming of its weights, as every serving call runs it, and
      per numerics and codes also its launch alone), ``cam_search`` at
-     Q = 104, E = 160,000 and
-     ``crossbar_matmul_quantized`` at 372,475 x 496 x 64 (both numerics),
-     372,475 x 64 x 16 and 32 x 216 x 64. The build lines give each
-     kernel's registers and spills.
+     Q = 104, E = 160,000 (with the k-NN build's shares: its CAM calls
+     and its bitmap folds) and ``crossbar_matmul_quantized`` at
+     372,475 x 496 x 64 (both numerics, clean and noisy codes),
+     372,475 x 64 x 16 and 32 x 216 x 64. These two are timed per wrapper
+     call and by the device time of the launch alone (the profiler's
+     kernel time). The build lines give each kernel's registers and
+     spills.
 
 The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -140,6 +147,26 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def profiled_ms(fn, kernel: str, calls: int) -> tuple:
+    """(mean device ms of one kernel whose name holds ``kernel``, their
+    count) over ``calls`` calls of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total += evt.device_time_total
+            count += evt.count
+    require(count and total > 0, f"the profiler shows no device time for "
+            f"{kernel}")
+    return total / count / 1e3, count
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -279,43 +306,63 @@ def mvm_inputs(device) -> tuple:
 
 
 def crossbar_codes(x, w, cfg, noisy: bool) -> tuple:
-    """(xq, wq) the kernel gets from ``crossbar_matmul`` on (x, w): DAC
-    codes of max(x, 0), conductance codes with a ReRAM noise draw."""
+    """(xq, codes) the kernel gets from ``crossbar_matmul`` on (x, w): DAC
+    codes of max(x, 0) and the weights programmed with a ReRAM noise draw
+    (``codes.wq`` the conductance codes, ``codes.digits`` their int8
+    digits)."""
     xq, _ = xb.quantize_inputs(torch.clamp_min(x, 0.0), cfg)
-    wq, _ = xb.quantize_weights(w, cfg)
-    if noisy:
-        wq = xb.apply_conductance_noise(wq, torch.from_numpy(
-            devices.sample_conductance_noise(1, tuple(w.shape), "reram",
-                                             cfg)).to(w.device), cfg)
-    return xq, wq.contiguous()
+    nz = torch.from_numpy(devices.sample_conductance_noise(
+        1, tuple(w.shape), "reram", cfg)).to(w.device) if noisy else None
+    return xq, xb.program_conductances(w, cfg, nz)
+
+
+def crossbar_check(err, x, w, tag) -> None:
+    """The crossbar kernel through both entry points (conductance codes and
+    programmed weights) against its plain version, bit for bit, in both
+    numerics on clean and noisy codes."""
+    for nname, cfg in (("default", CrossbarNumerics()),
+                       ("QUANT", CrossbarNumerics(**QUANT))):
+        for noisy in (False, True):
+            xq, codes = crossbar_codes(x, w, cfg, noisy)
+            ref = xb.crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
+            record(err, "crossbar_matmul_quantized",
+                   xb.crossbar_matmul_quantized(xq, codes.wq, cfg), ref,
+                   True, f"{tag} {nname} noisy={noisy} codes")
+            record(err, "crossbar_matmul_quantized",
+                   xb.crossbar_matmul_programmed(xq, codes, cfg), ref, True,
+                   f"{tag} {nname} noisy={noisy} programmed")
 
 
 def new_kernel_checks(z1, w1, device, err: dict) -> None:
     """``cam_search`` and ``crossbar_matmul_quantized`` against their
-    plain versions, exactly, at their paths' shapes."""
+    plain versions, exactly, at their paths' shapes; the CAM also past the
+    grid's query limit, the crossbar also at a ragged K of three 512-row
+    crossbar tiles and at a K deeper than the quant layer's limit."""
     entries, queries = cam_inputs(device)
     ragged_e = torch.cat([entries, entries[:1]])
     negative = queries.clone()
     negative[::5] = -1
     negative[1::7] = -(1 << 20)
+    gen = torch.Generator(device=device).manual_seed(3)
+    few = entries[:64].clone()
+    many = few[torch.randint(0, 64, (600_000,), generator=gen,
+                             device=device)]
+    many[::9] = -1
     for ci, q, tag in ((entries, queries, "Q=104 E=160000"),
                        (ragged_e, queries[:7].clone(), "Q=7 E=160001"),
-                       (entries, negative, "Q=104 negative queries")):
+                       (entries, negative, "Q=104 negative queries"),
+                       (few, many, "Q=600000 E=64 (group loop)")):
         match, counts = cam_search(ci, q)
         ref_match, ref_counts = cam_search_ref(ci, q)
         record(err, "cam_search", match, ref_match, True, f"{tag} bitmap")
         record(err, "cam_search", counts, ref_counts, True, f"{tag} counts")
     x_small, w_small = mvm_inputs(device)
-    for x, w, tag in ((x_small, w_small, "32x216x64"),
-                      (z1, w1, "372475x496x64")):
-        for nname, cfg in (("default", CrossbarNumerics()),
-                           ("QUANT", CrossbarNumerics(**QUANT))):
-            for noisy in (False, True):
-                xq, wq = crossbar_codes(x, w, cfg, noisy)
-                record(err, "crossbar_matmul_quantized",
-                       xb.crossbar_matmul_quantized(xq, wq, cfg),
-                       xb.crossbar_matmul_quantized_plain(xq, wq, cfg),
-                       True, f"{tag} {nname} noisy={noisy}")
+    crossbar_check(err, x_small, w_small, "32x216x64")
+    crossbar_check(err, z1, w1, "372475x496x64")
+    for k in (1100, 5000):
+        x = torch.randn((3000, k), generator=gen, device=device)
+        w = 0.05 * torch.randn((k, HIDDEN), generator=gen, device=device)
+        crossbar_check(err, x, w, f"3000x{k}x64")
     for nname, cfg in (("default", CrossbarNumerics()),
                        ("QUANT", CrossbarNumerics(**QUANT))):
         nz = torch.from_numpy(devices.sample_conductance_noise(
@@ -414,14 +461,16 @@ def counted(what: str, fn, expect: dict, totals: dict):
     return out
 
 
-def path_a(device, totals: dict) -> None:
+def path_a(device, totals: dict) -> dict:
     """CAM-built k-NN serving: both scenarios' graphs on the three paths,
-    a centralized plan served on them, and the CLI."""
+    a centralized plan served on them, and the CLI. Returns each
+    scenario's build seconds on ``cam-pallas`` (host clock)."""
     n = SCENARIO_NODES
     per_launch = knn._BITMAP_BUDGET // (n * 64)        # query nodes
     launches = -(-n // per_launch)
     cfg = gnn.GNNConfig(in_dim=32, hidden_dims=(HIDDEN,), out_dim=OUT,
                         sample=SAMPLE)
+    builds = {}
     for name in neighbors.SCENARIOS:
         graphs = {}
         for mode, backend in (("cam", "pallas"), ("cam", "jnp"),
@@ -434,10 +483,12 @@ def path_a(device, totals: dict) -> None:
                     neighbor_mode=mode, backend=backend, device=device),
                 {"cam_search": launches if backend == "pallas" else 0},
                 totals)
+            secs = time.perf_counter() - t0
+            if backend == "pallas":
+                builds[name] = secs
             g = graphs[mode, backend]
             print(f"[pathA] {name} {mode}/{backend}: {g.n_nodes} nodes, "
-                  f"{g.n_edges} edges, built in "
-                  f"{time.perf_counter() - t0:.2f} s (host clock)",
+                  f"{g.n_edges} edges, built in {secs:.3f} s (host clock)",
                   flush=True)
         ref = graphs["cam", "pallas"]
         for (mode, backend), g in graphs.items():
@@ -456,6 +507,7 @@ def path_a(device, totals: dict) -> None:
                               "cam-pallas", "--setting", "centralized",
                               "--scale", "0.1"]),
             {"cam_search": launches, "fused_ideal_layer": None}, totals)
+    return builds
 
 
 def path_b(device, g, totals: dict) -> None:
@@ -639,45 +691,87 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
     return rec
 
 
-def new_timings(z1, w1, z2, w2, device) -> dict:
+def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
     """Kernel, plain and bound times of ``cam_search`` at one k-NN launch
     and of ``crossbar_matmul_quantized`` at layer 1 of the centralized
     collab path (the kernels line's record); the crossbar also with
-    12-bit-ADC/64-row numerics, at layer 2 (64 -> 16) and at the variation
-    bounds' 32 x 216 x 64. Neither kernel has one PyTorch call that
-    computes the same function."""
+    12-bit-ADC/64-row numerics, on clean codes, at layer 2 (64 -> 16) and
+    at the variation bounds' 32 x 216 x 64. Each is timed two ways: per
+    wrapper call (``ms``: CUDA events around back-to-back calls, so the
+    host's work counts where it is the slower) and the device time of its
+    launch alone (``launch_ms``: the profiler's time of the kernel).
+    The crossbar's wrapper reads its codes back (one host sync) and builds
+    their digits; its launch alone takes programmed weights. Neither kernel
+    has one PyTorch call that computes the same function."""
     rec = {}
     entries, queries = cam_inputs(device)
     e, q = entries.numel(), queries.numel()
     ms, by = bound(4 * e + 4 * q + q * e + 4 * q, q * e / F32_FLOPS)
+
+    def call():
+        return cam_search(entries, queries)
+    prof, nprof = profiled_ms(call, "cam_search_kernel", 50)
     rec["cam_search"] = dict(
-        ms=cuda_ms(lambda: cam_search(entries, queries), 200),
+        ms=cuda_ms(call, 200), launch_ms=prof,
         plain_ms=cuda_ms(lambda: cam_search_ref(entries, queries), 20),
         bound_ms=ms, bound_by=by, library_ms=None)
     r = rec["cam_search"]
-    print(f"[time] cam_search Q={q} E={e}: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms, bound {ms:.4f} ms ({by}; bitmap "
-          f"{q * e} B written)", flush=True)
+    print(f"[time] cam_search Q={q} E={e}: per wrapper call {r['ms']:.4f} "
+          f"ms, launch alone {prof:.4f} ms (profiler, {nprof} launches), "
+          f"plain {r['plain_ms']:.4f} ms, "
+          f"bound {ms:.4f} ms ({by}; bitmap {q * e} B written)", flush=True)
+    b = knn.DEFAULT_BANDS
+    qc, n = q // b, e // b
+    match, _ = call()
+    out = torch.empty((qc, n), dtype=torch.int32, device=device)
+
+    def fold():
+        out[:qc] = match.view(qc, b, n, b).sum(dim=(1, 3), dtype=torch.int32)
+    fold_ms = cuda_ms(fold, 200)
+    launches = -(-SCENARIO_NODES // qc)
+    for name, secs in builds.items():
+        print(f"[time] k-NN build {name} cam-pallas {secs * 1e3:.1f} ms "
+              f"(host clock, phase 3): {launches} cam_search calls "
+              f"{launches * r['ms']:.1f} ms "
+              f"({launches * r['ms'] / secs / 10:.1f} %), {launches} folds "
+              f"{launches * fold_ms:.1f} ms "
+              f"({launches * fold_ms / secs / 10:.1f} %); per fold "
+              f"{fold_ms:.4f} ms", flush=True)
     x_small, w_small = mvm_inputs(device)
-    for x, w, nname, cfg, iters in (
-            (z1, w1, "default", CrossbarNumerics(), 5),
-            (z1, w1, "QUANT", CrossbarNumerics(**QUANT), 5),
-            (z2, w2, "default", CrossbarNumerics(), 20),
-            (x_small, w_small, "default", CrossbarNumerics(), 200)):
-        xq, wq = crossbar_codes(x, w, cfg, noisy=True)
+    default, quant = CrossbarNumerics(), CrossbarNumerics(**QUANT)
+    for x, w, nname, cfg, noisy, iters in (
+            (z1, w1, "default", default, True, 5),
+            (z1, w1, "default", default, False, 5),
+            (z1, w1, "QUANT", quant, True, 5),
+            (z1, w1, "QUANT", quant, False, 5),
+            (z2, w2, "default", default, True, 20),
+            (x_small, w_small, "default", default, True, 200),
+            (x_small, w_small, "default", default, False, 200)):
+        xq, codes = crossbar_codes(x, w, cfg, noisy)
         m, k = xq.shape
-        n = wq.shape[1]
+        n = codes.wq.shape[1]
         ms, by = bound(4 * m * k + 4 * k * n + 4 * m * n,
                        2 * cfg.in_bits * m * k * n / INT8_OPS)
+
+        def launch():
+            return xb.crossbar_matmul_programmed(xq, codes, cfg)
+        prof, nprof = profiled_ms(launch, "crossbar_mma_kernel",
+                                  min(iters, 20))
         r = dict(
-            ms=cuda_ms(lambda: xb.crossbar_matmul_quantized(xq, wq, cfg),
-                       iters),
+            ms=cuda_ms(lambda: xb.crossbar_matmul_quantized(xq, codes.wq,
+                                                            cfg), iters),
+            launch_ms=prof,
             plain_ms=cuda_ms(
-                lambda: xb.crossbar_matmul_quantized_plain(xq, wq, cfg),
+                lambda: xb.crossbar_matmul_quantized_plain(xq, codes.wq,
+                                                           cfg),
                 min(iters, 3)),
             bound_ms=ms, bound_by=by, library_ms=None)
+        d = codes.digits.shape[0]
         print(f"[time] crossbar_matmul_quantized {m}x{k}x{n} {nname} "
-              f"numerics, noisy codes: kernel {r['ms']:.4f} ms, plain "
+              f"numerics, {'noisy' if noisy else 'clean'} codes ({d} int8 "
+              f"digit{'s' if d > 1 else ''}): per wrapper call "
+              f"{r['ms']:.4f} ms, launch alone {prof:.4f} ms (profiler, "
+              f"{nprof} launches), plain "
               f"{r['plain_ms']:.4f} ms, bound {ms:.4f} ms ({by})",
               flush=True)
         rec.setdefault("crossbar_matmul_quantized", r)
@@ -749,7 +843,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s (host set-up)", flush=True)
     serve_cases(plan_d, cfg, ("allgather", "alltoall"), device, True, totals)
     serve_cases(plan_s, cfg, ("alltoall",), device, True, totals)
-    path_a(device, totals)
+    builds = path_a(device, totals)
     path_b(device, g01, totals)
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
@@ -761,7 +855,7 @@ def main() -> None:
     timings(x2, nbr, wts, params[1], "layer2 64->16", iters=20)
     rec1.update(new_timings(z1, params[0]["w"],
                             csr_aggregate_ref(x2, nbr, wts), params[1]["w"],
-                            device))
+                            device, builds))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

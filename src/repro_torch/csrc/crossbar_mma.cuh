@@ -1,9 +1,10 @@
-// One crossbar tile of the bit-serial MVM on the int8 tensor cores, for the
-// fused quant layer (fused_layer.cu); crossbar_mvm.cu still runs the f32
-// tile loop of crossbar_tile.cuh, and both share its ADC.
+// One crossbar tile of the bit-serial MVM on the int8 tensor cores, for both
+// bit-accurate kernels: the fused quant layer (fused_layer.cu) and the
+// standalone crossbar (crossbar_mvm.cu). Both apply the ADC of
+// crossbar_tile.cuh to its partials.
 //
-// A warp "unit" owns 16 rows (one m16 tile) of one sign and kCols output
-// columns, and keeps int32 accumulators for every input bit of the tile:
+// A warp "unit" owns 16 rows (one m16 tile; in the quant layer, of one sign)
+// and kCols output columns, and keeps int32 accumulators for every input bit of the tile:
 // acc[bit][j][4], j = n8 tile * kD + digit, 64 registers a lane. Per k-step
 // of 32 rows it loads its A fragment of DAC-code bytes once from shared
 // memory (4 words, the mma.m16n8k32 .row layout) and the B fragments of the
@@ -11,22 +12,23 @@
 // each bit b forms the 0/1 plane in registers, (word >> b) & 0x01010101, and
 // issues mma.sync.m16n8k32.s32.s8.s8.s32 against each B fragment.
 //
-// Operands in shared memory, both with a row stride of kp + 16 bytes (kp a
-// multiple of 32), which puts the 32 lanes' words in 32 distinct banks:
-//   codes[row][k]     DAC codes of one sign, u8;
+// Operands in shared memory, both with a row stride of 16 bytes more than a
+// multiple of 32 (the staged depth + 16), which puts the 32 lanes' words in
+// 32 distinct banks:
+//   codes[row][k]     DAC codes, u8;
 //   digits[d][col][k] conductance digits, s8, k contiguous per column.
 // k runs over the tile-padded depth: crossbar tile t holds rows
 // [t * rpad, t * rpad + kt) with rpad = r rounded up to 32; the pad is 0.
 //
-// Digits. Clean codes are integers with |code| <= w_levels <= 127: one s8
-// digit (kD = 1). Codes under conductance noise are multiples of 1/8 within
-// +-w_levels, so 8 * code is an integer of magnitude <= 1016, split as
-// 32 * hi + lo with hi in [-32, 31] and lo in [0, 31] (kD = 2, digit 0 = hi).
+// Digits. Integer codes with |code| <= 127: one s8 digit (kD = 1). Codes on
+// the 1/8 grid (conductance noise) or beyond +-127 take two: 8 * code is an
+// integer of magnitude <= 8 * 511, split as 32 * hi + lo with hi in
+// [-128, 127] and lo in [0, 31] (kD = 2, digit 0 = hi).
 //
 // Exactness. The int32 sums are exact. The tile's partial for bit b is
 // acc (kD = 1) or (32 * acc_hi + acc_lo) * 0.125f (kD = 2): an integer of
-// magnitude <= r * 8 * w_levels, converted to f32 exactly while that is
-// below 2^24 (the wrapper raises above it), and scaled by a power of two.
+// magnitude <= r * 8 * max|code|, converted to f32 exactly while that is
+// below 2^24 (the wrappers raise above it), and scaled by a power of two.
 // The plain version's f32 matmul of the 0/1 plane against the codes is
 // exact under the same limit in any order, so both give the same f32
 // partial bit for bit, and the ADC (xbar::adc_shift_add) sees equal inputs.
@@ -103,7 +105,7 @@ __device__ __forceinline__ void tile_mma(
 }
 
 // The tile's contribution to the unit's running sums, in the order of the
-// f32 version: per output, the ADC of each bit's partial shifted and added
+// plain version: per output, the ADC of each bit's partial shifted and added
 // in bit order (xbar::adc_shift_add), then one rounded add across tiles.
 // mvm[nt][e] is the output at row g + 8 (e >> 1), column nt * 8 + 2 t + (e & 1).
 template <int kD>

@@ -8,86 +8,223 @@
 // in src/repro/kernels/crossbar_mvm/crossbar_mvm.py. The TPU grid walks
 // (M/bm, N/bn, K/bk) with the K axis sequential, carrying the sum in the
 // revisited output block, and needs every dimension padded to its block.
-// Here a block owns kRows x kCols outputs and loops over the K tiles itself,
-// in order; it masks ragged M, N and K, so nothing is padded.
+// Here a block owns a row tile and a column block and walks K itself, in
+// order; it masks ragged M, N and K, so nothing is padded.
 //
 // What bounds it on this card: bytes, by the read-once count. At the
 // centralized collab layer-1 shape (M = 372,475, K = 496, N = 64) the int32
-// codes are 739 MB against 189 G bit-plane operations, which int8 tensor
-// cores would do in a third of the time the bytes take. This simple version
-// does the bit-plane products as f32 FMAs on the CUDA cores instead (one FMA
-// per bit, row and column: 2.8 ms at the f32 peak), so in practice it is
-// bound by operations; an int8 tensor-core version is later work. What the
-// design does: each int32 code is read from device memory once per block,
-// kept as one byte in shared memory (in_bits <= 8), and the staged
-// conductance codes are reused by the block's 16 rows. The ADC is shared with
-// the fused quant layer (crossbar_tile.cuh), so both paths round alike and
-// equal the plain version bit for bit.
+// DAC codes are 739 MB; the in_bits bit-plane products are int8 tensor-core
+// work (crossbar_mma.cuh) that the card could do in less time than the
+// codes take to read. The design:
+//   * the conductance codes arrive as int8 digits in the tile-padded layout
+//     [D, N, Kp] (one digit for integer codes within +-127, two for codes
+//     on the 1/8 grid; the wrapper builds them with tensor ops);
+//   * a block of 8 warps owns 16 * mt rows and up to 64 columns, one warp
+//     per (m16 tile, column group) unit, so a small product still spreads
+//     over several units; blocks are persistent and walk row tiles;
+//   * K is staged through shared memory in chunks of the tile-padded depth
+//     (as deep as two blocks an SM allow): the DAC codes of the row tile,
+//     read once from the int32 codes (int4 loads where aligned) and packed
+//     to bytes, and the digits of the block's columns. Where the whole
+//     depth fits one chunk, the digits are staged once for the block's
+//     life; deeper, they are staged again with each chunk. There is no
+//     depth limit;
+//   * each warp runs xmma::tile_mma over the crossbar tiles that meet the
+//     chunk and applies the ADC (xmma::tile_adc) where a tile ends, so the
+//     int32 bit-plane sums of a tile may span chunks.
+// Numerics: the int32 sums are exact and convert to the plain version's f32
+// partials exactly (crossbar_mma.cuh); the ADC, the shift and add in bit
+// order and the add across tiles in tile order are the plain version's, so
+// the result equals it bit for bit.
 #include <cuda_runtime.h>
 
-#include "crossbar_tile.cuh"
+#include <algorithm>
+
+#include "crossbar_mma.cuh"
 
 namespace {
 
-// Dynamic shared memory (xbar::smem_bytes(r)): the staged conductance
-// codes, then the DAC codes of one crossbar tile as bytes, codes[kRows][r].
-__global__ void __launch_bounds__(xbar::kThreads)
-crossbar_kernel(const int* __restrict__ xq, const float* __restrict__ wq,
-                float* __restrict__ out, long long m, int k, int n, int r,
-                int nbits, float fs, float lsb, float inv_lsb) {
-  using namespace xbar;
-  extern __shared__ float4 smem[];
-  float* ws = reinterpret_cast<float*>(smem);
-  unsigned char* codes = reinterpret_cast<unsigned char*>(smem) +
-                         sizeof(float) * kStage * kCols;
-  const int t = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int col0 = blockIdx.y * kCols;
-  const int tc = t % 16, tr = t / 16;  // outputs: row tr; cols tc+16j
-  float acc[4] = {};                   // digital sum across tiles
-  for (int t0 = 0; t0 < k; t0 += r) {
-    const int kt = min(r, k - t0);  // rows of this crossbar tile within K
-    for (int e = t; e < kRows * r; e += kThreads) {
-      const int rr = e / r, kk = e % r;
-      const long long row = row0 + rr;
-      codes[rr * r + kk] =
-          (row < m && kk < kt) ? (unsigned char)xq[row * k + t0 + kk] : 0;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxCols = 64;  // columns of a block, at most
+// Dynamic shared memory of a block, at most: two blocks share an SM.
+constexpr int kSmemBudget = 112 * 1024;
+constexpr int kLoads = 4;  // int4 code loads a thread keeps in flight
+
+// Dynamic shared memory: codes[rows][stride] (u8 DAC codes at their
+// tile-padded depth within the chunk), then ds[kD][bn][stride] (s8 digits);
+// stride = kc + 16 bytes (crossbar_mma.cuh). rows = 16 * mt, bn = ncg *
+// Shape<kD>::kCols, ncg * mt = kWarps. vec: xq is 16-byte aligned and K and
+// rows_per_xbar are multiples of 4.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 2)
+crossbar_mma_kernel(const int* __restrict__ xq,
+                    const signed char* __restrict__ digits,
+                    float* __restrict__ out, long long m, int k, int n, int r,
+                    int rpad, int kp, int kc, int ncg, int nbits, float fs,
+                    float lsb, float inv_lsb, int vec) {
+  using S = xmma::Shape<kD>;
+  const int mt = kWarps / ncg;
+  const int rows = xmma::kRows * mt;
+  const int bn = ncg * S::kCols;
+  const int stride = kc + 16;
+  extern __shared__ int4 smem[];
+  unsigned char* codes = reinterpret_cast<unsigned char*>(smem);
+  signed char* ds = reinterpret_cast<signed char*>(codes + rows * stride);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int cg = warp % ncg, m0 = warp / ncg * xmma::kRows;
+  const int col0 = blockIdx.y * bn;
+  const int nchunks = (kp + kc - 1) / kc;
+  const long long row_tiles = (m + rows - 1) / rows;
+  for (long long tile = blockIdx.x; tile < row_tiles; tile += gridDim.x) {
+    const long long row0 = tile * rows;
+    float mvm[S::kNt][4] = {};
+    int acc[xmma::kMaxBits][S::kAcc][4] = {};
+    for (int c = 0; c < nchunks; ++c) {
+      const int p0 = c * kc, pn = min(kc, kp - p0), words = pn / 4;
+      __syncthreads();  // the previous chunk's reads are done
+      // 1. DAC codes: word w of row rr holds depth p0 + 4w .. + 3; depth p
+      //    is row (p / rpad) * r + p % rpad of K, or a pad (0).
+      for (int e0 = tid; e0 < rows * words; e0 += kThreads * kLoads) {
+        int4 v[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          v[u] = make_int4(0, 0, 0, 0);
+          const int e = e0 + u * kThreads;
+          if (e >= rows * words) continue;
+          const int rr = e / words, p = p0 + 4 * (e % words);
+          const int t = p / rpad, off = p - t * rpad;
+          const int kt = min(r, k - t * r);
+          const long long row = row0 + rr;
+          if (row >= m || off >= kt) continue;
+          const int* src = xq + row * k + (long long)t * r + off;
+          if (vec) {
+            v[u] = __ldg(reinterpret_cast<const int4*>(src));
+          } else {
+            v[u].x = __ldg(src);
+            if (off + 1 < kt) v[u].y = __ldg(src + 1);
+            if (off + 2 < kt) v[u].z = __ldg(src + 2);
+            if (off + 3 < kt) v[u].w = __ldg(src + 3);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int e = e0 + u * kThreads;
+          if (e >= rows * words) continue;
+          const unsigned word = (v[u].x & 0xff) | (v[u].y & 0xff) << 8 |
+                                (v[u].z & 0xff) << 16 |
+                                (unsigned)(v[u].w & 0xff) << 24;
+          *reinterpret_cast<unsigned*>(codes + (e / words) * stride +
+                                       4 * (e % words)) = word;
+        }
+      }
+      // 2. digits of the block's columns, 16 bytes at a time (kp, p0 and
+      //    pn are multiples of 32); once for the block's life where the
+      //    whole depth is one chunk.
+      if (nchunks > 1 || tile == blockIdx.x) {
+        const int q16 = pn / 16;
+        for (int e = tid; e < kD * bn * q16; e += kThreads) {
+          const int q = e % q16, dc = e / q16, cc = dc % bn, d = dc / bn;
+          int4 v = make_int4(0, 0, 0, 0);
+          if (col0 + cc < n)
+            v = __ldg(reinterpret_cast<const int4*>(
+                          digits + ((long long)d * n + col0 + cc) * kp + p0) +
+                      q);
+          *reinterpret_cast<int4*>(ds + dc * stride + 16 * q) = v;
+        }
+      }
+      __syncthreads();
+      // 3. bit-plane products of the crossbar tiles that meet this chunk;
+      //    where a tile ends, its ADC, shift and add into the running sums.
+      for (int p = p0; p < p0 + pn;) {
+        const int tend = min((p / rpad + 1) * rpad, kp);
+        const int end = min(tend, p0 + pn);
+        xmma::tile_mma<kD>(codes + m0 * stride, ds + cg * S::kCols * stride,
+                           stride, bn * stride, p - p0, (end - p) / 32, nbits,
+                           acc);
+        if (end == tend) {
+          xmma::tile_adc<kD>(acc, nbits, fs, lsb, inv_lsb, mvm);
+#pragma unroll
+          for (int b = 0; b < xmma::kMaxBits; ++b)
+#pragma unroll
+            for (int j = 0; j < S::kAcc; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[b][j][i] = 0;
+        }
+        p = end;
+      }
     }
-    float part[4][kMaxBits] = {};  // exact integer-domain partials
-    tile_partials(codes, r, kt, wq, n, t0, col0, ws, nbits, part);
+    // mvm[nt][e] is the output at row g + 8 (e >> 1), column nt * 8 + 2 t +
+    // (e & 1) of the unit.
+    const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[j] = __fadd_rn(acc[j],
-                         adc_shift_add(part[j], nbits, fs, lsb, inv_lsb));
-    __syncthreads();  // all reads of this tile's codes done
-  }
-  const long long row = row0 + tr;
+    for (int nt = 0; nt < S::kNt; ++nt) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = col0 + tc + 16 * j;
-    if (row < m && col < n) out[row * n + col] = acc[j];
+      for (int e = 0; e < 4; ++e) {
+        const long long row = row0 + m0 + g + 8 * (e >> 1);
+        const int col = col0 + cg * S::kCols + nt * 8 + 2 * tq + (e & 1);
+        if (row < m && col < n) out[row * n + col] = mvm[nt][e];
+      }
+    }
   }
+}
+
+// Picks the block's column groups (the fewest power of two that covers N,
+// up to 64 columns) and m16 tiles (the rest of the 8 warps), the chunk
+// depth (as deep as kSmemBudget allows, at most kp) and a persistent grid
+// of as many blocks as fit on the card at once.
+template <int kD>
+int launch(const int* xq, const signed char* digits, float* out, long long m,
+           int k, int n, int r, int kp, int nbits, float fs, float lsb,
+           float inv_lsb, cudaStream_t stream) {
+  constexpr int kCols = xmma::Shape<kD>::kCols;
+  auto kernel = crossbar_mma_kernel<kD>;
+  static bool configured[64] = {};  // the shared memory limit, per device
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && !(dev < 64 && configured[dev])) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+    if (err == cudaSuccess && dev < 64) configured[dev] = true;
+  }
+  if (err != cudaSuccess) return (int)err;
+  int ncg = 1;
+  while (ncg * kCols < n && ncg * kCols < kMaxCols) ncg *= 2;
+  const int rows = xmma::kRows * (kWarps / ncg), bn = ncg * kCols;
+  const int per_row = rows + kD * bn;  // shared bytes per depth position
+  const int kc = std::min(kp, (kSmemBudget / per_row - 16) / 32 * 32);
+  const size_t smem = (size_t)per_row * (kc + 16);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int ncol = (n + bn - 1) / bn;
+  const long long row_tiles = (m + rows - 1) / rows;
+  const long long nx = std::min<long long>(
+      row_tiles, std::max<long long>(1, (long long)per_sm * sms / ncol));
+  const int vec = (size_t)xq % 16 == 0 && k % 4 == 0 && r % 4 == 0;
+  kernel<<<dim3((unsigned)nx, (unsigned)ncol), kThreads, smem, stream>>>(
+      xq, digits, out, m, k, n, r, (r + 31) / 32 * 32, kp, kc, ncg, nbits,
+      fs, lsb, inv_lsb, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int crossbar_matmul_quantized_f32(
-    const void* xq, const void* wq, void* out, long long m, int k, int n,
-    int rows_per_xbar, int in_bits, float full_scale, float lsb,
-    float inv_lsb, void* stream) {
-  if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1)
+extern "C" int crossbar_matmul_quantized_i8(
+    const void* xq, const void* digits, int ndigits, void* out, long long m,
+    int k, int n, int rows_per_xbar, int kp, int in_bits, float full_scale,
+    float lsb, float inv_lsb, void* stream) {
+  if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1 ||
+      kp < 32 || kp % 32 != 0 || (size_t)digits % 16 != 0 ||
+      (ndigits != 1 && ndigits != 2))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = xbar::smem_bytes(rows_per_xbar);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        crossbar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)((m + xbar::kRows - 1) / xbar::kRows),
-                  (unsigned)((n + xbar::kCols - 1) / xbar::kCols));
-  crossbar_kernel<<<grid, xbar::kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)xq, (const float*)wq, (float*)out, m, k, n, rows_per_xbar,
-      in_bits, full_scale, lsb, inv_lsb);
-  return (int)cudaGetLastError();
+  auto run = [&](auto launch_fn) {
+    return launch_fn((const int*)xq, (const signed char*)digits, (float*)out,
+                     m, k, n, rows_per_xbar, kp, in_bits, full_scale, lsb,
+                     inv_lsb, (cudaStream_t)stream);
+  };
+  return ndigits == 1 ? run(launch<1>) : run(launch<2>);
 }

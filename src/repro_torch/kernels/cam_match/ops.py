@@ -7,14 +7,15 @@ no other fallback. ``search`` is the backend switch:
   * ``jnp``    — the plain PyTorch version on any device.
   * ``pallas`` — the hand-written kernel.
 
-The kernel masks ragged E and Q and zeroes negative queries itself, so no
-sentinel padding is needed. ``bq``/``be`` are kept for the reference's
-contract (a non-positive value raises); the kernel's tiles are fixed and
-results do not depend on them. ``cam_search.launches`` counts launches.
+The kernel masks ragged E and Q, zeroes negative queries and writes the
+counts itself, so no sentinel padding and no fill are needed.
+``bq``/``be`` are kept for the reference's contract (a non-positive value
+raises); the kernel's tiles are fixed and results do not depend on them. ``cam_search.launches`` counts launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,34 +33,40 @@ def _validate_blocks(bq, be) -> None:
                              f"{val!r} (pass None for the default)")
 
 
+@functools.cache
+def _entry() -> ctypes._CFuncPtr:
+    """The kernel's C entry point, looked up once."""
+    p = ctypes.c_void_p
+    return _build.c_function("cam_match", "cam_search_i32", (
+        p, p, p, p, ctypes.c_longlong, ctypes.c_int, p))
+
+
 def cam_search(ci: torch.Tensor, queries: torch.Tensor):
     """Match queries against the CAM entries.
 
     ci: [E] int32; queries: [Q] int32, contiguous, on one device. Returns
-    (match [Q, E] int8, counts [Q] int32)."""
+    (match [Q, E] int8, counts [Q] int32). On the card one launch writes
+    both, the counts included: the wrapper allocates and checks only what
+    the kernel needs, since the k-NN build calls it once per query chunk."""
     if ci.dim() != 1 or queries.dim() != 1:
         raise ValueError(f"want ci [E] and queries [Q]; got "
                          f"{tuple(ci.shape)}, {tuple(queries.shape)}")
     if ci.dtype != torch.int32 or queries.dtype != torch.int32:
         raise TypeError(f"want int32 entries and queries; got {ci.dtype}, "
                         f"{queries.dtype}")
-    if ci.device != queries.device:
+    if ci.get_device() != queries.get_device():
         raise ValueError("ci and queries must share a device")
     if not (ci.is_contiguous() and queries.is_contiguous()):
         raise ValueError("ci and queries must be contiguous")
-    if ci.device.type == "cpu":
+    if ci.is_cpu:
         return cam_search_ref(ci, queries)
     e, q = ci.shape[0], queries.shape[0]
-    match = torch.empty((q, e), dtype=torch.int8, device=ci.device)
-    counts = torch.zeros(q, dtype=torch.int32, device=ci.device)
-    if e and q:
-        fn = _build.c_function("cam_match", "cam_search_i32", (
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p))
-        _build.check(fn(ci.data_ptr(), queries.data_ptr(), match.data_ptr(),
-                        counts.data_ptr(), e, q, stream_ptr(ci)),
-                     "cam_search")
+    match = ci.new_empty((q, e), dtype=torch.int8)
+    counts = queries.new_empty(q)
+    if q:
+        _build.check(_entry()(ci.data_ptr(), queries.data_ptr(),
+                              match.data_ptr(), counts.data_ptr(), e, q,
+                              stream_ptr(ci)), "cam_search")
         cam_search.launches += 1
     return match, counts
 

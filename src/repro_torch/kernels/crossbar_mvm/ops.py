@@ -1,24 +1,31 @@
-"""Public wrappers of the bit-serial crossbar kernel (csrc/crossbar_mvm.cu).
+"""Public wrappers of the bit-serial crossbar kernel (csrc/crossbar_mvm.cu),
+and the programming of weights onto crossbars that both bit-accurate
+kernels multiply: int8 conductance digits for the tensor cores.
 
-``crossbar_matmul_quantized`` launches the hand-written CUDA kernel on
-CUDA tensors and runs the plain version
-(``ref.crossbar_matmul_quantized_plain``) on CPU tensors; there is no
-other fallback. ``crossbar_matmul`` and ``crossbar_matmul_signed`` wrap it
-with the global DAC/weight quantization and the final rescale, as the
-reference's ops layer does, so that on the same device::
+``crossbar_matmul_quantized`` (conductance codes) and
+``crossbar_matmul_programmed`` (a ``Conductances`` from
+``program_conductances``) launch the hand-written CUDA kernel on CUDA
+tensors and run the plain version (``ref.crossbar_matmul_quantized_plain``)
+on CPU tensors; there is no other fallback. Both count their launches in
+``crossbar_matmul_quantized.launches``. ``crossbar_matmul`` and
+``crossbar_matmul_signed`` program the weights once and wrap the kernel
+with the DAC quantization and the final rescale, as the reference's ops
+layer does, so that on the same device::
 
     crossbar_matmul(x, w, cfg)  ==  ref.crossbar_matmul_ref(x, w, cfg)
 
-bit for bit. The kernel masks ragged M, N and K itself: nothing is padded
-to a block grid. ``bm``/``bn``/``depth`` are kept for the reference's
-contract and validated; the kernel's tiles are fixed and results do not
-depend on them. ``crossbar_matmul_quantized.launches`` counts launches.
+bit for bit. The kernel masks ragged M, N and K itself and takes any K:
+nothing is padded to a block grid. ``bm``/``bn``/``depth`` are kept for the
+reference's contract and validated; the kernel's tiles are fixed and
+results do not depend on them.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from ..csr_aggregate.ops import stream_ptr
@@ -28,6 +35,159 @@ from .ref import (CrossbarNumerics, apply_conductance_noise,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# codes under conductance noise are multiples of 1/GRID
+# (devices.variation.NOISE_GRID); GRID·code = DIGIT_BASE·hi + lo
+GRID = 8
+DIGIT_BASE = 32
+# largest |code| whose GRID·code splits into int8 digits: hi in [-128, 127]
+MAX_DIGIT_CODE = 511
+# largest |code| that is one int8 digit
+ONE_DIGIT_CODE = 127
+
+
+# ------------------------------------------------------ programming
+
+
+class Conductances(NamedTuple):
+    """One weight matrix programmed onto crossbars (``program_conductances``).
+
+    wq: [F, H] signed conductance codes, float32 (what the plain version
+    multiplies); w_scale: their float32 0-dim scale; digits: on the card,
+    the kernels' int8 operand [D, H, Kp] (``digit_tiles`` of
+    ``conductance_digits``), None on the CPU; kp: its depth."""
+    wq: torch.Tensor
+    w_scale: torch.Tensor
+    digits: torch.Tensor | None
+    kp: int
+
+
+def _check_exact_partials(cfg: CrossbarNumerics) -> None:
+    """Raise unless every (crossbar tile, bit) partial sum is exact in f32:
+    an integer count of eighths of magnitude <= rows_per_xbar · 8 ·
+    w_levels, below 2^24. Above that the plain version's f32 matmul rounds
+    in an order the kernels' int32 sums cannot follow."""
+    if cfg.rows_per_xbar * GRID * cfg.w_levels >= 1 << 24:
+        raise ValueError(
+            f"rows_per_xbar * 8 * w_levels = "
+            f"{cfg.rows_per_xbar * GRID * cfg.w_levels} >= 2^24: the "
+            f"bit-plane partials are not exact in float32")
+
+
+def tile_depth(f: int, rows_per_xbar: int) -> int:
+    """Depth of ``f`` rows with each crossbar tile of ``rows_per_xbar``
+    rows starting at a multiple of 32: a multiple of 32."""
+    if not f:
+        return 0
+    r = rows_per_xbar
+    tiles = -(-f // r)
+    last = f - (tiles - 1) * r
+    return (tiles - 1) * (-(-r // 32) * 32) + -(-last // 32) * 32
+
+
+def two_digits(cfg: CrossbarNumerics, noisy: bool) -> bool:
+    """Whether programmed codes take two int8 digits: under conductance
+    noise (multiples of 1/GRID) or beyond +-127. Read from the
+    configuration, not from the codes."""
+    return noisy or cfg.w_levels > ONE_DIGIT_CODE
+
+
+def conductance_digits(wq: torch.Tensor, two: bool) -> torch.Tensor:
+    """The int8 digits of conductance codes that the kernels' tensor cores
+    multiply, [D, F, H].
+
+    One digit (D = 1, ``two`` false): the code itself, for integer codes
+    with |code| <= 127. Two (D = 2): GRID·code, an integer for codes on the
+    1/GRID grid, split as ``DIGIT_BASE·hi + lo`` with lo in [0, 31] and hi
+    in [-128, 127]. The codes are not read on the host; codes outside these
+    cases give other digits (``program_conductances`` and
+    ``crossbar_matmul_quantized`` make none)."""
+    if not two:
+        return wq.to(torch.int8)[None]
+    w8 = (wq * float(GRID)).to(torch.int32)
+    return torch.stack([w8 >> 5, w8 & (DIGIT_BASE - 1)]).to(torch.int8)
+
+
+def digit_tiles(digits: torch.Tensor, rows_per_xbar: int):
+    """``digits`` [D, F, H] in the kernels' layout, [D, H, Kp] with the
+    depth contiguous: crossbar tile t's rows start at t·rpad, rpad =
+    rows_per_xbar rounded up to 32, and the pads are 0. Returns
+    (layout, Kp); Kp = ``tile_depth(F, rows_per_xbar)``."""
+    d, f, h = digits.shape
+    r = rows_per_xbar
+    rpad = -(-r // 32) * 32
+    tiles = -(-f // r)
+    kp = tile_depth(f, r)
+    by_tile = F.pad(digits.transpose(1, 2), (0, tiles * r - f))
+    by_tile = F.pad(by_tile.reshape(d, h, tiles, r), (0, rpad - r))
+    return by_tile.reshape(d, h, tiles * rpad)[:, :, :kp].contiguous(), kp
+
+
+def check_noise_grid(w_noise: torch.Tensor) -> None:
+    """Raise unless every entry of a conductance-noise draw is a finite
+    multiple of 1/GRID, as ``devices.sample_conductance_noise`` draws them.
+    One read of the draw (a host sync on the card)."""
+    w8 = w_noise.float() * float(GRID)
+    if not bool((torch.isfinite(w8) & (w8 == torch.round(w8))).all()):
+        raise ValueError(f"conductance noise must be finite multiples of "
+                         f"1/{GRID} (the 1/{GRID} grid of "
+                         f"devices.sample_conductance_noise)")
+
+
+def check_codes(wq: torch.Tensor, cfg: CrossbarNumerics) -> bool:
+    """Raise unless every conductance code is a finite multiple of 1/GRID
+    within +-MAX_DIGIT_CODE whose partials stay exact in f32
+    (rows_per_xbar · 8 · max|code| < 2^24, and ``_check_exact_partials``).
+    Returns whether the codes take two int8 digits (any code off the
+    integers or beyond +-127). One read of the codes (a host sync on the
+    card)."""
+    _check_exact_partials(cfg)
+    if not wq.numel():
+        return False
+    w8 = wq * float(GRID)
+    stats = torch.stack([
+        (~(torch.isfinite(w8) & (w8 == torch.round(w8)))).any().float(),
+        wq.abs().amax(), (wq != torch.round(wq)).any().float()])
+    off_grid, top, fraction = stats.tolist()
+    if off_grid:
+        raise ValueError(f"conductance codes must be finite multiples of "
+                         f"1/{GRID}")
+    if top > MAX_DIGIT_CODE:
+        raise ValueError(f"|code| = {top} > {MAX_DIGIT_CODE}: {GRID}·code "
+                         f"does not split into two int8 digits")
+    if cfg.rows_per_xbar * GRID * top >= 1 << 24:
+        raise ValueError(f"rows_per_xbar * 8 * max|code| = "
+                         f"{cfg.rows_per_xbar * GRID * top} >= 2^24: the "
+                         f"bit-plane partials are not exact in float32")
+    return bool(fraction) or top > ONE_DIGIT_CODE
+
+
+def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
+                         w_noise: torch.Tensor | None = None
+                         ) -> Conductances:
+    """Program ``w`` [F, H] onto crossbars: symmetric conductance codes
+    (``quantize_weights``), plus ``w_noise`` clipped to +-w_levels
+    (``apply_conductance_noise``), and on the card the kernels' int8
+    digits. Raises, on every device, for a draw off the 1/GRID grid, for
+    w_levels above ``MAX_DIGIT_CODE`` and where the partials leave f32
+    exactness. Without ``w_noise`` nothing is read back to the host."""
+    _check_exact_partials(cfg)
+    if cfg.w_levels > MAX_DIGIT_CODE:
+        raise ValueError(f"w_levels={cfg.w_levels} > {MAX_DIGIT_CODE}: "
+                         f"{GRID}·code does not split into two int8 digits")
+    if w_noise is not None:
+        check_noise_grid(w_noise)
+    wq, w_scale = quantize_weights(w, cfg)
+    wq = apply_conductance_noise(wq, w_noise, cfg).contiguous()
+    if wq.device.type == "cpu":
+        return Conductances(wq, w_scale, None, 0)
+    digits, kp = digit_tiles(
+        conductance_digits(wq, two_digits(cfg, w_noise is not None)),
+        cfg.rows_per_xbar)
+    return Conductances(wq, w_scale, digits, kp)
+
+
+# ------------------------------------------------------ the kernel
 
 
 def _validate_blocks(k: int, cfg: CrossbarNumerics, bm, bn, depth) -> None:
@@ -52,15 +212,7 @@ def _refuse_tuned(tuned) -> None:
             "port queue: tuning); pass tuned=None")
 
 
-def crossbar_matmul_quantized(xq: torch.Tensor, wq: torch.Tensor,
-                              cfg: CrossbarNumerics, bm: int | None = None,
-                              bn: int | None = None,
-                              depth: int | None = None) -> torch.Tensor:
-    """Bit-serial crossbar matmul on codes.
-
-    xq: [M, K] int32 DAC codes (< 2**in_bits); wq: [K, N] float32 signed
-    conductance codes; contiguous, on one device. Returns the
-    integer-domain [M, N] float32 sum (the caller rescales)."""
+def _check_xq(xq: torch.Tensor, wq: torch.Tensor) -> None:
     check_matmul_shapes(xq, wq)
     if xq.dtype != torch.int32 or wq.dtype != torch.float32:
         raise TypeError(f"want int32 codes and float32 conductance codes; "
@@ -69,39 +221,78 @@ def crossbar_matmul_quantized(xq: torch.Tensor, wq: torch.Tensor,
         raise ValueError("xq and wq must share a device")
     if not (xq.is_contiguous() and wq.is_contiguous()):
         raise ValueError("xq and wq must be contiguous")
-    m, k = xq.shape
-    n = wq.shape[1]
-    _validate_blocks(k, cfg, bm, bn, depth)
-    if xq.device.type == "cpu":
-        return crossbar_matmul_quantized_plain(xq, wq, cfg)
+
+
+def _launch(xq: torch.Tensor, digits: torch.Tensor, kp: int, n: int,
+            cfg: CrossbarNumerics) -> torch.Tensor:
+    """The kernel on int32 codes [M, K] and int8 digits [D, N, kp]."""
     if not 1 <= cfg.in_bits <= 8:
         raise ValueError(f"the crossbar kernel keeps DAC codes in 8 bits; "
                          f"in_bits={cfg.in_bits}")
+    m, k = xq.shape
     if not k:                       # an empty sum; nothing to launch
         return torch.zeros((m, n), dtype=torch.float32, device=xq.device)
+    if digits.device != xq.device or digits.dtype != torch.int8 \
+            or digits.shape[1:] != (n, kp) or digits.shape[0] not in (1, 2) \
+            or not digits.is_contiguous() or digits.data_ptr() % 16 \
+            or kp != tile_depth(k, cfg.rows_per_xbar):
+        raise ValueError("digits must be the contiguous int8 [D, N, Kp] "
+                         "layout of digit_tiles on xq's device")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     if m and n:
         fn = _build.c_function(
-            "crossbar_mvm", "crossbar_matmul_quantized_f32", (
-                _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+            "crossbar_mvm", "crossbar_matmul_quantized_i8", (
+                _P, _P, _I, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
                 ctypes.c_float, ctypes.c_float, ctypes.c_float, _P))
-        _build.check(fn(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, k,
-                        n, cfg.rows_per_xbar, cfg.in_bits, cfg.full_scale,
-                        cfg.lsb, cfg.inv_lsb, stream_ptr(xq)),
-                     "crossbar_matmul_quantized")
+        _build.check(fn(xq.data_ptr(), digits.data_ptr(), digits.shape[0],
+                        out.data_ptr(), m, k, n, cfg.rows_per_xbar, kp,
+                        cfg.in_bits, cfg.full_scale, cfg.lsb, cfg.inv_lsb,
+                        stream_ptr(xq)), "crossbar_matmul_quantized")
         crossbar_matmul_quantized.launches += 1
     return out
+
+
+def crossbar_matmul_quantized(xq: torch.Tensor, wq: torch.Tensor,
+                              cfg: CrossbarNumerics, bm: int | None = None,
+                              bn: int | None = None,
+                              depth: int | None = None) -> torch.Tensor:
+    """Bit-serial crossbar matmul on codes.
+
+    xq: [M, K] int32 DAC codes (< 2**in_bits); wq: [K, N] float32 signed
+    conductance codes, finite multiples of 1/8 within +-MAX_DIGIT_CODE;
+    contiguous, on one device. Returns the integer-domain [M, N] float32
+    sum (the caller rescales). Raises, on every device, for codes off the
+    1/8 grid or beyond +-MAX_DIGIT_CODE (``check_codes``: one read of the
+    codes, which also picks one int8 digit or two)."""
+    _check_xq(xq, wq)
+    _validate_blocks(xq.shape[1], cfg, bm, bn, depth)
+    two = check_codes(wq, cfg)
+    if xq.device.type == "cpu":
+        return crossbar_matmul_quantized_plain(xq, wq, cfg)
+    digits, kp = digit_tiles(conductance_digits(wq, two), cfg.rows_per_xbar)
+    return _launch(xq, digits, kp, wq.shape[1], cfg)
 
 
 crossbar_matmul_quantized.launches = 0
 
 
-def _crossbar_matmul(x, w, cfg, bm, bn, depth, w_noise):
-    check_matmul_shapes(x, w)
+def crossbar_matmul_programmed(xq: torch.Tensor, codes: Conductances,
+                               cfg: CrossbarNumerics) -> torch.Tensor:
+    """``crossbar_matmul_quantized`` of ``xq`` against programmed weights
+    (``program_conductances`` with the same ``cfg``): on the card the
+    kernel multiplies ``codes.digits`` with no read of the codes; on the
+    CPU the plain version multiplies ``codes.wq``."""
+    _check_xq(xq, codes.wq)
+    if xq.device.type == "cpu":
+        return crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
+    if codes.digits is None:
+        raise ValueError("codes were not programmed on xq's device")
+    return _launch(xq, codes.digits, codes.kp, codes.wq.shape[1], cfg)
+
+
+def _programmed_matmul(x, codes: Conductances, cfg) -> torch.Tensor:
     xq, xs = quantize_inputs(x, cfg)
-    wq, ws = quantize_weights(w, cfg)
-    wq = apply_conductance_noise(wq, w_noise, cfg).contiguous()
-    return crossbar_matmul_quantized(xq, wq, cfg, bm, bn, depth) * (xs * ws)
+    return crossbar_matmul_programmed(xq, codes, cfg) * (xs * codes.w_scale)
 
 
 def crossbar_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -112,11 +303,14 @@ def crossbar_matmul(x: torch.Tensor, w: torch.Tensor,
     """y = x @ w through the crossbar numerics, on the kernel.
 
     x: [M, K] float (clipped at 0); w: [K, N]; ``w_noise``: optional
-    [K, N] conductance-code perturbation, ignored on the ideal path."""
+    [K, N] conductance-code perturbation on the 1/8 grid, ignored on the
+    ideal path."""
     _refuse_tuned(tuned)
     if cfg.ideal:
         return x.float() @ w.float()
-    return _crossbar_matmul(x, w, cfg, bm, bn, depth, w_noise)
+    check_matmul_shapes(x, w)
+    _validate_blocks(x.shape[1], cfg, bm, bn, depth)
+    return _programmed_matmul(x, program_conductances(w, cfg, w_noise), cfg)
 
 
 def crossbar_matmul_signed(x: torch.Tensor, w: torch.Tensor,
@@ -126,12 +320,14 @@ def crossbar_matmul_signed(x: torch.Tensor, w: torch.Tensor,
                            w_noise: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """Signed activations: two DAC passes recombined digitally; one
-    ``w_noise`` draw is shared by both (same programmed arrays)."""
+    ``w_noise`` draw is shared by both (same programmed arrays: the
+    weights are programmed once)."""
     _refuse_tuned(tuned)
     if cfg.ideal:
         return x.float() @ w.float()
-    pos = _crossbar_matmul(torch.clamp_min(x, 0.0), w, cfg, bm, bn, depth,
-                           w_noise)
-    neg = _crossbar_matmul(torch.clamp_min(-x, 0.0), w, cfg, bm, bn, depth,
-                           w_noise)
+    check_matmul_shapes(x, w)
+    _validate_blocks(x.shape[1], cfg, bm, bn, depth)
+    codes = program_conductances(w, cfg, w_noise)
+    pos = _programmed_matmul(torch.clamp_min(x, 0.0), codes, cfg)
+    neg = _programmed_matmul(torch.clamp_min(-x, 0.0), codes, cfg)
     return pos - neg

@@ -53,7 +53,10 @@ def check_gather_inputs(x: torch.Tensor, neighbors: torch.Tensor,
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device, for a
+    kernel launch: the binding PyTorch's own compiled kernels launch with,
+    without building a ``torch.cuda.Stream`` object per call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def csr_aggregate(x: torch.Tensor, neighbors: torch.Tensor,

@@ -9,7 +9,7 @@ and keep Z out of device memory:
   * ``fused_quant_layer`` — DAC codes of z against the two global scales,
     then the bit-serial crossbar MVM with an ADC per (K-tile, bit), its
     bit-plane products on the int8 tensor cores, against the weights'
-    int8 digits (``program_conductances``).
+    int8 digits (``program_conductances``, from ``crossbar_mvm``).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs the plain
 PyTorch version beside it (``*_plain``) on a CPU tensor; it counts its
@@ -21,16 +21,19 @@ No padding to a block grid is needed: the kernels mask ragged edges.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
+# the programming helpers live with the crossbar; re-exported for the
+# quant layer's callers
+from ..crossbar_mvm.ops import (DIGIT_BASE, GRID, MAX_DIGIT_CODE,  # noqa: F401
+                                Conductances, _check_exact_partials,
+                                check_noise_grid, conductance_digits,
+                                digit_tiles, program_conductances,
+                                tile_depth, two_digits)
 from ..crossbar_mvm.ref import (CrossbarNumerics, _const,
-                                apply_conductance_noise,
-                                crossbar_matmul_quantized_plain,
-                                quantize_weights)
+                                crossbar_matmul_quantized_plain)
 from ..csr_aggregate.ops import check_gather_inputs, stream_ptr
 from ..csr_aggregate.ref import csr_aggregate_ref
 
@@ -143,127 +146,11 @@ def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
     return torch.clamp_min(h, 0.0) if relu else h
 
 
-# codes under conductance noise are multiples of 1/GRID
-# (devices.variation.NOISE_GRID); GRID·code = DIGIT_BASE·hi + lo
-GRID = 8
-DIGIT_BASE = 32
-# largest w_levels whose GRID·code splits into int8 digits: hi in
-# [-128, 127]
-MAX_DIGIT_CODE = 511
-# largest tile-padded depth (``digit_tiles``) whose block of the quant
+# largest tile-padded depth (``tile_depth``) whose block of the quant
 # kernel fits the card's 227 KiB of shared memory: its narrowest column
 # group of int8 digits and one m16 row tile of both signs' codes. At a
 # rows_per_xbar that is a multiple of 32 that is F <= 4,768.
 MAX_DEPTH = 4768
-
-
-class Conductances(NamedTuple):
-    """One weight matrix programmed onto crossbars (``program_conductances``).
-
-    wq: [F, H] signed conductance codes, float32 (what the plain version
-    multiplies); w_scale: their float32 0-dim scale; digits: on the card,
-    the quant kernel's int8 operand [D, H, Kp] (``digit_tiles`` of
-    ``conductance_digits``), None on the CPU; kp: its depth."""
-    wq: torch.Tensor
-    w_scale: torch.Tensor
-    digits: torch.Tensor | None
-    kp: int
-
-
-def _check_exact_partials(cfg: CrossbarNumerics) -> None:
-    """Raise unless every (crossbar tile, bit) partial sum is exact in f32:
-    an integer count of eighths of magnitude <= rows_per_xbar · 8 ·
-    w_levels, below 2^24. Above that the plain version's f32 matmul rounds
-    in an order the kernel's int32 sums cannot follow."""
-    if cfg.rows_per_xbar * 8 * cfg.w_levels >= 1 << 24:
-        raise ValueError(
-            f"rows_per_xbar * 8 * w_levels = "
-            f"{cfg.rows_per_xbar * 8 * cfg.w_levels} >= 2^24: the bit-plane "
-            f"partials are not exact in float32")
-
-
-def tile_depth(f: int, rows_per_xbar: int) -> int:
-    """Depth of ``f`` rows with each crossbar tile of ``rows_per_xbar``
-    rows starting at a multiple of 32: a multiple of 32."""
-    if not f:
-        return 0
-    r = rows_per_xbar
-    tiles = -(-f // r)
-    last = f - (tiles - 1) * r
-    return (tiles - 1) * (-(-r // 32) * 32) + -(-last // 32) * 32
-
-
-def two_digits(cfg: CrossbarNumerics, noisy: bool) -> bool:
-    """Whether the codes take two int8 digits: under conductance noise
-    (multiples of 1/GRID) or beyond +-127. Read from the configuration, not
-    from the codes."""
-    return noisy or cfg.w_levels > 127
-
-
-def conductance_digits(wq: torch.Tensor, two: bool) -> torch.Tensor:
-    """The int8 digits of conductance codes that the quant kernel's tensor
-    cores multiply, [D, F, H].
-
-    One digit (D = 1, ``two`` false): the code itself, for integer codes
-    with |code| <= 127. Two (D = 2): GRID·code, an integer for codes on the
-    1/GRID grid, split as ``DIGIT_BASE·hi + lo`` with lo in [0, 31] and hi
-    in [-128, 127]. The codes are not read on the host; codes outside these
-    cases give other digits (``program_conductances`` makes none)."""
-    if not two:
-        return wq.to(torch.int8)[None]
-    w8 = (wq * float(GRID)).to(torch.int32)
-    return torch.stack([w8 >> 5, w8 & (DIGIT_BASE - 1)]).to(torch.int8)
-
-
-def digit_tiles(digits: torch.Tensor, rows_per_xbar: int):
-    """``digits`` [D, F, H] in the kernel's layout, [D, H, Kp] with the
-    depth contiguous: crossbar tile t's rows start at t·rpad, rpad =
-    rows_per_xbar rounded up to 32, and the pads are 0. Returns
-    (layout, Kp); Kp = ``tile_depth(F, rows_per_xbar)``."""
-    d, f, h = digits.shape
-    r = rows_per_xbar
-    rpad = -(-r // 32) * 32
-    tiles = -(-f // r)
-    kp = tile_depth(f, r)
-    by_tile = F.pad(digits.transpose(1, 2), (0, tiles * r - f))
-    by_tile = F.pad(by_tile.reshape(d, h, tiles, r), (0, rpad - r))
-    return by_tile.reshape(d, h, tiles * rpad)[:, :, :kp].contiguous(), kp
-
-
-def check_noise_grid(w_noise: torch.Tensor) -> None:
-    """Raise unless every entry of a conductance-noise draw is a finite
-    multiple of 1/GRID, as ``devices.sample_conductance_noise`` draws them.
-    One read of the draw (a host sync on the card)."""
-    w8 = w_noise.float() * float(GRID)
-    if not bool((torch.isfinite(w8) & (w8 == torch.round(w8))).all()):
-        raise ValueError(f"conductance noise must be finite multiples of "
-                         f"1/{GRID} (the 1/{GRID} grid of "
-                         f"devices.sample_conductance_noise)")
-
-
-def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
-                         w_noise: torch.Tensor | None = None
-                         ) -> Conductances:
-    """Program ``w`` [F, H] onto crossbars: symmetric conductance codes
-    (``quantize_weights``), plus ``w_noise`` clipped to +-w_levels
-    (``apply_conductance_noise``), and on the card the quant kernel's int8
-    digits. Raises, on every device, for a draw off the 1/GRID grid, for
-    w_levels above ``MAX_DIGIT_CODE`` and where the partials leave f32
-    exactness. Without ``w_noise`` nothing is read back to the host."""
-    _check_exact_partials(cfg)
-    if cfg.w_levels > MAX_DIGIT_CODE:
-        raise ValueError(f"w_levels={cfg.w_levels} > {MAX_DIGIT_CODE}: "
-                         f"{GRID}·code does not split into two int8 digits")
-    if w_noise is not None:
-        check_noise_grid(w_noise)
-    wq, w_scale = quantize_weights(w, cfg)
-    wq = apply_conductance_noise(wq, w_noise, cfg).contiguous()
-    if wq.device.type == "cpu":
-        return Conductances(wq, w_scale, None, 0)
-    digits, kp = digit_tiles(
-        conductance_digits(wq, two_digits(cfg, w_noise is not None)),
-        cfg.rows_per_xbar)
-    return Conductances(wq, w_scale, digits, kp)
 
 
 def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,

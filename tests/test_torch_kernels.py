@@ -32,6 +32,8 @@ from repro.kernels.fused_layer import fused_gnn_layer as jx_fused_layer
 from repro.kernels.fused_layer import fused_zmax as jx_zmax
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels import crossbar_mvm as pt_xbar
+from repro_torch.kernels.crossbar_mvm import ops as xbar_ops
+from repro_torch.kernels.crossbar_mvm.ref import _adc
 from repro_torch.kernels.cam_match import cam_search, scan, search
 from repro_torch.kernels.csr_aggregate import aggregate, csr_aggregate
 from repro_torch.kernels.fused_layer import (fused_gnn_layer,
@@ -240,11 +242,69 @@ def test_crossbar_quantized_wrapper_is_its_plain_version_on_cpu():
         pt_xbar.crossbar_matmul(*_t(np.abs(wq.T), wq), cfg, tuned={})
 
 
+@pytest.mark.parametrize("bad,numerics,match", [
+    (0.3, DEFAULT, "1/8"), (0.0625, DEFAULT, "1/8"),
+    (float("nan"), DEFAULT, "1/8"), (float("inf"), QUANT, "1/8"),
+    (512.0, DEFAULT, "512"), (-600.0, QUANT, "600"),
+    (300.0, dict(rows_per_xbar=8192), "2\\^24"),
+])
+def test_crossbar_quantized_refuses_codes_the_kernel_cannot_take(
+        bad, numerics, match):
+    """Codes off the 1/8 grid, beyond +-511 (no two int8 digits) or whose
+    partials leave f32 exactness are refused on the CPU as on the card, so
+    both devices take the same inputs."""
+    xq, wq = _noisy_codes(5, 40, 6, seed=2)
+    wq[3, 4] = bad
+    with pytest.raises(ValueError, match=match):
+        pt_xbar.crossbar_matmul_quantized(
+            *_t(xq, wq), pt_xbar.CrossbarNumerics(**numerics))
+
+
+@pytest.mark.parametrize("numerics", [DEFAULT, QUANT])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_crossbar_entry_points_agree_on_ragged_tiles(numerics, noisy):
+    """At K = 1,100 (two full 512-row crossbar tiles and a ragged one, or
+    18 tiles of 64 rows with a ragged last) the programmed-weights entry
+    point, the conductance-code entry point and the plain version agree
+    bit for bit; the code check picks two digits exactly for noisy
+    codes."""
+    cfg = pt_xbar.CrossbarNumerics(**numerics)
+    rng = np.random.default_rng(7)
+    xq = torch.from_numpy(rng.integers(0, 256, (9, 1100)).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=(1100, 24)).astype(np.float32))
+    nz = torch.from_numpy((np.round(rng.normal(size=(1100, 24)) * 0.05 *
+                                    127 * 8) / 8).astype(np.float32))
+    codes = pt_xbar.program_conductances(w, cfg, nz if noisy else None)
+    assert xbar_ops.check_codes(codes.wq, cfg) == noisy
+    plain = pt_xbar.crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
+    assert torch.equal(pt_xbar.crossbar_matmul_quantized(xq, codes.wq, cfg),
+                       plain)
+    assert torch.equal(pt_xbar.crossbar_matmul_programmed(xq, codes, cfg),
+                       plain)
+
+
+def test_programming_helpers_keep_their_fused_layer_names():
+    """The helpers that program weights live with the crossbar and are
+    the same objects under their old ``fused_layer.ops`` names."""
+    for name in ("Conductances", "program_conductances", "conductance_digits",
+                 "digit_tiles", "tile_depth", "two_digits",
+                 "check_noise_grid", "GRID", "DIGIT_BASE", "MAX_DIGIT_CODE"):
+        assert getattr(fl_ops, name) is getattr(xbar_ops, name)
+
+
 @pytest.mark.parametrize("numerics", [QUANT, DEFAULT])
 @pytest.mark.parametrize("noisy", [False, True])
-def test_crossbar_matmul_signed_matches_reference(numerics, noisy):
+def test_crossbar_matmul_signed_matches_reference(numerics, noisy,
+                                                  monkeypatch):
     """The kernel-backed signed product against the reference's Pallas
-    ops path; on one device it equals the port's plain oracle exactly."""
+    ops path; on one device it equals the port's plain oracle exactly,
+    and both sign passes share one programming of the weights."""
+    real, programmed = xbar_ops.program_conductances, []
+
+    def program(*args, **kwargs):
+        programmed.append(1)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(xbar_ops, "program_conductances", program)
     rng = np.random.default_rng(11)
     x = rng.normal(size=(9, 130)).astype(np.float32)
     w = (rng.normal(size=(130, 24)) * 0.1).astype(np.float32)
@@ -257,6 +317,7 @@ def test_crossbar_matmul_signed_matches_reference(numerics, noisy):
         w_noise=None if nz is None else jnp.asarray(nz))
     tn = None if nz is None else torch.from_numpy(nz)
     got = pt_xbar.crossbar_matmul_signed(*_t(x, w), pc, w_noise=tn)
+    assert len(programmed) == 1
     _close(got, ref, rtol=1e-5, atol_rel=1e-5)
     assert torch.equal(got, pt_xbar.crossbar_matmul_signed_ref(
         *_t(x, w), pc, w_noise=tn))
@@ -466,8 +527,9 @@ def _int8_tile_partials(codes_t, digits_t, in_bits):
 def test_int8_formulation_equals_the_f32_bit_plane_partials(numerics, noisy):
     """Every (tile, bit) partial of the integer formulation equals the f32
     product of the plain version bit for bit, and the ADC'd, shifted and
-    tile-summed result equals ``crossbar_matmul_quantized_plain``."""
-    from repro_torch.kernels.crossbar_mvm.ref import _adc
+    tile-summed result equals ``crossbar_matmul_quantized_plain``; so does
+    the standalone crossbar's chunked staging of the same digits, at any
+    chunk depth."""
     cfg = pt_xbar.CrossbarNumerics(**numerics)
     xq, wq = _noisy_codes(24, 600, 20, seed=5, noisy=noisy)
     xq, wq = _t(xq, wq)
@@ -484,8 +546,48 @@ def test_int8_formulation_equals_the_f32_bit_plane_partials(numerics, noisy):
             assert torch.equal(parts[b], plane @ wq[t0:t0 + r])
             tile = tile + _adc(parts[b], cfg) * (2.0 ** b)
         acc = acc + tile
-    assert torch.equal(acc, pt_xbar.crossbar_matmul_quantized_plain(
-        xq, wq, cfg))
+    plain = pt_xbar.crossbar_matmul_quantized_plain(xq, wq, cfg)
+    assert torch.equal(acc, plain)
+    layout, kp = fl_ops.digit_tiles(digits, r)
+    for kc in (32, 96, 256, kp):
+        assert torch.equal(_staged_crossbar(xq, layout, kp, cfg, kc), plain)
+
+
+def _staged_crossbar(xq, layout, kp, cfg, kc):
+    """The standalone crossbar kernel's staging, emulated: DAC codes at the
+    digits' tile-padded depth p (row (p // rpad) * r + p % rpad of K, or a
+    pad), chunks of ``kc`` depth positions, int32 bit-plane sums carried
+    across chunks, and each tile's ADC, shift and add where it ends."""
+    r, m, k = cfg.rows_per_xbar, *xq.shape
+    rpad = -(-r // 32) * 32
+    p = torch.arange(kp)
+    tile, off = p // rpad, p % rpad
+    live = off < torch.clamp(k - tile * r, max=r)
+    codes = torch.where(live, xq[:, torch.clamp(tile * r + off, max=k - 1)],
+                        0)
+    mvm = torch.zeros((m, layout.shape[1]), dtype=torch.float32)
+    acc = torch.zeros((cfg.in_bits, layout.shape[0], m, layout.shape[1]),
+                      dtype=torch.int32)
+    for p0 in range(0, kp, kc):
+        p, stop = p0, min(p0 + kc, kp)
+        while p < stop:
+            tend = min((p // rpad + 1) * rpad, kp)
+            end = min(tend, stop)
+            for b in range(cfg.in_bits):
+                plane = (codes[:, p:end] >> b) & 1
+                for d in range(layout.shape[0]):
+                    acc[b, d] += plane @ layout[d, :, p:end].to(torch.int32).T
+            if end == tend:
+                part = acc[:, 0].float() if layout.shape[0] == 1 else (
+                    (fl_ops.DIGIT_BASE * acc[:, 0] + acc[:, 1]).float()
+                    * 0.125)
+                tile_sum = torch.zeros_like(mvm)
+                for b in range(cfg.in_bits):
+                    tile_sum = tile_sum + _adc(part[b], cfg) * (2.0 ** b)
+                mvm = mvm + tile_sum
+                acc.zero_()
+            p = end
+    return mvm
 
 
 def test_quant_layer_raises_where_partials_leave_f32_exactness():
