@@ -16,12 +16,14 @@ Phases, each printing its lines, each failing the run on any error:
          both ``relu`` values; the quant layer also on ReRAM-noisy codes
          (its two-digit int8 path), at a ragged 67 -> 64 and, on 3,000
          rows, at the F of cora (1433), citeseer (3703) and 3704 -> 64,
-         where its shared memory holds fewer columns a block; aggregation
-         also at F=67, with an x off 16-byte alignment (the scalar
-         variants) and on rows whose only live slot is slot 5.
-         Aggregation, zmax and the quant layer must be equal bit for bit;
-         the ideal layer agrees within rtol 1e-5, atol 1e-5 * max|ref|
-         (its matmul sums in another order).
+         where its shared memory holds fewer columns a block; aggregation,
+         zmax and the ideal layer also at F=67, with an x off 16-byte
+         alignment (the scalar variants) and on rows whose only live slot
+         is slot 5; the ideal layer also, on 3,000 rows, at 496 -> 130
+         (ragged column tiles) and 1433, 3703 and 3704 -> 64 (K in
+         chunks). Aggregation, zmax and the quant layer must be equal bit
+         for bit; the ideal layer agrees within rtol 1e-5, atol 1e-5 *
+         max|ref| (its 3xTF32 product sums in another order).
        * ``cam_search`` at one k-NN launch of the recsys scenario at 20,000
          nodes (Q = 104 tagged query ids against E = 160,000 entries), at
          a ragged Q = 7, E = 160,001, with negative queries, and at
@@ -62,14 +64,17 @@ Phases, each printing its lines, each failing the run on any error:
      CSR sample matrix as the library yardstick: the serving kernels at
      layer 1 and layer 2 of the centralized path (the quant layer with
      the programming of its weights, as every serving call runs it, and
-     per numerics and codes also its launch alone), ``cam_search`` at
-     Q = 104, E = 160,000 (with the k-NN build's shares: its CAM calls
-     and its bitmap folds) and ``crossbar_matmul_quantized`` at
-     372,475 x 496 x 64 (both numerics, clean and noisy codes),
-     372,475 x 64 x 16 and 32 x 216 x 64. These two are timed per wrapper
-     call and by the device time of the launch alone (the profiler's
-     kernel time). The build lines give each kernel's registers and
-     spills.
+     per numerics and codes also its launch alone; zmax and the ideal
+     layer also by the device time of the launch alone and beside their
+     composed yardstick: aggregation then the row max and min, and the
+     ``pallas`` backend's aggregation, matmul, bias and relu),
+     ``cam_search`` at Q = 104, E = 160,000 (with the k-NN build's
+     shares: its CAM calls and its bitmap folds) and
+     ``crossbar_matmul_quantized`` at 372,475 x 496 x 64 (both numerics,
+     clean and noisy codes), 372,475 x 64 x 16 and 32 x 216 x 64. These
+     two are timed per wrapper call and by the device time of the launch
+     alone (the profiler's kernel time). The build lines give each
+     kernel's registers and spills.
 
 The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -112,6 +117,7 @@ from repro_torch.neighbors import knn  # noqa: E402
 # cores, int8 op/s on the tensor cores.
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+TF32_OPS = 494.7e12     # dense, on the tensor cores
 INT8_OPS = 1979e12
 
 HIDDEN, OUT, SAMPLE = 64, 16, 8
@@ -149,24 +155,32 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def profiled_ms(fn, kernel: str, calls: int) -> tuple:
-    """(mean device ms of one kernel whose name holds ``kernel``, their
-    count) over ``calls`` calls of ``fn``, from ``torch.profiler``."""
+def profiled_ms(fn, kernel: str, calls: int, tries: int = 3) -> tuple:
+    """(mean device ms of one launch of the kernel whose name holds
+    ``kernel``, how it was timed) over ``calls`` calls of ``fn``.
+
+    The time is the kernel's own device time from ``torch.profiler``. The
+    profiler's CUDA trace now and then comes back without the kernel; after
+    ``tries`` such traces the launch is timed with CUDA events around
+    ``calls`` back-to-back calls instead, and the text says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total += evt.device_time_total
-            count += evt.count
-    require(count and total > 0, f"the profiler shows no device time for "
-            f"{kernel}")
-    return total / count / 1e3, count
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total += evt.device_time_total
+                count += evt.count
+        if count and total > 0:
+            return total / count / 1e3, f"profiler, {count} launches"
+    print(f"[time] the profiler showed no device time for {kernel} in "
+          f"{tries} traces: timed with CUDA events", flush=True)
+    return cuda_ms(fn, calls), f"CUDA events, {calls} calls"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -230,23 +244,23 @@ def kernel_checks(x1, x2, nbr, wts, params, device, err: dict) -> None:
                                                  "(scalar variant)")):
         record(err, "csr_aggregate", csr_aggregate(x, nb, w_),
                csr_aggregate_ref(x, nb, w_), True, tag)
-    for x, tag in ((x1, "F=496"), (x2, "F=64")):
-        record(err, "fused_zmax", fl.fused_zmax(x, nbr, wts),
-               fl.fused_zmax_plain(x, nbr, wts), True, tag)
+    w1, w67 = params[0]["w"], params[0]["w"][:67].contiguous()
+    for x, nb, w_, w, tag in (
+            (x1, nbr, wts, w1, "F=496 (496->64)"),
+            (x2, nbr, wts, params[1]["w"], "F=64 (64->16)"),
+            (x67, nbr, wts, w67, "F=67 (67->64, scalar variant)"),
+            (x1, nbr, wts_late, w1, "F=496 only slot 5 live"),
+            (x_off, nbr_off, wts, w1, "F=496 x 4 B off 16 (scalar "
+                                      "variant)")):
+        record(err, "fused_zmax", fl.fused_zmax(x, nb, w_),
+               fl.fused_zmax_plain(x, nb, w_), True, tag)
+        ideal_check(err, x, nb, w_, w, gen, tag)
     numerics = {"default": CrossbarNumerics(), "QUANT": CrossbarNumerics(
         **QUANT)}
-    for x, w, tag in ((x1, params[0]["w"], "496->64"),
-                      (x2, params[1]["w"], "64->16"),
-                      (x67, params[0]["w"][:67].contiguous(),
-                       "67->64 (scalar variant)")):
+    for x, w, tag in ((x1, w1, "496->64"), (x2, params[1]["w"], "64->16"),
+                      (x67, w67, "67->64 (scalar variant)")):
         b = 0.1 * torch.randn(w.shape[1], generator=gen, device=device)
         for relu in (True, False):
-            if x is not x67:
-                record(err, "fused_ideal_layer",
-                       fl.fused_ideal_layer(x, nbr, wts, w, b, relu=relu),
-                       fl.fused_ideal_layer_plain(x, nbr, wts, w, b,
-                                                  relu=relu),
-                       False, f"{tag} relu={relu}")
             for nname, cfg in numerics.items():
                 for noisy in (False, True):
                     nz = torch.from_numpy(devices.sample_conductance_noise(
@@ -257,9 +271,16 @@ def kernel_checks(x1, x2, nbr, wts, params, device, err: dict) -> None:
     src = 4000                      # rows of x for the wide-F checks
     nbr_w = torch.remainder(nbr[:3000], src)
     wts_w = wts[:3000].contiguous()
+    x = torch.randn((src, x1.shape[1]), generator=gen, device=device)
+    ideal_check(err, x, nbr_w, wts_w,
+                0.05 * torch.randn((x1.shape[1], 130), generator=gen,
+                                   device=device), gen,
+                "3000 rows 496->130 (ragged column tiles)")
     for f in (1433, 3703, 3704):
         x = torch.randn((src, f), generator=gen, device=device)
         w = 0.05 * torch.randn((f, HIDDEN), generator=gen, device=device)
+        ideal_check(err, x, nbr_w, wts_w, w, gen,
+                    f"3000 rows {f}->64 (K in chunks)")
         b = 0.1 * torch.randn(HIDDEN, generator=gen, device=device)
         for nname, cfg in numerics.items():
             for noisy in (False, True):
@@ -268,6 +289,17 @@ def kernel_checks(x1, x2, nbr, wts, params, device, err: dict) -> None:
                     if noisy else None
                 quant_check(err, x, nbr_w, wts_w, w, b, cfg, nz, True,
                             f"3000 rows {f}->64 {nname} noisy={noisy}")
+
+
+def ideal_check(err, x, nbr, wts, w, gen, label) -> None:
+    """The ideal layer against its plain version, with both ``relu``
+    values, within rtol 1e-5, atol 1e-5 * max|ref|."""
+    b = 0.1 * torch.randn(w.shape[1], generator=gen, device=x.device)
+    for relu in (True, False):
+        record(err, "fused_ideal_layer",
+               fl.fused_ideal_layer(x, nbr, wts, w, b, relu=relu),
+               fl.fused_ideal_layer_plain(x, nbr, wts, w, b, relu=relu),
+               False, f"{label} relu={relu}")
 
 
 def quant_check(err, x, nbr, wts, w, b, cfg, nz, relu, label) -> None:
@@ -597,7 +629,9 @@ def bound(nbytes: int, t_ops: float) -> tuple:
 def bounds(x, nbr, wts, h: int, in_bits: int) -> dict:
     """Least device ms on an H100 SXM for each kernel at these inputs:
     each input read once, each output written once, against the ops of
-    the slots with a non-zero weight. Returns {kernel: (ms, bound_by)}."""
+    the slots with a non-zero weight (the ideal layer's product as the
+    three TF32 products of its 3xTF32 split). Returns {kernel: (ms,
+    bound_by)}."""
     nd, s = nbr.shape
     f = x.shape[1]
     nnz, rows = live_counts(nbr, wts)
@@ -607,9 +641,9 @@ def bounds(x, nbr, wts, h: int, in_bits: int) -> dict:
         "csr_aggregate": bound(read + nd * f * 4, gather_flops / F32_FLOPS),
         "fused_zmax": bound(read + nd * 8,
                             (gather_flops + 2 * nd * f) / F32_FLOPS),
-        "fused_ideal_layer": bound(
+        "fused_ideal_layer": bound(     # 3xTF32: three TF32 products
             read + f * h * 4 + h * 4 + nd * h * 4,
-            (gather_flops + 2 * nd * f * h) / F32_FLOPS),
+            gather_flops / F32_FLOPS + 3 * 2 * nd * f * h / TF32_OPS),
         "fused_quant_layer": bound(
             read + f * h * 4 + h * 4 + 12 + nd * h * 4,
             gather_flops / F32_FLOPS
@@ -617,8 +651,25 @@ def bounds(x, nbr, wts, h: int, in_bits: int) -> dict:
     }
 
 
+def zmax_composed(x, nbr, wts):
+    """zmax composed of stock calls: the aggregation kernel, then the row
+    max and min of Z."""
+    z = csr_aggregate(x, nbr, wts)
+    return torch.stack([torch.clamp_min(z.amax(dim=1), 0.0),
+                        torch.clamp_min(-z.amin(dim=1), 0.0)], dim=1)
+
+
+def ideal_composed(x, nbr, wts, w, b):
+    """The ``pallas`` backend's ideal layer: the aggregation kernel, then
+    one f32 matmul, the bias and the relu."""
+    return torch.clamp_min(csr_aggregate(x, nbr, wts) @ w + b, 0.0)
+
+
 def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
-    """Kernel, plain and library times at one layer's shapes."""
+    """Kernel, plain and library times at one layer's shapes; zmax and the
+    ideal layer also by the device time of their launch alone (the
+    profiler's kernel time) and beside their composed yardstick, which
+    fusion has to beat (several calls, so no library call)."""
     cfg = CrossbarNumerics()
     w, b = layer["w"], layer["b"]
     codes, scales = fl.quant_operands(fl.fused_zmax_plain(x, nbr, wts), w,
@@ -639,6 +690,15 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
             lambda: fl.fused_quant_layer_plain(x, nbr, wts, codes.wq, b,
                                                scales, cfg, relu=True)),
     }
+    composed = {"fused_zmax": lambda: zmax_composed(x, nbr, wts),
+                "fused_ideal_layer": lambda: ideal_composed(x, nbr, wts, w,
+                                                            b)}
+    kernel_names = {"fused_zmax": "fused_zmax_kernel",
+                    "fused_ideal_layer": "fused_ideal_kernel"}
+    torch.cuda.synchronize()
+    require(torch.equal(zmax_composed(x, nbr, wts),
+                        fl.fused_zmax_plain(x, nbr, wts)),
+            "the composed zmax differs from the plain version")
     nd, s = nbr.shape
     with warnings.catch_warnings():     # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
@@ -664,6 +724,13 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
         lib_txt = (f", torch.sparse.mm {r['library_ms']:.3f} ms "
                    f"(max|diff| {lib_err:.2e})"
                    if r["library_ms"] is not None else "")
+        if name in composed:
+            r["launch_ms"], how = profiled_ms(kernel, kernel_names[name],
+                                              iters)
+            r["composed_ms"] = cuda_ms(composed[name], iters)
+            lib_txt += (f", launch alone {r['launch_ms']:.4f} ms ({how}), "
+                        f"composed "
+                        f"{r['composed_ms']:.3f} ms")
         what = ("kernel with the programming of the weights"
                 if name == "fused_quant_layer" else "kernel")
         print(f"[time] {tag} {name:18s} {what} {r['ms']:.3f} ms, plain "
@@ -699,8 +766,8 @@ def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
     at the variation bounds' 32 x 216 x 64. Each is timed two ways: per
     wrapper call (``ms``: CUDA events around back-to-back calls, so the
     host's work counts where it is the slower) and the device time of its
-    launch alone (``launch_ms``: the profiler's time of the kernel).
-    The crossbar's wrapper reads its codes back (one host sync) and builds
+    launch alone (``launch_ms``: the profiler's time of the kernel, or
+    CUDA events' where the profiler shows none). The crossbar's wrapper reads its codes back (one host sync) and builds
     their digits; its launch alone takes programmed weights. Neither kernel
     has one PyTorch call that computes the same function."""
     rec = {}
@@ -710,14 +777,14 @@ def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
 
     def call():
         return cam_search(entries, queries)
-    prof, nprof = profiled_ms(call, "cam_search_kernel", 50)
+    prof, how = profiled_ms(call, "cam_search_kernel", 50)
     rec["cam_search"] = dict(
         ms=cuda_ms(call, 200), launch_ms=prof,
         plain_ms=cuda_ms(lambda: cam_search_ref(entries, queries), 20),
         bound_ms=ms, bound_by=by, library_ms=None)
     r = rec["cam_search"]
     print(f"[time] cam_search Q={q} E={e}: per wrapper call {r['ms']:.4f} "
-          f"ms, launch alone {prof:.4f} ms (profiler, {nprof} launches), "
+          f"ms, launch alone {prof:.4f} ms ({how}), "
           f"plain {r['plain_ms']:.4f} ms, "
           f"bound {ms:.4f} ms ({by}; bitmap {q * e} B written)", flush=True)
     b = knn.DEFAULT_BANDS
@@ -755,8 +822,8 @@ def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
 
         def launch():
             return xb.crossbar_matmul_programmed(xq, codes, cfg)
-        prof, nprof = profiled_ms(launch, "crossbar_mma_kernel",
-                                  min(iters, 20))
+        prof, how = profiled_ms(launch, "crossbar_mma_kernel",
+                                min(iters, 20))
         r = dict(
             ms=cuda_ms(lambda: xb.crossbar_matmul_quantized(xq, codes.wq,
                                                             cfg), iters),
@@ -770,8 +837,7 @@ def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
         print(f"[time] crossbar_matmul_quantized {m}x{k}x{n} {nname} "
               f"numerics, {'noisy' if noisy else 'clean'} codes ({d} int8 "
               f"digit{'s' if d > 1 else ''}): per wrapper call "
-              f"{r['ms']:.4f} ms, launch alone {prof:.4f} ms (profiler, "
-              f"{nprof} launches), plain "
+              f"{r['ms']:.4f} ms, launch alone {prof:.4f} ms ({how}), plain "
               f"{r['plain_ms']:.4f} ms, bound {ms:.4f} ms ({by})",
               flush=True)
         rec.setdefault("crossbar_matmul_quantized", r)

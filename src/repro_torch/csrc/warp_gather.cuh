@@ -1,17 +1,18 @@
-// Neighbour gather by warps, one row per 32 or 16 lanes, shared by
-// csr_aggregate.cu and the fused quant layer (fused_layer.cu):
+// Neighbour gather by warps, one row per 32, 16 or 8 lanes, shared by
+// csr_aggregate.cu and the three fused-layer kernels of fused_layer.cu
+// (zmax, the ideal layer, the quant layer):
 //
 //   z[row, c] = sum over the row's slots k, in slot order, of
 //               w[row, k] * x[nbr[row, k], c]
 //
-// A group of kLanes lanes (the warp, or half of it at small F) owns one
-// destination row. Lane k of a kLanes-slot chunk loads slot k's index and
-// weight once; a ballot gives the group the slots whose weight is not 0,
-// and __shfl_sync hands each live slot's (index, weight) to every lane of
-// the group. Padding slots (weight 0) cost no load of x. Each lane owns the
-// columns lane + kLanes i of the row, i < kChunks, as float4 (kVec: F % 4
-// == 0 and x 16-byte aligned; neighbouring lanes on neighbouring 16 bytes)
-// or as single floats.
+// A group of kLanes lanes (the warp, or a half or a quarter of it at small
+// F) owns one destination row. Lane k of a kLanes-slot chunk loads slot k's
+// index and weight once; a ballot gives the group the slots whose weight
+// is not 0, and __shfl_sync hands each live slot's (index, weight) to every
+// lane of the group. Padding slots (weight 0) cost no load of x. Each lane
+// owns the columns lane + kLanes i of the row, i < kPer, as float4 (kVec:
+// F % 4 == 0 and x 16-byte aligned; neighbouring lanes on neighbouring 16
+// bytes) or as single floats.
 //
 // Numerics: one rounded multiply and one rounded add per live slot
 // (__fmul_rn/__fadd_rn, never an FMA), in slot order, from +0. Skipping a
@@ -27,7 +28,7 @@
 namespace gather {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kChunks = 4;  // column units a lane holds at once
+constexpr int kChunks = 4;  // column units a lane holds at once, by default
 
 __device__ __forceinline__ float axpy(float acc, float w, float v) {
   return __fadd_rn(acc, __fmul_rn(w, v));
@@ -61,29 +62,34 @@ __device__ __forceinline__ float4 zero<float4>() {
 }
 
 // Gathers one destination row per group of kLanes lanes (32 / kLanes rows
-// per warp; kLanes = 16 keeps every lane busy at F = 64), whose slot table
-// is nr[0..s), wr[0..s) for the calling lane's group. All 32 lanes must
+// per warp; kLanes = 16 keeps every lane busy at F = 64, and 8 puts four
+// rows of a warp in flight at once), whose slot table is nr[0..s),
+// wr[0..s) for the calling lane's group. All 32 lanes must
 // call; a group whose row does not exist passes active = false, loads
 // nothing and emits nothing. Calls emit(c, z) once for every column unit c
-// of the row (float4 index for kVec, column index otherwise), from the lane
-// that owns it. kPair issues two live slots' loads before their adds, at
-// the price of kChunks more registers.
-template <bool kVec, int kLanes, bool kPair, class Emit>
+// in [u_begin, u_end) (float4 index for kVec, column index otherwise; the
+// whole row is [0, f / width)), from the lane that owns it. A column's sum
+// is the same in any window. A lane holds kPer column units at once
+// (kLanes * kPer a pass); kPair issues two live slots' loads before their
+// adds, at the price of kPer more registers.
+template <bool kVec, int kLanes, bool kPair, int kPer = kChunks, class Emit>
 __device__ __forceinline__ void warp_rows(const float* __restrict__ x,
                                           const int* __restrict__ nr,
                                           const float* __restrict__ wr, int s,
-                                          int f, bool active, Emit emit) {
-  static_assert(kLanes == 16 || kLanes == 32, "a group is 16 or 32 lanes");
+                                          int f, int u_begin, int u_end,
+                                          bool active, Emit emit) {
+  static_assert(kLanes == 8 || kLanes == 16 || kLanes == 32,
+                "a group is 8, 16 or 32 lanes");
   using T = typename Unit<kVec>::T;
   const int lane = threadIdx.x & 31, sl = lane % kLanes;
   const unsigned group =
       kLanes == 32 ? kFull : ((1u << kLanes) - 1) << (lane - sl);
   const int units = f / Unit<kVec>::kWidth;  // column units per row of x
   const T* xv = reinterpret_cast<const T*>(x);
-  for (int c0 = 0; c0 < units; c0 += kLanes * kChunks) {
-    T acc[kChunks];
+  for (int c0 = u_begin; c0 < u_end; c0 += kLanes * kPer) {
+    T acc[kPer];
 #pragma unroll
-    for (int i = 0; i < kChunks; ++i) acc[i] = zero<T>();
+    for (int i = 0; i < kPer; ++i) acc[i] = zero<T>();
     for (int s0 = 0; s0 < s; s0 += kLanes) {
       int iv = 0;
       float wv = 0.f;
@@ -109,18 +115,18 @@ __device__ __forceinline__ void warp_rows(const float* __restrict__ x,
           w2 = __shfl_sync(kFull, wv, k2);
           r2 = xv + (long long)__shfl_sync(kFull, iv, k2) * units;
         }
-        T v1[kChunks], v2[kChunks];
+        T v1[kPer], v2[kPer];
 #pragma unroll
-        for (int i = 0; i < kChunks; ++i) {
+        for (int i = 0; i < kPer; ++i) {
           const int c = c0 + sl + kLanes * i;
-          if (has1 && c < units) {
+          if (has1 && c < u_end) {
             v1[i] = __ldg(r1 + c);
             if (has2) v2[i] = __ldg(r2 + c);
           }
         }
 #pragma unroll
-        for (int i = 0; i < kChunks; ++i) {
-          if (has1 && c0 + sl + kLanes * i < units) {
+        for (int i = 0; i < kPer; ++i) {
+          if (has1 && c0 + sl + kLanes * i < u_end) {
             acc[i] = axpy(acc[i], w1, v1[i]);
             if (has2) acc[i] = axpy(acc[i], w2, v2[i]);
           }
@@ -129,18 +135,35 @@ __device__ __forceinline__ void warp_rows(const float* __restrict__ x,
     }
     if (active) {
 #pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
+      for (int i = 0; i < kPer; ++i) {
         const int c = c0 + sl + kLanes * i;
-        if (c < units) emit(c, acc[i]);
+        if (c < u_end) emit(c, acc[i]);
       }
     }
   }
+}
+
+// The whole row.
+template <bool kVec, int kLanes, bool kPair, int kPer = kChunks, class Emit>
+__device__ __forceinline__ void warp_rows(const float* __restrict__ x,
+                                          const int* __restrict__ nr,
+                                          const float* __restrict__ wr, int s,
+                                          int f, bool active, Emit emit) {
+  warp_rows<kVec, kLanes, kPair, kPer>(x, nr, wr, s, f, 0,
+                                       f / Unit<kVec>::kWidth, active, emit);
 }
 
 // Lanes per row for a row of f floats: 16 when a 16-lane group covers the
 // row in one float4 (or float) per lane, else 32.
 inline int lanes_for(int f, bool vec) {
   return f / (vec ? 4 : 1) <= 16 ? 16 : 32;
+}
+
+// Lanes per row where a lane holds `per` column units: the fewest of 8, 16
+// and 32 that cover the row in one pass, else 32.
+inline int lanes_covering(int f, bool vec, int per) {
+  const int units = f / (vec ? 4 : 1);
+  return units <= 8 * per ? 8 : units <= 16 * per ? 16 : 32;
 }
 
 // Whether the float4 path takes these operands: F % 4 == 0 and every

@@ -1,11 +1,17 @@
 """Public wrappers of the fused GNN-layer kernels (``csrc/fused_layer.cu``).
 
-Three kernels share one gather loop, ``z = sum_s w[i,s] * x[nbr[i,s]]``,
-and keep Z out of device memory:
+Three kernels share one gather, ``z = sum_s w[i,s] * x[nbr[i,s]]``
+(``csrc/warp_gather.cuh``: a row per group of lanes, float4 loads, padding
+slots skipped, the plain loop's bits), and keep Z out of device memory:
 
-  * ``fused_ideal_layer`` — ``act(z @ W + b)`` in float32 (ideal numerics).
+  * ``fused_ideal_layer`` — ``act(z @ W + b)`` with f32 accuracy: a tile of
+    z gathered into shared memory, then the product on the TF32 tensor
+    cores with the 3xTF32 split (``csrc/tf32_mma.cuh``), within rtol 1e-5
+    of the plain f32 matmul. Any F (K in chunks where W does not fit in
+    shared memory) and any H.
   * ``fused_zmax``        — per node ``(max(max(z,0)), max(max(-z,0)))``,
-    the scale pass of the bit-accurate layer ([Nd, 2] instead of Z).
+    the scale pass of the bit-accurate layer ([Nd, 2] instead of Z),
+    equal to its plain version bit for bit.
   * ``fused_quant_layer`` — DAC codes of z against the two global scales,
     then the bit-serial crossbar MVM with an ADC per (K-tile, bit), its
     bit-plane products on the int8 tensor cores, against the weights'

@@ -15,7 +15,9 @@ where each wrapper runs its kernel's plain version. Tolerances:
     rescale and of the pos - neg recombination);
   * the CAM search: exact;
   * the quant kernel's int8 digits and integer formulation against the
-    f32 partials of the plain version: exact.
+    f32 partials of the plain version: exact;
+  * the ideal kernel's 3xTF32 formulation against the plain ideal layer:
+    rtol 1e-5, atol 1e-5 * max|ref| (``chip_smoke.py``'s check).
 """
 import numpy as np
 import pytest
@@ -83,6 +85,9 @@ LAYER_CASES = [
     (IDEAL, 12, 32, 8, 5, 4, 5),          # zero-degree rows only
     (QUANT, 12, 32, 8, 5, 4, 5),
     (QUANT, 24, 40, 10, 24, 5, 7),        # some zero-degree rows
+    (IDEAL, 9, 600, 24, 9, 3, 0),         # F beyond one K chunk of the
+    (IDEAL, 7, 1100, 16, 7, 2, 0),        # ideal kernel's gather window
+    (IDEAL, 10, 40, 130, 10, 4, 0),       # H beyond one column tile
 ]
 
 
@@ -631,3 +636,77 @@ def test_quant_layer_raises_above_its_shared_memory_depth(f, r, depth):
     else:
         with pytest.raises(ValueError, match="depth"):
             fused_quant_layer(x, nbr, wts, codes, b, scales, cfg)
+
+
+# ---- the ideal kernel's 3xTF32 tensor-core formulation, checked on the CPU
+
+
+def _tf32(v):
+    """``cvt.rna.tf32.f32``: v rounded to 10 mantissa bits, ties away from
+    zero (sign and magnitude: adding half an ulp to the magnitude bits)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_layer(z, w, b, *, relu, three, nsplit=8):
+    """The ideal kernel's product, emulated: z and W split into TF32 hi
+    and lo; per k8 step lo*hi, then hi*lo, then hi*hi into f32 sums (only
+    hi*hi with ``three`` False: plain TF32); warp q of a unit takes every
+    nsplit-th k8 step from q, and the partials are added in order of q;
+    then + b and the activation."""
+    zh, wh = _tf32(z), _tf32(w)
+    zl, wl = _tf32(z - zh), _tf32(w - wh)
+    parts = [torch.zeros((z.shape[0], w.shape[1])) for _ in range(nsplit)]
+    for ks in range(-(-z.shape[1] // 8)):
+        k = slice(8 * ks, 8 * ks + 8)
+        acc = parts[ks % nsplit]
+        if three:
+            acc = acc + zl[:, k] @ wh[k]
+            acc = acc + zh[:, k] @ wl[k]
+        parts[ks % nsplit] = acc + zh[:, k] @ wh[k]
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    out = out + b
+    return torch.clamp_min(out, 0.0) if relu else out
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10
+    v = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 2 - 2**-23,
+                      1.0 + 1.5 * ulp, 3.0], dtype=torch.float32)
+    assert _tf32(v).tolist() == [1.0 + ulp, -(1.0 + ulp), 1.0,
+                                 1.0 + 2 * ulp, 3.0]
+
+
+@pytest.mark.parametrize("f,h,relu", [(496, 64, True), (496, 64, False),
+                                      (64, 16, True)])
+def test_3xtf32_formulation_stays_within_the_ideal_tolerance(f, h, relu):
+    """The ideal kernel's 3xTF32 product (mirrors ``tf32_mma.cuh`` and the
+    split of K across a unit's warps in ``fused_layer.cu``, as
+    ``test_int8_formulation_equals_the_f32_bit_plane_partials`` does for
+    the quant kernel) stays within ``chip_smoke.py``'s rtol 1e-5, atol
+    1e-5 * max|ref| of ``fused_ideal_layer_plain`` at collab-like
+    magnitudes (layer 1: 496 -> 64, layer 2: 64 -> 16, 83 % of the slots
+    padding); plain TF32 (hi * hi alone) does not at 496 -> 64."""
+    rng = np.random.default_rng(f + h)
+    n, nd, s = 600, 256, 8
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    if f == 64:                     # layer 2 reads relu'd activations
+        x = np.maximum(x, 0.0)
+    nbr = rng.integers(0, n, size=(nd, s)).astype(np.int32)
+    deg = rng.integers(0, 3, size=nd)
+    live = np.arange(s)[None, :] < deg[:, None] + 1     # self + neighbours
+    wts = np.where(live, 1.0 / (deg[:, None] + 1), 0.0).astype(np.float32)
+    w = (rng.normal(size=(f, h)) * np.sqrt(2.0 / (f + h))).astype(np.float32)
+    b = (0.1 * rng.normal(size=h)).astype(np.float32)
+    x, nbr, wts, w, b = _t(x, nbr, wts, w, b)
+    ref = fused_ideal_layer_plain(x, nbr, wts, w, b, relu=relu)
+    z = fl_ops.csr_aggregate_ref(x, nbr, wts)
+    tol = 1e-5 * float(ref.abs().max())
+
+    def within(got):
+        return bool(((got - ref).abs() <= tol + 1e-5 * ref.abs()).all())
+    assert within(_tf32_layer(z, w, b, relu=relu, three=True))
+    if f == 496:
+        assert not within(_tf32_layer(z, w, b, relu=relu, three=False))
