@@ -24,6 +24,19 @@ Phases, each printing its lines, each failing the run on any error:
          chunks). Aggregation, zmax and the quant layer must be equal bit
          for bit; the ideal layer agrees within rtol 1e-5, atol 1e-5 *
          max|ref| (its 3xTF32 product sums in another order).
+       * the wide and deep cases of the bit-accurate kernels, bit for bit
+         on 3,000 rows, clean and noisy: the quant layer with K in chunks
+         at tile-padded depths 4,960 (F 3,703 at rows_per_xbar 48), 3,712
+         (F 3,703 at 64) and 4,800 (F 4,769 at 512, and at 4,096 rows: a
+         tile deeper than a chunk, also with two passes), with 16-bit DAC
+         codes at F 3,703 (64 and 48 rows: two passes), with 13-bit
+         conductance codes at F 4,769 and 256 rows (three digits) and with
+         both at F 3,703 and 64 rows; both the quant layer and the
+         crossbar with 12-, 16- and 30-bit DAC codes (default and 64-row
+         numerics) and 12- and 16-bit conductance codes at 64 rows.
+       * the four serving kernels at the shapes a bucket of the bucketed
+         layout gives them: Nd = 8 and 40 rows over a table of Nd + 16,
+         S = 1, 2 and 4 with padding slots, F = 16 and 496.
        * ``cam_search`` at one k-NN launch of the recsys scenario at 20,000
          nodes (Q = 104 tagged query ids against E = 160,000 entries), at
          a ragged Q = 7, E = 160,001, with negative queries, and at
@@ -31,7 +44,7 @@ Phases, each printing its lines, each failing the run on any error:
        * ``crossbar_matmul_quantized`` at 32 x 216 x 64 (the variation
          bounds), 372,475 x 496 x 64 (layer 1 of the centralized collab
          path) and, on 3,000 rows, at K = 1,100 (ragged crossbar tiles)
-         and K = 5,000 (deeper than the quant layer's limit), through the
+         and K = 5,000 (K in chunks of the staged depth), through the
          conductance-code and the programmed-weights entry points,
          default and 12-bit-ADC/64-row numerics, clean and noisy
          conductance codes: exact; and ``crossbar_matmul_signed`` on the
@@ -59,6 +72,22 @@ Phases, each printing its lines, each failing the run on any error:
          collab at scale 0.1, 4 trials, on ``fused`` and ``pallas`` against
          ``jnp`` at 1e-4 * max|ref|; ``accuracy_bounds`` for the same
          configuration, printed.
+       * path C, the capacity-bucketed layout: C1, collab at scale 0.1
+         (F 496 -> 64 -> 16, S 8) decentralized on 16 edge-balanced
+         clusters and semi 4 x 4, ``buckets="auto"``, on every backend
+         with ideal and bit-accurate numerics, in both halo schedules
+         (``overlap`` on a side stream, ``serial``): overlap equal to
+         serial bit for bit, the embeddings equal to the dense plan's on
+         the same partition bit for bit (the ``jnp``/``pallas`` ideal
+         layer's ``torch.matmul``: within 1e-4 * max|ref|); C2, the
+         million-node configuration of ``benchmarks/scale_serve.py``
+         (random graph, 1,000,000 nodes, 4,000,000 edges, F 16, hidden 16,
+         out 8, 64 clusters) on ``fused`` and ``pallas`` against the
+         bucketed ``jnp`` backend within 1e-4 * max|ref|, with the padding
+         gate (bucketed waste at most half the dense layout's, priced by
+         ``layout_stats``). Each prints its layout, host set-up, the warm
+         refresh of each schedule (median of 3, taking turns) and the
+         launches of one refresh.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -73,8 +102,11 @@ Phases, each printing its lines, each failing the run on any error:
      ``crossbar_matmul_quantized`` at 372,475 x 496 x 64 (both numerics,
      clean and noisy codes), 372,475 x 64 x 16 and 32 x 216 x 64. These
      two are timed per wrapper call and by the device time of the launch
-     alone (the profiler's kernel time). The build lines give each
-     kernel's registers and spills.
+     alone (the profiler's kernel time). The wide and deep cases are timed by
+     their launch at layer 1 (12-, 16- and 30-bit DAC codes, 12- and
+     16-bit conductance codes) and on 3,000 rows at the deep cases. The
+     build lines give each kernel's
+     registers and spills.
 
 The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -97,7 +129,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import devices, neighbors  # noqa: E402
-from repro_torch.core import dataset_like, gnn  # noqa: E402
+from repro_torch.core import dataset_like, gnn, random_graph  # noqa: E402
 from repro_torch.core.partition import plan_execution  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
@@ -291,6 +323,125 @@ def kernel_checks(x1, x2, nbr, wts, params, device, err: dict) -> None:
                             f"3000 rows {f}->64 {nname} noisy={noisy}")
 
 
+# the numerics of the wide cases: DAC codes of two bytes (in_bits 12,
+# 16) and of four (30, the widest the kernels take) and conductance codes
+# of two or three int8 digits (w_bits 12, 16)
+WIDE = {"in_bits=12": dict(in_bits=12),
+        "in_bits=12 64-row": dict(in_bits=12, adc_bits=12, rows_per_xbar=64),
+        "in_bits=16": dict(in_bits=16),
+        "in_bits=16 64-row": dict(in_bits=16, adc_bits=12, rows_per_xbar=64),
+        "in_bits=30": dict(in_bits=30),
+        "w_bits=12 64-row": dict(w_bits=12, rows_per_xbar=64),
+        "w_bits=16 64-row": dict(w_bits=16, rows_per_xbar=64)}
+
+# the deep cases of the quant layer, (F, numerics): depths whose digits do
+# not fit a block's shared memory beside a row tile's codes, so K goes in
+# chunks, with one pass and one or two digits (citeseer's F = 3,703 at
+# rows_per_xbar 48, depth 4,960, and at 64, depth 3,712; F = 4,769 at 512,
+# depth 4,800), with two passes of bit planes (in_bits 16 at 64 and 48
+# rows), with three digits (w_bits 13 at 256 rows) and with both; and
+# crossbar tiles of 4,096 rows, deeper than a chunk, whose sums are
+# carried across chunks (one pass, and two with the chunks staged again)
+DEEP = ((3703, dict(rows_per_xbar=48)), (3703, dict(rows_per_xbar=64)),
+        (4769, dict(rows_per_xbar=512)),
+        (4769, dict(rows_per_xbar=4096)),
+        (4769, dict(in_bits=16, rows_per_xbar=4096)),
+        (3703, dict(in_bits=16, rows_per_xbar=64)),
+        (3703, dict(in_bits=16, rows_per_xbar=48)),
+        (4769, dict(w_bits=13, rows_per_xbar=256)),
+        (3703, dict(in_bits=16, w_bits=13, rows_per_xbar=64)))
+
+
+def deep_inputs(device, seed: int) -> dict:
+    """F -> (x [4000, F], w [F, 64], b [64]) of the deep cases."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for f in sorted({f for f, _ in DEEP}):
+        out[f] = (torch.randn((4000, f), generator=gen, device=device),
+                  0.05 * torch.randn((f, HIDDEN), generator=gen,
+                                     device=device),
+                  0.1 * torch.randn(HIDDEN, generator=gen, device=device))
+    return out
+
+
+def numerics_tag(numerics: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in numerics.items())
+
+
+def wide_deep_checks(x1, nbr, wts, device, err: dict) -> None:
+    """The wide and deep cases of the bit-accurate kernels, against their
+    plain versions bit for bit on 3,000 rows, clean and ReRAM-noisy: the
+    quant layer at the DEEP depths (K in chunks, with passes and three
+    digits), and both kernels at F = 496 with the WIDE numerics."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    src = 4000
+    nbr_w = torch.remainder(nbr[:3000], src)
+    wts_w = wts[:3000].contiguous()
+    deep = deep_inputs(device, 11)
+    for f, numerics in DEEP:
+        x, w, b = deep[f]
+        cfg = CrossbarNumerics(**numerics)
+        for noisy in (False, True):
+            nz = torch.from_numpy(devices.sample_conductance_noise(
+                f, (f, HIDDEN), "reram", cfg)).to(device) if noisy else None
+            quant_check(err, x, nbr_w, wts_w, w, b, cfg, nz, True,
+                        f"3000 rows {f}->64 {numerics_tag(numerics)} depth "
+                        f"{fl.tile_depth(f, cfg.rows_per_xbar)} "
+                        f"noisy={noisy}")
+    x = x1[:src].contiguous()
+    w = 0.05 * torch.randn((x.shape[1], HIDDEN), generator=gen,
+                           device=device)
+    b = 0.1 * torch.randn(HIDDEN, generator=gen, device=device)
+    z = csr_aggregate_ref(x, nbr_w, wts_w)
+    for name, numerics in WIDE.items():
+        cfg = CrossbarNumerics(**numerics)
+        for noisy in (False, True):
+            nz = torch.from_numpy(devices.sample_conductance_noise(
+                5, tuple(w.shape), "reram", cfg)).to(device) \
+                if noisy else None
+            quant_check(err, x, nbr_w, wts_w, w, b, cfg, nz, True,
+                        f"3000 rows 496->64 {name} noisy={noisy}")
+            xq, _ = xb.quantize_inputs(torch.clamp_min(z, 0.0), cfg)
+            codes = xb.program_conductances(w, cfg, nz)
+            ref = xb.crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
+            record(err, "crossbar_matmul_quantized",
+                   xb.crossbar_matmul_quantized(xq, codes.wq, cfg), ref,
+                   True, f"3000x496x64 {name} noisy={noisy} codes")
+            record(err, "crossbar_matmul_quantized",
+                   xb.crossbar_matmul_programmed(xq, codes, cfg), ref, True,
+                   f"3000x496x64 {name} noisy={noisy} programmed")
+
+
+def small_shape_checks(device, err: dict) -> None:
+    """The four serving kernels at the shapes a bucket of the bucketed
+    layout gives them, against their plain versions: Nd = 8 and 40 owned
+    rows over a table of Nd + 16 halo rows, neighbor widths S = 1, 2 and
+    4 (some slots padding), F = 16 and 496; aggregation, zmax and the
+    quant layer bit for bit, the ideal layer within rtol 1e-5."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    for nd in (8, 40):
+        for s in (1, 2, 4):
+            for f, h in ((16, 8), (496, 64)):
+                n = nd + 16
+                x = torch.randn((n, f), generator=gen, device=device)
+                nbr = torch.randint(0, n, (nd, s), generator=gen,
+                                    device=device, dtype=torch.int32)
+                wts = torch.rand((nd, s), generator=gen, device=device)
+                wts[1::3, -1] = 0.0          # padding slots
+                w = 0.1 * torch.randn((f, h), generator=gen, device=device)
+                b = 0.1 * torch.randn(h, generator=gen, device=device)
+                tag = f"Nd={nd} S={s} F={f}->{h}"
+                record(err, "csr_aggregate", csr_aggregate(x, nbr, wts),
+                       csr_aggregate_ref(x, nbr, wts), True, tag)
+                record(err, "fused_zmax", fl.fused_zmax(x, nbr, wts),
+                       fl.fused_zmax_plain(x, nbr, wts), True, tag)
+                ideal_check(err, x, nbr, wts, w, gen, tag)
+                for nname, cfg in (("default", CrossbarNumerics()),
+                                   ("QUANT", CrossbarNumerics(**QUANT))):
+                    quant_check(err, x, nbr, wts, w, b, cfg, None, True,
+                                f"{tag} {nname}")
+
+
 def ideal_check(err, x, nbr, wts, w, gen, label) -> None:
     """The ideal layer against its plain version, with both ``relu``
     values, within rtol 1e-5, atol 1e-5 * max|ref|."""
@@ -369,7 +520,7 @@ def new_kernel_checks(z1, w1, device, err: dict) -> None:
     """``cam_search`` and ``crossbar_matmul_quantized`` against their
     plain versions, exactly, at their paths' shapes; the CAM also past the
     grid's query limit, the crossbar also at a ragged K of three 512-row
-    crossbar tiles and at a K deeper than the quant layer's limit."""
+    crossbar tiles and at a K that goes in chunks."""
     entries, queries = cam_inputs(device)
     ragged_e = torch.cat([entries, entries[:1]])
     negative = queries.clone()
@@ -609,6 +760,166 @@ def path_b(device, g, totals: dict) -> None:
           f"S=8, 4 trials): {acc}", flush=True)
 
 
+def bucketed_case(label, bplan, cfg, params, backend, ideal, device,
+                  totals, ref=None, ref_exact=True, reps: int = 3) -> dict:
+    """Refresh ``bplan`` (bucketed) on ``backend`` with both halo
+    schedules, as ``GNNServer.refresh`` does (``make_forward`` once, then
+    ``scatter`` of the forward's per-bucket outputs, which ends in the copy
+    to the host); the overlapped embeddings must equal the serial ones bit
+    for bit, and ``ref`` (global node order) exactly where ``ref_exact``,
+    else within the serving tolerance. The launch counts are those of the
+    first warm refresh; the times are the median of ``reps`` warm
+    refreshes a mode, the two modes taking turns. Returns {mode: (warm
+    refresh s, embeddings, counts)}."""
+    c = dataclasses.replace(cfg, numerics=CrossbarNumerics(ideal=ideal))
+    plan = dataclasses.replace(bplan, backend=backend)
+    n = plan.graph.n_nodes
+    forwards = {mode: plan.make_forward(c, overlap=mode, device=device)
+                for mode in ("overlap", "serial")}
+    for forward in forwards.values():
+        plan.scatter(forward(params))               # cold
+    times = {mode: [] for mode in forwards}
+    runs = {}
+    for rep in range(reps):
+        for mode, forward in forwards.items():
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            emb = plan.scatter(forward(params))
+            times[mode].append(time.perf_counter() - t0)
+            counts = launch_counts()
+            if rep:
+                continue
+            require(emb.shape == (n, cfg.out_dim)
+                    and np.isfinite(emb).all(),
+                    f"{label}: embedding shape or non-finite values")
+            for k in EXPECTED.get((backend, ideal), ()):
+                require(counts[k] > 0, f"{label} {mode}: {k} never "
+                        f"launched on its path")
+            for k, v in counts.items():
+                totals[k] += v
+            runs[mode] = [0.0, emb, counts]
+    for mode in forwards:
+        runs[mode][0] = float(np.median(times[mode]))
+    del forwards
+    same = np.array_equal(runs["overlap"][1], runs["serial"][1])
+    require(same, f"{label}: overlap and serial schedules differ")
+    got = runs["overlap"][1]
+    text = ""
+    if ref is not None:
+        scale = float(np.abs(ref).max()) or 1.0
+        diff = np.abs(got - ref)
+        exact = bool(np.array_equal(got, ref))
+        ok = exact if ref_exact else bool(
+            (diff <= 1e-4 * scale + 1e-4 * np.abs(ref)).all())
+        text = (f"; max|err| {float(diff.max()):.3e} "
+                f"({'exact' if ref_exact else f'tol {1e-4 * scale:.3e}'}"
+                f", equal bit for bit: {exact}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label}: the bucketed embeddings differ from the "
+                f"reference")
+    t_o, t_s = runs["overlap"][0], runs["serial"][0]
+    print(f"[pathC] {label}: warm refresh (median of {reps}) overlap "
+          f"{t_o * 1e3:.2f} ms, serial {t_s * 1e3:.2f} ms (overlap/serial "
+          f"{t_o / t_s:.3f}); "
+          f"overlap == serial bit for bit{text}; launches "
+          f"{json.dumps({k: v for k, v in runs['overlap'][2].items() if v})}",
+          flush=True)
+    return runs
+
+
+def layout_line(tag, plan, cfg, secs) -> dict:
+    ls = plan.layout_stats(cfg)
+    bp = plan.bucketed
+    print(f"[pathC] {tag}: {plan.graph.n_nodes} nodes, {plan.n_clusters} "
+          f"clusters in {bp.n_buckets} buckets, n_caps {bp.n_caps}, h_caps "
+          f"{bp.h_caps}, s_caps {bp.s_caps}, clusters per bucket "
+          f"{[len(cl) for cl in bp.clusters]}; host set-up {secs:.2f} s; "
+          f"layout_stats {json.dumps(ls)}", flush=True)
+    return ls
+
+
+def path_c1(g01, device, totals: dict) -> None:
+    """The bucketed layout at full width on collab at scale 0.1 (F 496 ->
+    64 -> 16, S 8): decentralized on 16 edge-balanced clusters and semi on
+    4 heads x 4 spokes, ``buckets="auto"``; every backend, ideal and
+    bit-accurate, both halo schedules, against the dense plan on the same
+    partition and backend (bit for bit, but the ``torch.matmul`` of the
+    ``jnp``/``pallas`` ideal layer: serving tolerance)."""
+    cfg = gnn.GNNConfig(in_dim=g01.feature_len, hidden_dims=(HIDDEN,),
+                        out_dim=OUT, sample=SAMPLE)
+    params = gnn.init_params(cfg, seed=0, device=device)
+    for setting, kw in (("decentralized", dict(n_clusters=16,
+                                               partition_method="edge")),
+                        ("semi", dict(n_clusters=4, spokes_per_head=4))):
+        t0 = time.perf_counter()
+        bplan = plan_execution(g01, setting, sample=SAMPLE, buckets="auto",
+                               **kw)
+        secs = time.perf_counter() - t0
+        dense = plan_execution(g01, setting, sample=SAMPLE, **kw)
+        layout_line(f"C1 collab 0.1 {setting}", bplan, cfg, secs)
+        for backend in ("jnp", "pallas", "fused"):
+            for ideal in (True, False):
+                c = dataclasses.replace(cfg, numerics=CrossbarNumerics(
+                    ideal=ideal))
+                srv = GNNServer(dataclasses.replace(dense, backend=backend),
+                                c, params=params, device=device)
+                srv.refresh()
+                t_dense = srv.refresh()
+                ref = srv.embeddings
+                del srv
+                runs = bucketed_case(
+                    f"C1 {setting:13s} {backend:6s} "
+                    f"{'ideal' if ideal else 'bit-accurate':12s}", bplan,
+                    cfg, params, backend, ideal, device, totals, ref=ref,
+                    ref_exact=not (ideal and backend != "fused"))
+                print(f"[pathC] C1 {setting} {backend} "
+                      f"{'ideal' if ideal else 'bit-accurate'}: dense plan "
+                      f"warm refresh {t_dense * 1e3:.2f} ms, bucketed "
+                      f"{runs['overlap'][0] * 1e3:.2f} ms (overlap)",
+                      flush=True)
+
+
+# the million-node configuration of benchmarks/scale_serve.py's defaults
+C2_NODES, C2_EDGES, C2_FEATURES = 1_000_000, 4_000_000, 16
+C2_HIDDEN, C2_OUT, C2_CLUSTERS = 16, 8, 64
+
+
+def path_c2(device, totals: dict) -> None:
+    """The million-node configuration of ``benchmarks/scale_serve.py``
+    (random_graph(1,000,000, 4,000,000, 16, seed=0), hidden 16, out 8, S 8,
+    64 edge-balanced clusters, ``buckets="auto"``): ``fused`` and
+    ``pallas``, ideal and bit-accurate, both halo schedules, against the
+    bucketed ``jnp`` backend within the serving tolerance. The dense
+    layout is priced by ``layout_stats`` only; the bucketed waste must be
+    at most half of the dense waste."""
+    t0 = time.perf_counter()
+    g = random_graph(C2_NODES, C2_EDGES, C2_FEATURES,
+                     seed=0).gcn_normalize()
+    bplan = plan_execution(g, "decentralized", sample=SAMPLE,
+                           n_clusters=C2_CLUSTERS, buckets="auto",
+                           partition_method="edge")
+    secs = time.perf_counter() - t0
+    cfg = gnn.GNNConfig(in_dim=C2_FEATURES, hidden_dims=(C2_HIDDEN,),
+                        out_dim=C2_OUT, sample=SAMPLE)
+    ls = layout_line("C2 random 1M scale_serve", bplan, cfg, secs)
+    waste, dense_waste = ls["padding_ratio"] - 1, ls["dense_padding_ratio"] - 1
+    print(f"[pathC] C2 padding gate: bucketed waste {waste:.4f} <= 0.5 x "
+          f"dense waste {dense_waste:.4f}: {waste <= 0.5 * dense_waste}",
+          flush=True)
+    require(waste <= 0.5 * dense_waste, "C2: bucketed padding waste above "
+            "half of the dense layout's")
+    params = gnn.init_params(cfg, seed=0, device=device)
+    for ideal in (True, False):
+        ref_runs = bucketed_case(
+            f"C2 jnp    {'ideal' if ideal else 'bit-accurate':12s}", bplan,
+            cfg, params, "jnp", ideal, device, totals)
+        ref = ref_runs["overlap"][1]
+        for backend in ("pallas", "fused"):
+            bucketed_case(
+                f"C2 {backend:6s} {'ideal' if ideal else 'bit-accurate':12s}",
+                bplan, cfg, params, backend, ideal, device, totals, ref=ref,
+                ref_exact=False)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -758,6 +1069,52 @@ def timings(x, nbr, wts, layer, tag: str, iters: int) -> dict:
     return rec
 
 
+def wide_deep_timings(x1, nbr, wts, layer, z1, device) -> None:
+    """Times of the wide and deep cases (CUDA events, launch alone on
+    programmed codes): at layer 1 of the centralized collab path the quant
+    layer and the crossbar with 12- and 16-bit DAC codes and with 12- and
+    16-bit conductance codes (clean and noisy) beside the default
+    numerics' launch; and the quant layer at the DEEP cases on 3,000
+    rows (K in chunks)."""
+    w, b = layer["w"], layer["b"]
+    zmax = fl.fused_zmax_plain(x1, nbr, wts)
+    for name, numerics in (("default", {}), *WIDE.items()):
+        cfg = CrossbarNumerics(**numerics)
+        for noisy in (False, True):
+            nz = torch.from_numpy(devices.sample_conductance_noise(
+                3, tuple(w.shape), "reram", cfg)).to(device) \
+                if noisy else None
+            codes, scales = fl.quant_operands(zmax, w, cfg, nz)
+            q_ms = cuda_ms(lambda: fl.fused_quant_layer(
+                x1, nbr, wts, codes, b, scales, cfg, relu=True), 5)
+            xq, _ = xb.quantize_inputs(torch.clamp_min(z1, 0.0), cfg)
+            x_ms = cuda_ms(lambda: xb.crossbar_matmul_programmed(
+                xq, codes, cfg), 5)
+            d = codes.digits.shape[0]
+            print(f"[time] wide codes layer1 {name} "
+                  f"{'noisy' if noisy else 'clean'} ({d} int8 digit"
+                  f"{'s' if d > 1 else ''}, {-(-cfg.in_bits // 8)} pass"
+                  f"{'es' if cfg.in_bits > 8 else ''}): fused_quant_layer "
+                  f"launch {q_ms:.3f} ms, crossbar_matmul_quantized "
+                  f"launch {x_ms:.3f} ms", flush=True)
+    nb = torch.remainder(nbr[:3000], 4000)
+    wt = wts[:3000].contiguous()
+    deep = deep_inputs(device, 17)
+    for f, numerics in DEEP:
+        x, w, _ = deep[f]
+        cfg = CrossbarNumerics(**numerics)
+        codes, scales = fl.quant_operands(fl.fused_zmax_plain(x, nb, wt), w,
+                                          cfg)
+        ms = cuda_ms(lambda: fl.fused_quant_layer(
+            x, nb, wt, codes, b, scales, cfg, relu=True), 20)
+        d = codes.digits.shape[0]
+        print(f"[time] deep F 3000 rows {f}->64 {numerics_tag(numerics)} "
+              f"(depth {fl.tile_depth(f, cfg.rows_per_xbar)}, {d} int8 "
+              f"digit{'s' if d > 1 else ''}, {-(-cfg.in_bits // 8)} pass"
+              f"{'es' if cfg.in_bits > 8 else ''}): fused_quant_layer launch "
+              f"{ms:.3f} ms", flush=True)
+
+
 def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
     """Kernel, plain and bound times of ``cam_search`` at one k-NN launch
     and of ``crossbar_matmul_quantized`` at layer 1 of the centralized
@@ -892,6 +1249,8 @@ def main() -> None:
     errs = {k: 0.0 for k in KERNELS}
     kernel_checks(x1, x2, nbr, wts_zero, params, device, errs)
     new_kernel_checks(z1, params[0]["w"], device, errs)
+    wide_deep_checks(x1, nbr, wts_zero, device, errs)
+    small_shape_checks(device, errs)
 
     # ---- the paths, counted
     totals = {k: 0 for k in KERNELS}
@@ -911,6 +1270,8 @@ def main() -> None:
     serve_cases(plan_s, cfg, ("alltoall",), device, True, totals)
     builds = path_a(device, totals)
     path_b(device, g01, totals)
+    path_c1(g01, device, totals)
+    path_c2(device, totals)
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
     require(all(v > 0 for v in totals.values()),
@@ -919,6 +1280,7 @@ def main() -> None:
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)
     timings(x2, nbr, wts, params[1], "layer2 64->16", iters=20)
+    wide_deep_timings(x1, nbr, wts, params[0], z1, device)
     rec1.update(new_timings(z1, params[0]["w"],
                             csr_aggregate_ref(x2, nbr, wts), params[1]["w"],
                             device, builds))

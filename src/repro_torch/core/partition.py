@@ -14,9 +14,15 @@ three settings on the port's backends:
     backend of hand-written kernels);
   * ``fused``  — the hand-written fused layer kernels.
 
+``plan_execution(buckets=...)`` selects the capacity-bucketed ragged
+layout (``BucketedPartition``): clusters grouped into power-of-two
+capacity buckets, each paying its bucket's capacity instead of the largest
+cluster's; ``ExecutionPlan.layout_stats`` prices it against the dense
+layout, and ``rebalance`` moves load off slow clusters.
+
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the capacity-bucketed layout, kernel tuning, the cost-model
-prediction, the crossbar mapping and the measured-traffic accounting.
+item): kernel tuning, the cost-model prediction, the crossbar mapping and
+the measured-traffic accounting.
 """
 from __future__ import annotations
 
@@ -267,6 +273,165 @@ def gather_features(g: Graph, part: Partition) -> np.ndarray:
     return out
 
 
+_MIN_CAP = 8          # smallest bucket capacity (bounds shape churn when
+#                       streaming rebuilds nudge tiny clusters around)
+
+
+def _pow2ceil(n: int, floor: int = 1) -> int:
+    b = max(int(floor), 1)
+    while b < n:
+        b <<= 1
+    return b
+
+
+@dataclasses.dataclass
+class BucketedPartition:
+    """Capacity-bucketed ragged layout over a dense :class:`Partition`.
+
+    Dense plans pad every cluster to the global ``n_max``/``h_max``/``S`` —
+    one hub cluster inflates every device's tensors. Here clusters are
+    grouped into power-of-two *capacity buckets*: all clusters in bucket b
+    share ``n_caps[b]`` owned rows, ``h_caps[b]`` halo rows and a neighbor
+    width ``s_caps[b]``, so each device pays for its bucket's capacity, not
+    the hub's. Power-of-two caps keep tensor shapes stable across
+    rebuilds. The wrapped dense ``part`` (assignment, halo and comm
+    tables) stays the single source of truth for traffic accounting; only
+    the padded runtime tensors go ragged.
+    """
+    part: Partition
+    clusters: tuple               # per-bucket int32 cluster ids (ascending)
+    n_caps: tuple                 # per-bucket owned-row capacity (pow2)
+    h_caps: tuple                 # per-bucket halo-row capacity (pow2)
+    s_caps: tuple                 # per-bucket neighbor width (<= sample)
+    bucket_of: np.ndarray         # [K] bucket index of each cluster
+    index_in: np.ndarray          # [K] row of each cluster inside its bucket
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.clusters)
+
+    def real_rows(self) -> int:
+        return int(self.part.local_mask.sum())
+
+    def padded_rows(self) -> int:
+        return sum(len(cl) * cap
+                   for cl, cap in zip(self.clusters, self.n_caps))
+
+    def dense_padded_rows(self) -> int:
+        return self.part.n_clusters * self.part.n_max
+
+    def padding_ratio(self) -> float:
+        """Padded rows / real rows of the bucketed layout (>= 1)."""
+        return self.padded_rows() / max(self.real_rows(), 1)
+
+    def dense_padding_ratio(self) -> float:
+        """Padded rows / real rows the dense layout would pay."""
+        return self.dense_padded_rows() / max(self.real_rows(), 1)
+
+    def covers(self) -> bool:
+        """Every cluster's real rows/halos/neighbors fit its bucket's caps."""
+        sizes = self.part.local_mask.sum(axis=1)
+        halos = (self.part.halo_src >= 0).sum(axis=1)
+        for b, cl in enumerate(self.clusters):
+            if len(cl) == 0:
+                continue
+            if int(sizes[cl].max()) > self.n_caps[b]:
+                return False
+            if int(halos[cl].max()) > self.h_caps[b]:
+                return False
+        return True
+
+
+def bucket_partition(part: Partition, g: Graph | None = None,
+                     sample: int | None = None, max_buckets: int = 0,
+                     like: "BucketedPartition | None" = None,
+                     self_loops: bool = True) -> BucketedPartition:
+    """Group a dense partition's clusters into power-of-two capacity buckets.
+
+    ``n_caps`` is the pow2 ceiling of each cluster's size (floor
+    ``_MIN_CAP``); ``h_caps`` the pow2 ceiling of the largest halo count in
+    the bucket; ``s_caps`` trims the neighbor width to the largest *used*
+    slot count in the bucket (needs ``g`` + ``sample``; falls back to
+    ``sample``). ``max_buckets > 0`` merges the smallest-capacity buckets
+    upward until at most that many remain. ``like=`` reuses an existing
+    bucketing's grouping and never shrinks its caps, so rebuilds keep
+    tensor shapes stable (same assignment => same groups)."""
+    sample = sample if sample is not None else part.sample
+    sizes = part.local_mask.sum(axis=1)
+    hcounts = (part.halo_src >= 0).sum(axis=1)
+    if like is not None:
+        groups = [np.asarray(cl, np.int64) for cl in like.clusters]
+        n_caps = [max(c, _pow2ceil(int(sizes[cl].max(initial=0)), _MIN_CAP))
+                  for c, cl in zip(like.n_caps, groups)]
+    else:
+        caps = np.array([_pow2ceil(int(s), _MIN_CAP) for s in sizes])
+        uniq = sorted(set(caps.tolist()))
+        groups = [np.nonzero(caps == u)[0].astype(np.int64) for u in uniq]
+        n_caps = list(uniq)
+        while max_buckets > 0 and len(groups) > max_buckets:
+            groups[1] = np.sort(np.concatenate([groups[0], groups[1]]))
+            n_caps[1] = max(n_caps[0], n_caps[1])
+            groups, n_caps = groups[1:], n_caps[1:]
+    h_caps, s_caps = [], []
+    deg = np.diff(g.indptr) if g is not None else None
+    for b, cl in enumerate(groups):
+        hc = _pow2ceil(int(hcounts[cl].max(initial=0)), 1)
+        sc = int(sample) if sample is not None else 1
+        if deg is not None and sample is not None and len(cl):
+            cap = sample - 1 if self_loops else sample
+            rows = np.concatenate(
+                [part.local_nodes[c][part.local_mask[c]] for c in cl])
+            used = int(np.minimum(deg[rows], cap).max(initial=0))
+            used += 1 if self_loops else 0
+            sc = min(int(sample), _pow2ceil(max(used, 1)))
+        if like is not None:
+            hc = max(hc, like.h_caps[b])
+            sc = max(sc, like.s_caps[b])
+        h_caps.append(hc)
+        s_caps.append(sc)
+    bucket_of = np.zeros(part.n_clusters, np.int32)
+    index_in = np.zeros(part.n_clusters, np.int32)
+    for b, cl in enumerate(groups):
+        bucket_of[cl] = b
+        index_in[cl] = np.arange(len(cl))
+    return BucketedPartition(part, tuple(groups),
+                             tuple(int(c) for c in n_caps), tuple(h_caps),
+                             tuple(s_caps), bucket_of, index_in)
+
+
+def build_bucketed_subgraphs(g: Graph, bpart: BucketedPartition,
+                             self_loops: bool = True):
+    """Per-bucket padded neighbor/weight tables.
+
+    Returns (neighbors, weights): tuples of per-bucket arrays
+    ``[K_b, n_caps[b], s_caps[b]]`` in the same device-local index
+    convention as :class:`LocalSubgraph` — owned rows first, halo rows at
+    ``n_caps[b] + h``. Trailing neighbor slots past ``s_caps[b]`` carry
+    weight zero in the dense layout, and the layers sum the S axis in slot
+    order, so dropping them leaves every bit of the result as it is."""
+    nbrs, wtss = [], []
+    for b, cl in enumerate(bpart.clusters):
+        nbr, wts = _local_tables(g, bpart.part, cl, bpart.n_caps[b],
+                                 bpart.s_caps[b], bpart.n_caps[b],
+                                 self_loops=self_loops)
+        nbrs.append(nbr)
+        wtss.append(wts)
+    return tuple(nbrs), tuple(wtss)
+
+
+def gather_bucketed_features(g: Graph, bpart: BucketedPartition):
+    """Tuple of per-bucket ``[K_b, n_caps[b], F]`` owned-feature tables."""
+    part = bpart.part
+    out = []
+    for b, cl in enumerate(bpart.clusters):
+        f = np.zeros((len(cl), bpart.n_caps[b], g.feature_len), np.float32)
+        for j, c in enumerate(cl):
+            m = part.local_mask[c]
+            f[j, :int(m.sum())] = g.features[part.local_nodes[c][m]]
+        out.append(f)
+    return tuple(out)
+
+
 @dataclasses.dataclass
 class HierPartition:
     """Two-tier semi-decentralized partition (the paper's §5 hierarchy).
@@ -387,24 +552,37 @@ class ExecutionPlan:
     #                                 (tier-1) partition for semi
     sub: LocalSubgraph | None
     feats: np.ndarray               # [K, n_max, F] (centralized: [1, N, F];
-    #                                 semi: [R, P, m_max, F] spoke tables)
+    #                                 semi: [R, P, m_max, F] spoke tables;
+    #                                 bucketed non-semi: tuple of per-bucket
+    #                                 [K_b, n_cap, F] tables)
     neighbors: np.ndarray           # [K, n_max, S] device-local sample
-    weights: np.ndarray             # [K, n_max, S]
+    #                                 (bucketed: tuple of [K_b, n_cap, s_cap])
+    weights: np.ndarray             # [K, n_max, S] (bucketed: tuple)
     hier: HierPartition | None = None   # set for setting == "semi"
+    bucketed: BucketedPartition | None = None   # the ragged layout
 
     def gnn_config(self, cfg):
         """Rebind a GNNConfig to this plan's backend and sample."""
         return dataclasses.replace(cfg, backend=self.backend,
                                    sample=self.sample)
 
-    def make_forward(self, cfg, mode: str = "alltoall", device="cuda"):
+    def make_forward(self, cfg, mode: str = "alltoall",
+                     overlap: str = "overlap", device="cuda"):
         """Runnable forward for this plan on ``device``:
         ``fn(params) -> [K, n_max, out]`` (a tensor on ``device``).
 
         The plan's host tables are copied to the device once, here.
         ``mode`` picks the halo-exchange strategy (``allgather`` or
         ``alltoall``) of the decentralized exchange and of semi's tier-1
-        head<->head exchange; centralized has none."""
+        head<->head exchange; centralized has none.
+
+        Bucketed plans return a *tuple* of per-bucket ``[K_b, n_cap, out]``
+        tensors (``scatter`` accepts it) and run the double-buffered
+        exchange of ``halo.make_emulated_bucketed_forward``:
+        ``overlap="overlap"`` issues every bucket's halo gather of a layer,
+        on a side CUDA stream, before any bucket's layer step; ``"serial"``
+        interleaves gather and step on the current stream. Both give the
+        same values."""
         import torch
 
         from ..distributed import halo
@@ -412,6 +590,20 @@ class ExecutionPlan:
         from .gnn import forward as gnn_forward
         dev = resolve_device(device)
         cfg = self.gnn_config(cfg)
+        if self.bucketed is not None:
+            bplan = halo.build_bucketed_halo_plan(self.bucketed)
+            nbrs = tuple(torch.from_numpy(a).to(dev) for a in self.neighbors)
+            wtss = tuple(torch.from_numpy(a).to(dev) for a in self.weights)
+            if self.setting == "semi":
+                fn = halo.make_emulated_bucketed_semi_forward(
+                    cfg, bplan, self.hier, self.bucketed, mode=mode,
+                    overlap=overlap, device=dev)
+                spoke = torch.from_numpy(self.feats).to(dev)
+                return lambda params: fn(params, spoke, nbrs, wtss)
+            fn = halo.make_emulated_bucketed_forward(
+                cfg, bplan, mode=mode, overlap=overlap, device=dev)
+            feats = tuple(torch.from_numpy(f).to(dev) for f in self.feats)
+            return lambda params: fn(params, feats, nbrs, wtss)
         feats = torch.from_numpy(self.feats).to(dev)
         nbr = torch.from_numpy(self.neighbors).to(dev)
         wts = torch.from_numpy(self.weights).to(dev)
@@ -431,7 +623,19 @@ class ExecutionPlan:
 
     def scatter(self, out) -> np.ndarray:
         """Map the forward's per-cluster output [K, n_max, D] (a tensor on
-        any device) to a numpy array in global node order."""
+        any device) to a numpy array in global node order. Bucketed plans
+        pass the forward's tuple of per-bucket ``[K_b, n_cap, D]``
+        tensors."""
+        if self.bucketed is not None and isinstance(out, (list, tuple)):
+            parts = [o.detach().cpu().numpy() for o in out]
+            full = np.zeros((self.graph.n_nodes, parts[0].shape[-1]),
+                            parts[0].dtype)
+            sizes = self.part.local_mask.sum(axis=1)
+            for b, cl in enumerate(self.bucketed.clusters):
+                for j, c in enumerate(cl):
+                    m = int(sizes[c])
+                    full[self.part.local_nodes[c, :m]] = parts[b][j, :m]
+            return full
         out = out.detach().cpu().numpy()
         if self.setting == "centralized":
             return out[0]
@@ -440,6 +644,48 @@ class ExecutionPlan:
             m = self.part.local_mask[c]
             full[self.part.local_nodes[c][m]] = out[c][m]
         return full
+
+    def layout_stats(self, cfg=None) -> dict:
+        """Deterministic padded-layout accounting for this plan.
+
+        ``padding_ratio`` is padded rows / real rows of the layout the plan
+        actually runs; ``dense_*`` keys price the uniform dense layout for
+        the same partition so the bucketing win is a ratio of two numbers
+        from one partition. ``peak_device_bytes`` models the largest single
+        device's live working set (feature table + halo rows + activation
+        double-buffer + neighbor/weight tables at the widest layer dim of
+        ``cfg``, float32/int32)."""
+        f_max = int(max(cfg.dims)) if cfg is not None else max(
+            int(self.graph.feature_len), 1)
+
+        def _peak(n_rows: int, h_rows: int, s: int) -> int:
+            return 4 * (2 * n_rows * f_max + h_rows * f_max
+                        + 2 * n_rows * s)
+
+        if self.part is None:                     # dense centralized
+            rows = max(int(self.graph.n_nodes), 1)
+            peak = _peak(rows, 0, self.sample)
+            return {"layout": "dense", "real_rows": rows,
+                    "padded_rows": rows, "padding_ratio": 1.0,
+                    "dense_padded_rows": rows, "dense_padding_ratio": 1.0,
+                    "peak_device_bytes": peak,
+                    "dense_peak_device_bytes": peak}
+        real = max(int(self.part.local_mask.sum()), 1)
+        dense_rows = self.part.n_clusters * self.part.n_max
+        dense_peak = _peak(self.part.n_max, self.part.h_max, self.sample)
+        if self.bucketed is None:
+            rows, peak, layout = dense_rows, dense_peak, "dense"
+        else:
+            bp = self.bucketed
+            rows, layout = bp.padded_rows(), "bucketed"
+            peak = max(_peak(bp.n_caps[b], bp.h_caps[b], bp.s_caps[b])
+                       for b in range(bp.n_buckets))
+        return {"layout": layout, "real_rows": real, "padded_rows": rows,
+                "padding_ratio": rows / real,
+                "dense_padded_rows": dense_rows,
+                "dense_padding_ratio": dense_rows / real,
+                "peak_device_bytes": peak,
+                "dense_peak_device_bytes": dense_peak}
 
     def tune_kernels(self, cfg, cache=None, **tune_kw):
         raise _not_ported("kernel tuning", "tuning")
@@ -457,6 +703,20 @@ class ExecutionPlan:
                           "cost-model lines of the CLI")
 
 
+def _parse_buckets(buckets) -> int | None:
+    """Normalize the ``buckets`` knob: None => dense, 0 => unlimited
+    buckets, N > 0 => at most N buckets."""
+    if buckets in (None, 0, "off", "dense", False):
+        return None
+    if buckets in ("auto", -1, True):
+        return 0
+    n = int(buckets)
+    if n <= 0:
+        raise ValueError(f"buckets must be 'auto', 'off' or a positive "
+                         f"count, got {buckets!r}")
+    return n
+
+
 def plan_execution(g: Graph, setting: str = "centralized",
                    backend: str = "jnp", sample: int = 16,
                    n_clusters: int | None = None,
@@ -469,34 +729,98 @@ def plan_execution(g: Graph, setting: str = "centralized",
     ``n_clusters`` defaults per setting: 1 (centralized), 8 (decentralized
     — one per edge device), 4 (semi — cluster heads, each fronting
     ``spokes_per_head`` member edge devices). Halo/comm tables are pruned
-    to the ``sample``-reachable edges the kernels read. ``buckets`` other
-    than ``None``/``"off"`` (the capacity-bucketed layout) is not ported
-    yet and raises ``NotImplementedError``."""
+    to the ``sample``-reachable edges the kernels read.
+
+    ``buckets`` selects the capacity-bucketed ragged layout:
+    ``None``/``"off"`` keeps the uniform dense padding, ``"auto"`` buckets
+    clusters by their natural pow2 capacities, an int N caps the bucket
+    count at N (centralized with buckets runs one bucketed cluster).
+    ``partition_method`` picks the cluster heuristic (``bfs``/``chunk``/
+    ``edge`` — see ``partition``)."""
     if setting not in ("centralized", "decentralized", "semi"):
         raise ValueError(f"unknown setting {setting!r}")
-    if buckets not in (None, 0, "off", "dense", False):
-        raise _not_ported(f"buckets={buckets!r} (the capacity-bucketed "
-                          f"layout)", "bucketed layout")
-    if setting == "centralized":
+    max_b = _parse_buckets(buckets)
+    if setting == "centralized" and max_b is None:
         nbr, wts = g.neighbor_sample(sample)
         return ExecutionPlan(setting, backend, sample, 1, g, None, None,
                              g.features[None], nbr[None], wts[None])
-    k = n_clusters or (8 if setting == "decentralized" else 4)
+    k = 1 if setting == "centralized" else (
+        n_clusters or (8 if setting == "decentralized" else 4))
     # a cluster must own at least one node
     k = max(min(k, g.n_nodes), 1)
     if setting == "semi":
         hier = hier_partition(g, k, nodes_per_region=spokes_per_head,
                               sample=sample, seed=seed)
-        sub = build_local_subgraphs(g, hier.region, sample)
         feats = gather_spoke_features(g, hier)
+        if max_b is not None:
+            bp = bucket_partition(hier.region, g, sample, max_buckets=max_b)
+            nbrs, wtss = build_bucketed_subgraphs(g, bp)
+            return ExecutionPlan(setting, backend, sample, k, g,
+                                 hier.region, None, feats, nbrs, wtss,
+                                 hier=hier, bucketed=bp)
+        sub = build_local_subgraphs(g, hier.region, sample)
         return ExecutionPlan(setting, backend, sample, k, g, hier.region,
                              sub, feats, sub.neighbors, sub.weights,
                              hier=hier)
-    part = partition(g, k, seed=seed, sample=sample, method=partition_method)
+    if setting == "centralized":
+        part = _from_assignment(g, np.zeros(g.n_nodes, np.int32), 1,
+                                sample=sample)
+    else:
+        part = partition(g, k, seed=seed, sample=sample,
+                         method=partition_method)
+    if max_b is not None:
+        bp = bucket_partition(part, g, sample, max_buckets=max_b)
+        nbrs, wtss = build_bucketed_subgraphs(g, bp)
+        feats = gather_bucketed_features(g, bp)
+        return ExecutionPlan(setting, backend, sample, k, g, part, None,
+                             feats, nbrs, wtss, bucketed=bp)
     sub = build_local_subgraphs(g, part, sample)
     feats = gather_features(g, part)
     return ExecutionPlan(setting, backend, sample, k, g, part, sub,
                          feats, sub.neighbors, sub.weights)
+
+
+def rebalance(g: Graph, part: Partition, latency: np.ndarray,
+              frac: float = 0.25, seed: int = 0) -> Partition:
+    """Straggler mitigation: shift load away from slow clusters.
+
+    ``latency``: [K] observed (or cost-model-predicted) per-cluster step
+    latency. Boundary nodes of clusters slower than the mean are handed to
+    their fastest adjacent cluster (at most ``frac`` of the slow cluster's
+    nodes move), then the partition tables are rebuilt. Deterministic in
+    ``seed``: the decentralized setting re-balances its clusters when a
+    node's latency spikes.
+    """
+    latency = np.asarray(latency, np.float64)
+    k = part.n_clusters
+    assignment = part.assignment.copy()
+    mean = latency.mean()
+    for c in np.argsort(-latency):
+        if latency[c] <= mean * 1.05:
+            break
+        members = np.nonzero(assignment == c)[0]
+        budget = max(int(len(members) * frac), 1)
+        # boundary nodes: owned nodes with at least one out-of-cluster edge
+        moved = 0
+        for u in members:
+            lo, hi = int(g.indptr[u]), int(g.indptr[u + 1])
+            nbr_clusters = assignment[g.indices[lo:hi]]
+            remote = nbr_clusters[nbr_clusters != c]
+            if len(remote) == 0:
+                continue
+            # move to the fastest adjacent cluster that is below the mean
+            cand = np.unique(remote)
+            cand = cand[latency[cand] < mean]
+            if len(cand) == 0:
+                continue
+            target = int(cand[np.argmin(latency[cand])])
+            assignment[u] = target
+            moved += 1
+            if moved >= budget:
+                break
+    # rebuild partition tables from the adjusted assignment, keeping the
+    # original tables' sample pruning
+    return _from_assignment(g, assignment, k, sample=part.sample)
 
 
 def _from_assignment(g: Graph, assignment: np.ndarray, k: int,

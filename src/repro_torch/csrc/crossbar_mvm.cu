@@ -17,21 +17,25 @@
 // work (crossbar_mma.cuh) that the card could do in less time than the
 // codes take to read. The design:
 //   * the conductance codes arrive as int8 digits in the tile-padded layout
-//     [D, N, Kp] (one digit for integer codes within +-127, two for codes
-//     on the 1/8 grid; the wrapper builds them with tensor ops);
+//     [D, N, Kp] (one digit for integer codes within +-127, two to four in
+//     base 128 for the others; the wrapper builds them with tensor ops);
 //   * a block of 8 warps owns 16 * mt rows and up to 64 columns, one warp
 //     per (m16 tile, column group) unit, so a small product still spreads
 //     over several units; blocks are persistent and walk row tiles;
 //   * K is staged through shared memory in chunks of the tile-padded depth
 //     (as deep as two blocks an SM allow): the DAC codes of the row tile,
 //     read once from the int32 codes (int4 loads where aligned) and packed
-//     to bytes, and the digits of the block's columns. Where the whole
-//     depth fits one chunk, the digits are staged once for the block's
-//     life; deeper, they are staged again with each chunk. There is no
-//     depth limit;
-//   * each warp runs xmma::tile_mma over the crossbar tiles that meet the
-//     chunk and applies the ADC (xmma::tile_adc) where a tile ends, so the
-//     int32 bit-plane sums of a tile may span chunks.
+//     to bytes, one byte plane per pass of 8 bits, and the digits of the
+//     block's columns. Where the whole depth fits one chunk, the digits are
+//     staged once for the block's life; deeper, they are staged again with
+//     each chunk. There is no depth limit;
+//   * each warp walks the crossbar tiles in order; for each pass of 8 bit
+//     planes (in_bits > 8 takes two to four) it runs xmma::tile_mma over
+//     the chunks the tile meets, staging a chunk where it is not the one in
+//     shared memory, so the int32 bit-plane sums of a tile may span chunks,
+//     and applies the ADC where the pass ends, carrying the tile's f32 sum
+//     from pass to pass. With several passes the chunks hold whole tiles
+//     where a tile fits one, so that no chunk is staged twice.
 // Numerics: the int32 sums are exact and convert to the plain version's f32
 // partials exactly (crossbar_mma.cuh); the ADC, the shift and add in bit
 // order and the add across tiles in tile order are the plain version's, so
@@ -51,18 +55,19 @@ constexpr int kMaxCols = 64;  // columns of a block, at most
 constexpr int kSmemBudget = 112 * 1024;
 constexpr int kLoads = 4;  // int4 code loads a thread keeps in flight
 
-// Dynamic shared memory: codes[rows][stride] (u8 DAC codes at their
-// tile-padded depth within the chunk), then ds[kD][bn][stride] (s8 digits);
-// stride = kc + 16 bytes (crossbar_mma.cuh). rows = 16 * mt, bn = ncg *
-// Shape<kD>::kCols, ncg * mt = kWarps. vec: xq is 16-byte aligned and K and
-// rows_per_xbar are multiples of 4.
-template <int kD>
-__global__ void __launch_bounds__(kThreads, 2)
+// Dynamic shared memory: codes[ng][rows][stride] (byte g of the DAC codes,
+// at their tile-padded depth within the chunk), then ds[ndig][bn][stride]
+// (s8 digits); stride = kc + 16 bytes (crossbar_mma.cuh). rows = 16 * mt,
+// bn = ncg * Shape<kD>::kCols, ncg * mt = kWarps. vec: xq is 16-byte
+// aligned and K and rows_per_xbar are multiples of 4. kPasses: in_bits > 8
+// (ng passes of 8 planes, the tile's sum carried from one to the next).
+template <int kD, bool kPasses>
+__global__ void __launch_bounds__(kThreads, kPasses ? 1 : 2)
 crossbar_mma_kernel(const int* __restrict__ xq,
                     const signed char* __restrict__ digits,
                     float* __restrict__ out, long long m, int k, int n, int r,
-                    int rpad, int kp, int kc, int ncg, int nbits, float fs,
-                    float lsb, float inv_lsb, int vec) {
+                    int rpad, int kp, int kc, int ncg, int nbits, int ng,
+                    int ndig, float fs, float lsb, float inv_lsb, int vec) {
   using S = xmma::Shape<kD>;
   const int mt = kWarps / ncg;
   const int rows = xmma::kRows * mt;
@@ -70,17 +75,20 @@ crossbar_mma_kernel(const int* __restrict__ xq,
   const int stride = kc + 16;
   extern __shared__ int4 smem[];
   unsigned char* codes = reinterpret_cast<unsigned char*>(smem);
-  signed char* ds = reinterpret_cast<signed char*>(codes + rows * stride);
+  signed char* ds = reinterpret_cast<signed char*>(codes + ng * rows * stride);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const int cg = warp % ncg, m0 = warp / ncg * xmma::kRows;
   const int col0 = blockIdx.y * bn;
   const int nchunks = (kp + kc - 1) / kc;
+  const int ntiles = (kp + rpad - 1) / rpad;
   const long long row_tiles = (m + rows - 1) / rows;
+  bool digits_in = false;  // the digits of a one-chunk depth, staged
   for (long long tile = blockIdx.x; tile < row_tiles; tile += gridDim.x) {
     const long long row0 = tile * rows;
-    float mvm[S::kNt][4] = {};
-    int acc[xmma::kMaxBits][S::kAcc][4] = {};
-    for (int c = 0; c < nchunks; ++c) {
+    // Stage chunk c: the row tile's DAC codes, one byte plane per pass,
+    // and the digits of the block's columns (once for the block's life
+    // where the whole depth is one chunk).
+    auto stage = [&](int c) {
       const int p0 = c * kc, pn = min(kc, kp - p0), words = pn / 4;
       __syncthreads();  // the previous chunk's reads are done
       // 1. DAC codes: word w of row rr holds depth p0 + 4w .. + 3; depth p
@@ -111,47 +119,63 @@ crossbar_mma_kernel(const int* __restrict__ xq,
         for (int u = 0; u < kLoads; ++u) {
           const int e = e0 + u * kThreads;
           if (e >= rows * words) continue;
-          const unsigned word = (v[u].x & 0xff) | (v[u].y & 0xff) << 8 |
-                                (v[u].z & 0xff) << 16 |
-                                (unsigned)(v[u].w & 0xff) << 24;
-          *reinterpret_cast<unsigned*>(codes + (e / words) * stride +
-                                       4 * (e % words)) = word;
+          for (int g = 0; g < (kPasses ? ng : 1); ++g) {
+            const int sh = 8 * g;
+            const unsigned word =
+                (v[u].x >> sh & 0xff) | (v[u].y >> sh & 0xff) << 8 |
+                (v[u].z >> sh & 0xff) << 16 |
+                (unsigned)(v[u].w >> sh & 0xff) << 24;
+            *reinterpret_cast<unsigned*>(codes + (g * rows + e / words) *
+                                                     stride +
+                                         4 * (e % words)) = word;
+          }
         }
       }
       // 2. digits of the block's columns, 16 bytes at a time (kp, p0 and
-      //    pn are multiples of 32); once for the block's life where the
-      //    whole depth is one chunk.
-      if (nchunks > 1 || tile == blockIdx.x) {
-        const int q16 = pn / 16;
-        for (int e = tid; e < kD * bn * q16; e += kThreads) {
-          const int q = e % q16, dc = e / q16, cc = dc % bn, d = dc / bn;
-          int4 v = make_int4(0, 0, 0, 0);
-          if (col0 + cc < n)
-            v = __ldg(reinterpret_cast<const int4*>(
-                          digits + ((long long)d * n + col0 + cc) * kp + p0) +
-                      q);
-          *reinterpret_cast<int4*>(ds + dc * stride + 16 * q) = v;
-        }
+      //    pn are multiples of 32).
+      if (nchunks > 1 || !digits_in) {
+        xmma::stage_digits(ds, digits, ndig, n, kp, col0, bn, p0, pn, stride,
+                           tid, kThreads);
+        digits_in = true;
       }
       __syncthreads();
-      // 3. bit-plane products of the crossbar tiles that meet this chunk;
-      //    where a tile ends, its ADC, shift and add into the running sums.
-      for (int p = p0; p < p0 + pn;) {
-        const int tend = min((p / rpad + 1) * rpad, kp);
-        const int end = min(tend, p0 + pn);
-        xmma::tile_mma<kD>(codes + m0 * stride, ds + cg * S::kCols * stride,
-                           stride, bn * stride, p - p0, (end - p) / 32, nbits,
-                           acc);
-        if (end == tend) {
-          xmma::tile_adc<kD>(acc, nbits, fs, lsb, inv_lsb, mvm);
-#pragma unroll
-          for (int b = 0; b < xmma::kMaxBits; ++b)
-#pragma unroll
-            for (int j = 0; j < S::kAcc; ++j)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[b][j][i] = 0;
+    };
+    // 3. the crossbar tiles in order; per pass of 8 bit planes the tile's
+    //    bit-plane products over the chunks it meets, then the pass's ADC,
+    //    shift and add into the tile's running sums; then the add across
+    //    tiles.
+    float mvm[S::kNt][4] = {};
+    int cur = -1;  // the chunk in shared memory
+    for (int t = 0; t < ntiles; ++t) {
+      const int tb = t * rpad, te = min(tb + rpad, kp);
+      float sum[S::kNt][4] = {};
+      for (int g = 0; g < (kPasses ? ng : 1); ++g) {
+        int acc[xmma::kPlanes][S::kAcc][4] = {};
+        const int planes = min(nbits - 8 * g, xmma::kPlanes);
+        for (int p = tb; p < te;) {
+          const int c = p / kc;
+          if (c != cur) {
+            stage(c);
+            cur = c;
+          }
+          const int end = min(te, (c + 1) * kc);
+          xmma::tile_mma<kD>(codes + (g * rows + m0) * stride,
+                             ds + cg * S::kCols * stride, stride,
+                             bn * stride, p - c * kc, (end - p) / 32, planes,
+                             ndig, acc);
+          p = end;
         }
-        p = end;
+        if constexpr (kPasses)
+          xmma::pass_adc<kD>(acc, nbits, g, fs, lsb, inv_lsb, sum);
+        else
+          xmma::tile_adc<kD>(acc, nbits, fs, lsb, inv_lsb, mvm);
+      }
+      if constexpr (kPasses) {
+#pragma unroll
+        for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mvm[nt][e] = __fadd_rn(mvm[nt][e], sum[nt][e]);
       }
     }
     // mvm[nt][e] is the output at row g + 8 (e >> 1), column nt * 8 + 2 t +
@@ -171,14 +195,15 @@ crossbar_mma_kernel(const int* __restrict__ xq,
 
 // Picks the block's column groups (the fewest power of two that covers N,
 // up to 64 columns) and m16 tiles (the rest of the 8 warps), the chunk
-// depth (as deep as kSmemBudget allows, at most kp) and a persistent grid
-// of as many blocks as fit on the card at once.
-template <int kD>
-int launch(const int* xq, const signed char* digits, float* out, long long m,
-           int k, int n, int r, int kp, int nbits, float fs, float lsb,
-           float inv_lsb, cudaStream_t stream) {
+// depth (as deep as kSmemBudget allows, at most kp; with several passes a
+// multiple of the tile where a tile fits) and a persistent grid of as many
+// blocks as fit on the card at once.
+template <int kD, bool kPasses>
+int launch(const int* xq, const signed char* digits, int ndig, float* out,
+           long long m, int k, int n, int r, int kp, int nbits, float fs,
+           float lsb, float inv_lsb, cudaStream_t stream) {
   constexpr int kCols = xmma::Shape<kD>::kCols;
-  auto kernel = crossbar_mma_kernel<kD>;
+  auto kernel = crossbar_mma_kernel<kD, kPasses>;
   static bool configured[64] = {};  // the shared memory limit, per device
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -192,9 +217,14 @@ int launch(const int* xq, const signed char* digits, float* out, long long m,
   if (err != cudaSuccess) return (int)err;
   int ncg = 1;
   while (ncg * kCols < n && ncg * kCols < kMaxCols) ncg *= 2;
+  const int ng = (nbits + xmma::kPlanes - 1) / xmma::kPlanes;
   const int rows = xmma::kRows * (kWarps / ncg), bn = ncg * kCols;
-  const int per_row = rows + kD * bn;  // shared bytes per depth position
-  const int kc = std::min(kp, (kSmemBudget / per_row - 16) / 32 * 32);
+  const int rpad = (r + 31) / 32 * 32;
+  const int per_row = ng * rows + ndig * bn;  // shared bytes per depth
+  int kc = (kSmemBudget / per_row - 16) / 32 * 32;
+  if (ng > 1 && rpad <= kc) kc = kc / rpad * rpad;
+  kc = std::min(kp, kc);
+  if (kc < 32) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)per_row * (kc + 16);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
@@ -206,8 +236,8 @@ int launch(const int* xq, const signed char* digits, float* out, long long m,
       row_tiles, std::max<long long>(1, (long long)per_sm * sms / ncol));
   const int vec = (size_t)xq % 16 == 0 && k % 4 == 0 && r % 4 == 0;
   kernel<<<dim3((unsigned)nx, (unsigned)ncol), kThreads, smem, stream>>>(
-      xq, digits, out, m, k, n, r, (r + 31) / 32 * 32, kp, kc, ncg, nbits,
-      fs, lsb, inv_lsb, vec);
+      xq, digits, out, m, k, n, r, rpad, kp, kc, ncg, nbits, ng, ndig, fs,
+      lsb, inv_lsb, vec);
   return (int)cudaGetLastError();
 }
 
@@ -218,13 +248,18 @@ extern "C" int crossbar_matmul_quantized_i8(
     int k, int n, int rows_per_xbar, int kp, int in_bits, float full_scale,
     float lsb, float inv_lsb, void* stream) {
   if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1 ||
-      kp < 32 || kp % 32 != 0 || (size_t)digits % 16 != 0 ||
-      (ndigits != 1 && ndigits != 2))
+      kp < 32 || kp % 32 != 0 || (size_t)digits % 16 != 0 || ndigits < 1 ||
+      ndigits > xmma::kMaxDigits)
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto launch_fn) {
-    return launch_fn((const int*)xq, (const signed char*)digits, (float*)out,
-                     m, k, n, rows_per_xbar, kp, in_bits, full_scale, lsb,
-                     inv_lsb, (cudaStream_t)stream);
+    return launch_fn((const int*)xq, (const signed char*)digits, ndigits,
+                     (float*)out, m, k, n, rows_per_xbar, kp, in_bits,
+                     full_scale, lsb, inv_lsb, (cudaStream_t)stream);
   };
-  return ndigits == 1 ? run(launch<1>) : run(launch<2>);
+  const bool passes = in_bits > xmma::kPlanes;
+  if (ndigits == 1)
+    return passes ? run(launch<1, true>) : run(launch<1, false>);
+  if (ndigits == 2)
+    return passes ? run(launch<2, true>) : run(launch<2, false>);
+  return passes ? run(launch<3, true>) : run(launch<3, false>);
 }

@@ -13,13 +13,19 @@
 // and scales back by the step. Within a tile the ADC outputs are shifted and
 // added in bit order with rounded operations (never an FMA): the plain
 // loop's order, so the results agree bit for bit.
+//
+// Bit planes come in passes of kPlanes, one byte of the DAC codes each:
+// pass g holds bits 8 g .. 8 g + 7. A tile's running sum is carried from
+// one pass to the next, so codes wider than a byte (in_bits up to 30, the
+// wrappers' limit) are shifted and added in the plain loop's bit order too.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace xbar {
 
-constexpr int kMaxBits = 8;  // DAC codes are kept as bytes
+constexpr int kPlanes = 8;    // bit planes of one pass: one byte of codes
+constexpr int kMaxBits = 30;  // DAC codes of up to four bytes: 2^30 fits
 
 __device__ __forceinline__ float adc(float partial, float fs, float lsb,
                                      float inv_lsb) {
@@ -27,17 +33,19 @@ __device__ __forceinline__ float adc(float partial, float fs, float lsb,
   return __fmul_rn(rintf(__fmul_rn(c, inv_lsb)), lsb);
 }
 
-// The tile's contribution: ADC of each bit's partial, shifted and added in
-// bit order.
-__device__ __forceinline__ float adc_shift_add(const float (&part)[kMaxBits],
+// The tile's running sum after pass `pass`: ADC of each of its bits'
+// partials, shifted by 2^(8 pass + bit) and added in bit order to `tile`
+// (0 before the first pass).
+__device__ __forceinline__ float adc_shift_add(const float (&part)[kPlanes],
                                                int nbits, float fs, float lsb,
-                                               float inv_lsb) {
-  float tile = 0.f;
+                                               float inv_lsb, int pass = 0,
+                                               float tile = 0.f) {
 #pragma unroll
-  for (int bit = 0; bit < kMaxBits; ++bit) {
-    if (bit < nbits) {
+  for (int bit = 0; bit < kPlanes; ++bit) {
+    const int shift = kPlanes * pass + bit;
+    if (shift < nbits) {
       tile = __fadd_rn(tile, __fmul_rn(adc(part[bit], fs, lsb, inv_lsb),
-                                       (float)(1u << bit)));
+                                       (float)(1u << shift)));
     }
   }
   return tile;

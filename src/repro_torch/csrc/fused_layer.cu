@@ -53,11 +53,19 @@
 //     (crossbar_mma.cuh) that the card could do in less time than it takes
 //     to read x. In practice the MMA phase and the gather take the time, one
 //     after the other. The design: the block's conductance digits sit in
-//     shared memory as int8 for its whole life (a persistent grid of row
-//     tiles); each row's group writes both signs' DAC codes as bytes after
-//     one division per element; bit planes are made in registers from the
-//     code bytes and fed to mma.sync m16n8k32 s8 with int32 accumulators,
-//     and two blocks share an SM.
+//     shared memory as int8 (a persistent grid of row tiles); each row's
+//     group writes both signs' DAC codes as bytes after one division per
+//     element; bit planes are made in registers from the code bytes and
+//     fed to mma.sync m16n8k32 s8 with int32 accumulators, and two blocks
+//     share an SM. DAC codes wider than a byte (in_bits > 8) take passes of
+//     8 bit planes, one byte plane of the codes each, and conductance codes
+//     of three or four digits are combined by Horner's rule
+//     (crossbar_mma.cuh). K is staged in chunks, as in crossbar_mvm.cu:
+//     where the digits fit beside a row tile's codes the depth is one chunk
+//     and the digits stay for the block's life; deeper (a depth above
+//     2,304 at 64 columns, one digit and one pass; 1,376 with two digits),
+//     each chunk gathers the column window of z that it holds. There is no
+//     depth limit.
 //
 // Exactness of the quant kernel: the int32 sums are exact, and the partial
 // of each (tile, bit) is converted to f32 exactly while
@@ -441,183 +449,339 @@ __device__ __forceinline__ unsigned dac(float z, float sp, float sn,
       fmaxf(rintf(__fdiv_rn(fabsf(z), z > 0.f ? sp : sn)), 0.f), levels);
 }
 
-// Dynamic shared memory (quant_smem): the block's conductance digits
-// ds[kD][bn][stride], both signs' DAC codes of one row tile
-// codes[2][rows][stride], and the per-sign sums mv[2][rows][bn + 1];
-// stride = kp + 16 bytes (crossbar_mma.cuh), rows = 16 * mt. Persistent: a
-// block keeps its bn columns of digits for its whole life and walks row
-// tiles of mt m16 tiles (mt > 1 where bn is narrow, so that every warp has
-// a unit). A row is gathered by kLanes lanes (16 at F <= 64).
-template <int kD, bool kVec, int kLanes>
-__global__ void __launch_bounds__(kQThreads, 2)
+// The quant layer's epilogue over a row tile: each sign pass's sums
+// mv[sign][row][bn + 1] rescaled by its DAC scale times the conductance
+// scale (cp, cn), then mvm_pos*(sp*ws) - mvm_neg*(sn*ws) + b and the
+// activation, as the composed oracle rounds.
+__device__ __forceinline__ void recombine(const float* mv, int rows, int bn,
+                                          long long row0, int col0,
+                                          long long nd, int h, float cp,
+                                          float cn,
+                                          const float* __restrict__ b,
+                                          float* __restrict__ out, int relu) {
+  const int mstride = bn + 1;
+  for (int e = threadIdx.x; e < rows * bn; e += kQThreads) {
+    const int rr = e / bn, c = e % bn, col = col0 + c;
+    const long long row = row0 + rr;
+    if (row < nd && col < h) {
+      const float acc = __fsub_rn(__fmul_rn(mv[rr * mstride + c], cp),
+                                  __fmul_rn(mv[(rows + rr) * mstride + c],
+                                            cn));
+      const float v = __fadd_rn(acc, b[col]);
+      out[row * h + col] = relu ? fmaxf(v, 0.f) : v;
+    }
+  }
+}
+
+// The quant layer. A block owns bn output columns and walks row tiles of
+// mt m16 tiles (16 * mt rows; mt > 1 where bn is narrow, so that every
+// warp has a unit). Dynamic shared memory (quant_smem): the block's
+// conductance digits ds[ndig][bn][stride], both signs' DAC codes of one row
+// tile, one byte plane per pass, codes[2][ng][rows][stride], and the
+// per-sign sums mv[2][rows][bn + 1]; stride = kc + 16 bytes
+// (crossbar_mma.cuh). K is staged through shared memory in chunks of kc
+// tile-padded depth positions, as in crossbar_mvm.cu:
+//   * one chunk (kc = kp): the digits are staged once for the block's
+//     life, each row tile gathers z once, then each unit (sign, column
+//     group, m16 tile), a warp's at a time, walks the crossbar tiles;
+//   * chunks of whole crossbar tiles (the launcher's kc where a tile fits
+//     one): per chunk, the digits are staged and the column window of z
+//     that it holds is gathered (warp_gather.cuh's window; the slot tables
+//     are read again), then its tiles multiplied; the launcher keeps the
+//     units within the 8 warps, so each warp's running sums stay in
+//     registers from chunk to chunk and no int32 sums are live while a
+//     chunk is staged;
+//   * a tile deeper than a chunk (kCarry only): its int32 sums are carried
+//     across the chunks it meets, which are staged again for each pass.
+// A row is gathered by kLanes lanes (16 at F <= 64). kCarry: the variant
+// of one block an SM (more registers) that carries a tile's sums: its f32
+// sum from pass to pass where in_bits > 8 (ng passes of 8 bit planes) and
+// its int32 sums across chunks where it is deeper than a chunk; the other
+// takes one pass. ndig: the digit count where kD = 3.
+template <int kD, bool kVec, int kLanes, bool kCarry>
+__global__ void __launch_bounds__(kQThreads, kCarry ? 1 : 2)
 fused_quant_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
                    const float* __restrict__ wts,
                    const signed char* __restrict__ digits,
                    const float* __restrict__ b,
                    const float* __restrict__ scales, float* __restrict__ out,
                    long long nd, int s, int f, int h, int r, int rpad, int kp,
-                   int bn, int mt, int nbits, float fs, float lsb,
-                   float inv_lsb, int relu) {
+                   int kc, int bn, int mt, int nbits, int npass, int ndig,
+                   float fs, float lsb, float inv_lsb, int relu) {
   using S = xmma::Shape<kD>;
   using T = typename gather::Unit<kVec>::T;
+  constexpr int kW = gather::Unit<kVec>::kWidth;
   constexpr int kGroups = 32 / kLanes;  // rows a warp gathers at once
+  const int ndg = kD == 3 ? ndig : kD;
+  const int ng = kCarry ? npass : 1;
   const int rows = xmma::kRows * mt;  // rows of a row tile
+  const int stride = kc + 16;
   extern __shared__ int4 smem[];
-  const int stride = kp + 16;
   signed char* ds = reinterpret_cast<signed char*>(smem);
   unsigned char* codes =
-      reinterpret_cast<unsigned char*>(ds + kD * bn * stride);
-  float* mv = reinterpret_cast<float*>(codes + 2 * rows * stride);
+      reinterpret_cast<unsigned char*>(ds + ndg * bn * stride);
+  float* mv = reinterpret_cast<float*>(codes + 2 * ng * rows * stride);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const int col0 = blockIdx.y * bn;
-  const int kp16 = kp / 16;
-  for (int e = tid; e < kD * bn * kp16; e += kQThreads) {
-    const int q = e % kp16, dc = e / kp16, c = dc % bn, d = dc / bn;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (col0 + c < h)
-      v = __ldg(reinterpret_cast<const int4*>(
-                    digits + ((long long)d * h + col0 + c) * kp) + q);
-    *reinterpret_cast<int4*>(ds + dc * stride + 16 * q) = v;
-  }
-  for (int e = tid; e < 2 * rows * stride / 16; e += kQThreads)
-    reinterpret_cast<int4*>(codes)[e] = make_int4(0, 0, 0, 0);  // pads: 0
   const float sp = scales[0], sn = scales[1];
   const float cp = __fmul_rn(sp, scales[2]), cn = __fmul_rn(sn, scales[2]);
-  const float levels = (float)((1 << nbits) - 1);
-  const int ntiles = (f + r - 1) / r;
+  const float levels = (float)((1ull << nbits) - 1);
   const int ncg = bn / S::kCols;
   const int units = 2 * ncg * mt;  // (sign, column group, m16 tile)
   const int mstride = bn + 1;
+  const int nchunks = (kp + kc - 1) / kc;
+  const int ntiles = (kp + rpad - 1) / rpad;
+  const int code_words = 2 * ng * rows * stride / 16;
   const long long row_tiles = (nd + rows - 1) / rows;
+  if (nchunks == 1)
+    xmma::stage_digits(ds, digits, ndg, h, kp, col0, bn, 0, kp, stride, tid,
+                       kQThreads);
+  for (int e = tid; e < code_words; e += kQThreads)
+    reinterpret_cast<int4*>(codes)[e] = make_int4(0, 0, 0, 0);  // pads: 0
   __syncthreads();
+  // the first K column at or after tile-padded depth p
+  auto column = [&](int p) { return p / rpad * r + min(p % rpad, r); };
   for (long long tile = blockIdx.x; tile < row_tiles; tile += gridDim.x) {
     const long long row0 = tile * rows;
-    // 1. z of each row by kLanes lanes, both signs' DAC codes as bytes at
-    //    their tile-padded depth p = (k / r) * rpad + k % r.
-    for (int rw = warp * kGroups; rw < rows; rw += kQWarps * kGroups) {
-      const int rr = rw + lane / kLanes;
-      const long long row = row0 + rr;
-      const bool active = row < nd;
-      unsigned char* cpos = codes + rr * stride;
-      unsigned char* cneg = codes + (rows + rr) * stride;
-      auto emit = [&](int c, const T& z) {
-        if constexpr (kVec) {
-          const int k = 4 * c, p = k / r * rpad + k % r;
-          const float zs[4] = {z.x, z.y, z.z, z.w};
-          unsigned wp = 0, wn = 0;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const unsigned q = dac(zs[i], sp, sn, levels);
-            wp |= (zs[i] > 0.f ? q : 0u) << (8 * i);
-            wn |= (zs[i] < 0.f ? q : 0u) << (8 * i);
-          }
-          *reinterpret_cast<unsigned*>(cpos + p) = wp;
-          *reinterpret_cast<unsigned*>(cneg + p) = wn;
-        } else {
-          const int p = c / r * rpad + c % r;
-          const unsigned q = dac(z, sp, sn, levels);
-          cpos[p] = (unsigned char)(z > 0.f ? q : 0u);
-          cneg[p] = (unsigned char)(z < 0.f ? q : 0u);
-        }
-      };
-      const long long rs = (active ? row : 0) * s;
-      gather::warp_rows<kVec, kLanes, false>(x, nbr + rs, wts + rs, s, f,
-                                             active, emit);
-      if (!active)  // past the last row: codes 0
-        for (int c = lane % kLanes; c < f / gather::Unit<kVec>::kWidth;
-             c += kLanes)
-          emit(c, gather::zero<T>());
-    }
-    __syncthreads();
-    // 2. bit-plane products on the int8 tensor cores; ADC per (tile, bit),
-    //    shift and add in bit order, then the add across tiles, in order.
-    for (int u = warp; u < units; u += kQWarps) {
-      const int sg = u & 1, cg = (u >> 1) % ncg, m0 = (u >> 1) / ncg * 16;
-      float mvm[S::kNt][4] = {};
-      for (int t = 0; t < ntiles; ++t) {
-        const int kt = min(r, f - t * r);
-        int acc[xmma::kMaxBits][S::kAcc][4] = {};
-        xmma::tile_mma<kD>(codes + (sg * rows + m0) * stride,
-                           ds + cg * S::kCols * stride, stride, bn * stride,
-                           t * rpad, (kt + 31) / 32, nbits, acc);
-        xmma::tile_adc<kD>(acc, nbits, fs, lsb, inv_lsb, mvm);
+    // chunk c of the row tile: its digits (where K is chunked) and both
+    // signs' DAC codes of z's columns [k0, k1), byte g of the codes in
+    // plane g, at depth p - p0 with p = (k / r) * rpad + k % r. The first
+    // chunk of a row tile needs no barrier before it: the previous row
+    // tile's reads of codes and digits ended before its epilogue.
+    auto stage = [&](int c, bool after_reads) {
+      const int p0 = c * kc, pn = min(kc, kp - p0);
+      if (after_reads) __syncthreads();
+      if (nchunks > 1) {
+        for (int e = tid; e < code_words; e += kQThreads)
+          reinterpret_cast<int4*>(codes)[e] = make_int4(0, 0, 0, 0);
+        xmma::stage_digits(ds, digits, ndg, h, kp, col0, bn, p0, pn, stride,
+                           tid, kQThreads);
+        __syncthreads();
       }
+      const int u0 = column(p0) / kW, u1 = min(f, column(p0 + pn)) / kW;
+      for (int rw = warp * kGroups; rw < rows; rw += kQWarps * kGroups) {
+        const int rr = rw + lane / kLanes;
+        const long long row = row0 + rr;
+        const bool active = row < nd;
+        unsigned char* cpos = codes + rr * stride;
+        unsigned char* cneg = codes + (ng * rows + rr) * stride;
+        auto emit = [&](int u, const T& z) {
+          if constexpr (kVec) {
+            const int k = 4 * u, p = k / r * rpad + k % r - p0;
+            const float zs[4] = {z.x, z.y, z.z, z.w};
+            unsigned q[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) q[i] = dac(zs[i], sp, sn, levels);
+            for (int g = 0; g < ng; ++g) {
+              unsigned wp = 0, wn = 0;
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const unsigned byte = q[i] >> (8 * g) & 0xffu;
+                wp |= (zs[i] > 0.f ? byte : 0u) << (8 * i);
+                wn |= (zs[i] < 0.f ? byte : 0u) << (8 * i);
+              }
+              *reinterpret_cast<unsigned*>(cpos + g * rows * stride + p) = wp;
+              *reinterpret_cast<unsigned*>(cneg + g * rows * stride + p) = wn;
+            }
+          } else {
+            const int p = u / r * rpad + u % r - p0;
+            const unsigned q = dac(z, sp, sn, levels);
+            for (int g = 0; g < ng; ++g) {
+              const unsigned char byte = (unsigned char)(q >> (8 * g));
+              cpos[g * rows * stride + p] = z > 0.f ? byte : 0;
+              cneg[g * rows * stride + p] = z < 0.f ? byte : 0;
+            }
+          }
+        };
+        const long long rs = (active ? row : 0) * s;
+        gather::warp_rows<kVec, kLanes, false>(x, nbr + rs, wts + rs, s, f,
+                                               u0, u1, active, emit);
+        if (!active)  // past the last row: codes 0
+          for (int u = u0 + lane % kLanes; u < u1; u += kLanes)
+            emit(u, gather::zero<T>());
+      }
+      __syncthreads();
+    };
+    // A unit's passes over tile t, whose depths lie in chunk c, into its
+    // running sums mvm.
+    auto tile_passes = [&](int u, int t, int c, float(&mvm)[S::kNt][4]) {
+      const int sg = u & 1, cg = (u >> 1) % ncg, m0 = (u >> 1) / ncg * 16;
+      const int tb = t * rpad, te = min(tb + rpad, kp);
+      float sum[S::kNt][4] = {};
+      for (int g = 0; g < ng; ++g) {
+        int acc[xmma::kPlanes][S::kAcc][4] = {};
+        const int planes = kCarry ? min(nbits - 8 * g, xmma::kPlanes) : nbits;
+        xmma::tile_mma<kD>(codes + ((sg * ng + g) * rows + m0) * stride,
+                           ds + cg * S::kCols * stride, stride, bn * stride,
+                           tb - c * kc, (te - tb) / 32, planes, ndg, acc);
+        if constexpr (kCarry)
+          xmma::pass_adc<kD>(acc, nbits, g, fs, lsb, inv_lsb, sum);
+        else
+          xmma::tile_adc<kD>(acc, nbits, fs, lsb, inv_lsb, mvm);
+      }
+      if constexpr (kCarry) {
+#pragma unroll
+        for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mvm[nt][e] = __fadd_rn(mvm[nt][e], sum[nt][e]);
+      }
+    };
+    auto store = [&](int u, const float(&mvm)[S::kNt][4]) {
+      const int sg = u & 1, cg = (u >> 1) % ncg, m0 = (u >> 1) / ncg * 16;
       const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-      for (int nt = 0; nt < S::kNt; ++nt) {
+      for (int nt = 0; nt < S::kNt; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          mv[(sg * rows + m0 + g + 8 * (e >> 1)) * mstride +
-             cg * S::kCols + nt * 8 + 2 * tq + (e & 1)] = mvm[nt][e];
+          mv[(sg * rows + m0 + g + 8 * (e >> 1)) * mstride + cg * S::kCols +
+             nt * 8 + 2 * tq + (e & 1)] = mvm[nt][e];
+    };
+    // bit-plane products on the int8 tensor cores over the crossbar tiles
+    // in order; per pass, the tile's products, then the ADC per (tile,
+    // bit), shifted and added in bit order, and the add across tiles, in
+    // order.
+    if (nchunks == 1) {  // the whole depth staged once: a unit at a time
+      stage(0, false);
+      for (int u = warp; u < units; u += kQWarps) {
+        float mvm[S::kNt][4] = {};
+        for (int t = 0; t < ntiles; ++t) tile_passes(u, t, 0, mvm);
+        store(u, mvm);
       }
+    } else if (!kCarry || kc % rpad == 0) {
+      // chunks of whole tiles, in order, each staged and then multiplied
+      // (the launcher keeps the units within the warps)
+      const bool unit = warp < units;
+      float mvm[S::kNt][4] = {};
+      for (int c = 0; c < nchunks; ++c) {
+        stage(c, c > 0);
+        const int t1 = c + 1 < nchunks ? (c + 1) * kc / rpad : ntiles;
+        if (unit)
+          for (int t = c * kc / rpad; t < t1; ++t)
+            tile_passes(warp, t, c, mvm);
+      }
+      if (unit) store(warp, mvm);
+    } else if constexpr (kCarry) {
+      // tiles deeper than a chunk: a tile's int32 sums carried across the
+      // chunks it meets, which are staged again for each pass
+      const bool unit = warp < units;
+      const int sg = warp & 1, cg = (warp >> 1) % ncg;
+      const int m0 = (warp >> 1) / ncg * 16;
+      float mvm[S::kNt][4] = {};
+      int cur = -1;  // the chunk in shared memory
+      for (int t = 0; t < ntiles; ++t) {
+        const int tb = t * rpad, te = min(tb + rpad, kp);
+        float sum[S::kNt][4] = {};
+        for (int g = 0; g < ng; ++g) {
+          int acc[xmma::kPlanes][S::kAcc][4] = {};
+          const int planes = min(nbits - 8 * g, xmma::kPlanes);
+          for (int p = tb; p < te;) {
+            const int c = p / kc;
+            if (c != cur) {
+              stage(c, cur >= 0);
+              cur = c;
+            }
+            const int end = min(te, (c + 1) * kc);
+            if (unit)
+              xmma::tile_mma<kD>(
+                  codes + ((sg * ng + g) * rows + m0) * stride,
+                  ds + cg * S::kCols * stride, stride, bn * stride,
+                  p - c * kc, (end - p) / 32, planes, ndg, acc);
+            p = end;
+          }
+          if (unit) xmma::pass_adc<kD>(acc, nbits, g, fs, lsb, inv_lsb, sum);
+        }
+#pragma unroll
+        for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mvm[nt][e] = __fadd_rn(mvm[nt][e], sum[nt][e]);
+      }
+      if (unit) store(warp, mvm);
     }
     __syncthreads();
-    // 3. rescale each sign pass by its DAC scale times the conductance
-    //    scale, then recombine: mvm_pos*(sp*ws) - mvm_neg*(sn*ws) + b
-    for (int e = tid; e < rows * bn; e += kQThreads) {
-      const int rr = e / bn, c = e % bn, col = col0 + c;
-      const long long row = row0 + rr;
-      if (row < nd && col < h) {
-        const float acc = __fsub_rn(__fmul_rn(mv[rr * mstride + c], cp),
-                                    __fmul_rn(mv[(rows + rr) * mstride + c],
-                                              cn));
-        const float v = __fadd_rn(acc, b[col]);
-        out[row * h + col] = relu ? fmaxf(v, 0.f) : v;
-      }
-    }
+    // rescale and recombine the two sign passes
+    recombine(mv, rows, bn, row0, col0, nd, h, cp, cn, b, out, relu);
   }
 }
 
-size_t quant_smem(int kd, int bn, int mt, int kp) {
-  const size_t stride = (size_t)kp + 16, rows = (size_t)xmma::kRows * mt;
-  return (size_t)kd * bn * stride + 2 * rows * stride +
+size_t quant_smem(int ndig, int ng, int bn, int mt, int kc) {
+  const size_t stride = (size_t)kc + 16, rows = (size_t)xmma::kRows * mt;
+  return (size_t)ndig * bn * stride + 2 * ng * rows * stride +
          sizeof(float) * 2 * rows * (size_t)(bn + 1);
 }
 
-// Picks the block's column count (the widest multiple of the unit's
-// columns, up to 64, whose shared memory fits), the m16 tiles per row tile
-// (enough units for the 8 warps, at most 4) and a persistent grid of as
-// many blocks as fit on the card at once. The digits grow with F: at the
-// card's 227 KiB a block of the narrowest columns and one m16 tile holds a
-// depth kp up to 4,768 (the wrapper's MAX_DEPTH); deeper, it fails here.
-template <int kD, bool kVec, int kLanes>
+struct QuantPlan {
+  int bn, mt, kc;  // columns and m16 tiles of a block, chunk depth
+  bool carry;      // the kCarry variant
+};
+
+// The block's column count (the unit's `cols` times enough groups to cover
+// H, up to 64) and m16 tiles per row tile (enough units for the 8 warps, at
+// most 4). Where the whole depth fits shared memory (kc = kp): with one
+// pass, fewer columns a block until two blocks share an SM (three digits at
+// F = 496). Deeper: at most 4 column groups, so that the units are at most
+// the 8 warps, and the deepest chunk that fits, a multiple of the tile
+// where a tile fits (else the kCarry variant), rather than fewer columns:
+// narrower blocks would gather each row of z once for each column block.
+// kc = 0 where nothing fits.
+QuantPlan quant_plan(int cols, int ndig, int ng, int h, int r, int kp,
+                     int max_smem, int sm_smem) {
+  auto mts = [&](int bn) {
+    return std::max(1, std::min(4, kQWarps / (2 * (bn / cols))));
+  };
+  QuantPlan pl{std::min(kQMaxCols, (h + cols - 1) / cols * cols), 0, kp,
+               ng > 1};
+  pl.mt = mts(pl.bn);
+  if (quant_smem(ndig, ng, pl.bn, pl.mt, kp) <= (size_t)max_smem) {
+    while (!pl.carry && pl.bn > cols &&
+           2 * (quant_smem(ndig, ng, pl.bn, pl.mt, kp) + 1024) >
+               (size_t)sm_smem)
+      pl.bn = std::max(cols, pl.bn / 2 / cols * cols);
+    return pl;
+  }
+  pl.bn = std::min(pl.bn, 4 * cols);
+  pl.mt = mts(pl.bn);
+  const int rows = xmma::kRows * pl.mt, rpad = (r + 31) / 32 * 32;
+  const size_t fixed = sizeof(float) * 2 * rows * (size_t)(pl.bn + 1);
+  const int per_pos = ndig * pl.bn + 2 * ng * rows;  // bytes a depth
+  int kc = ((int)((max_smem - fixed) / per_pos) - 16) / 32 * 32;
+  if (rpad <= kc)
+    kc = kc / rpad * rpad;
+  else
+    pl.carry = true;
+  pl.kc = kc < 32 ? 0 : kc;
+  return pl;
+}
+
+// Launches a persistent grid of as many blocks as fit on the card at once.
+template <int kD, bool kVec, int kLanes, bool kCarry>
 int launch_quant(const float* x, const int* nbr, const float* wts,
-                 const signed char* digits, const float* b,
+                 const signed char* digits, int ndig, const float* b,
                  const float* scales, float* out, long long nd, int s, int f,
                  int h, int r, int kp, int nbits, float fs, float lsb,
-                 float inv_lsb, int relu, cudaStream_t stream) {
-  constexpr int kCols = xmma::Shape<kD>::kCols;
-  auto kernel = fused_quant_kernel<kD, kVec, kLanes>;
-  int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  int bn = std::min(kQMaxCols, (h + kCols - 1) / kCols * kCols);
-  int mt = std::max(1, std::min(4, kQWarps / (2 * (bn / kCols))));
-  while (mt > 1 && quant_smem(kD, bn, mt, kp) > (size_t)max_smem) mt /= 2;
-  while (quant_smem(kD, bn, mt, kp) > (size_t)max_smem && bn > kCols)
-    bn = std::max(kCols, bn / 2 / kCols * kCols);
-  const size_t smem = quant_smem(kD, bn, mt, kp);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(
+                 float inv_lsb, int relu, const QuantPlan& pl, int sms,
+                 cudaStream_t stream) {
+  auto kernel = fused_quant_kernel<kD, kVec, kLanes, kCarry>;
+  const int ng = (nbits + xmma::kPlanes - 1) / xmma::kPlanes;
+  const size_t smem = quant_smem(ndig, ng, pl.bn, pl.mt, pl.kc);
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kQThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int ncol = (h + bn - 1) / bn;
+  const int ncol = (h + pl.bn - 1) / pl.bn;
   const long long row_tiles =
-      (nd + xmma::kRows * mt - 1) / (xmma::kRows * mt);
+      (nd + xmma::kRows * pl.mt - 1) / (xmma::kRows * pl.mt);
   const long long nx = std::min<long long>(
       row_tiles, std::max<long long>(1, (long long)per_sm * sms / ncol));
   kernel<<<dim3((unsigned)nx, (unsigned)ncol), kQThreads, smem, stream>>>(
-      x, nbr, wts, digits, b, scales, out, nd, s, f, h, r, (r + 31) / 32 * 32,
-      kp, bn, mt, nbits, fs, lsb, inv_lsb, relu);
+      x, nbr, wts, digits, b, scales, out, nd, s, f, h, r,
+      (r + 31) / 32 * 32, kp, pl.kc, pl.bn, pl.mt, nbits, ng, ndig, fs, lsb,
+      inv_lsb, relu);
   return (int)cudaGetLastError();
 }
 
@@ -684,27 +848,65 @@ extern "C" int fused_quant_layer_f32(const void* x, const void* nbr,
                                      float full_scale, float lsb,
                                      float inv_lsb, int relu, void* stream) {
   if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1 ||
-      kp % 32 != 0 || (ndigits != 1 && ndigits != 2))
+      kp % 32 != 0 || ndigits < 1 || ndigits > xmma::kMaxDigits)
     return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0, sm_smem = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const bool vec = gather::vector_ok(f, x, x) && rows_per_xbar % 4 == 0;
+  const int ng = (in_bits + xmma::kPlanes - 1) / xmma::kPlanes;
+  const int kd = std::min(ndigits, 3);
+  const QuantPlan pl =
+      quant_plan(kd == 1 ? xmma::Shape<1>::kCols : xmma::Shape<2>::kCols,
+                 ndigits, ng, h, rows_per_xbar, kp, max_smem, sm_smem);
+  if (pl.kc < 32) return (int)cudaErrorInvalidValue;
   const bool half = gather::lanes_for(f, vec) == 16;
   auto run = [&](auto launch) {
     return launch((const float*)x, (const int*)nbr, (const float*)wts,
-                  (const signed char*)digits, (const float*)b,
+                  (const signed char*)digits, ndigits, (const float*)b,
                   (const float*)scales, (float*)out, nd, s, f, h,
                   rows_per_xbar, kp, in_bits, full_scale, lsb, inv_lsb, relu,
-                  (cudaStream_t)stream);
+                  pl, sms, (cudaStream_t)stream);
   };
-  if (ndigits == 1) {
-    if (vec)
-      return half ? run(launch_quant<1, true, 16>)
-                  : run(launch_quant<1, true, 32>);
-    return half ? run(launch_quant<1, false, 16>)
-                : run(launch_quant<1, false, 32>);
+  // the variants: digits (1, 2, or 3 and 4 by Horner's rule) x carry x
+  // float4 or scalar gather x 16 or 32 lanes a row
+  auto lanes = [&](auto l16, auto l32) { return half ? run(l16) : run(l32); };
+  if (!pl.carry) {
+    if (kd == 1)
+      return vec ? lanes(launch_quant<1, true, 16, false>,
+                         launch_quant<1, true, 32, false>)
+                 : lanes(launch_quant<1, false, 16, false>,
+                         launch_quant<1, false, 32, false>);
+    if (kd == 2)
+      return vec ? lanes(launch_quant<2, true, 16, false>,
+                         launch_quant<2, true, 32, false>)
+                 : lanes(launch_quant<2, false, 16, false>,
+                         launch_quant<2, false, 32, false>);
+    return vec ? lanes(launch_quant<3, true, 16, false>,
+                       launch_quant<3, true, 32, false>)
+               : lanes(launch_quant<3, false, 16, false>,
+                       launch_quant<3, false, 32, false>);
   }
-  if (vec)
-    return half ? run(launch_quant<2, true, 16>)
-                : run(launch_quant<2, true, 32>);
-  return half ? run(launch_quant<2, false, 16>)
-              : run(launch_quant<2, false, 32>);
+  if (kd == 1)
+    return vec ? lanes(launch_quant<1, true, 16, true>,
+                       launch_quant<1, true, 32, true>)
+               : lanes(launch_quant<1, false, 16, true>,
+                       launch_quant<1, false, 32, true>);
+  if (kd == 2)
+    return vec ? lanes(launch_quant<2, true, 16, true>,
+                       launch_quant<2, true, 32, true>)
+               : lanes(launch_quant<2, false, 16, true>,
+                       launch_quant<2, false, 32, true>);
+  return vec ? lanes(launch_quant<3, true, 16, true>,
+                     launch_quant<3, true, 32, true>)
+             : lanes(launch_quant<3, false, 16, true>,
+                     launch_quant<3, false, 32, true>);
 }

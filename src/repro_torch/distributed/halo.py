@@ -17,6 +17,14 @@ Both give identical halos. The **semi** setting adds tier 0, the
 spoke->head gather that assembles each region's table from its spokes, and
 runs tier 1 as the decentralized exchange over the region partition.
 
+The capacity-bucketed layout (``core.partition.BucketedPartition``) runs
+one layer step per bucket over ``[K_b, n_cap + h_cap]`` tables; its halo
+rows come from one gather per bucket out of a flat table of every
+bucket's owned rows (``BucketedHaloPlan``). ``overlap="overlap"`` issues
+every bucket's gather of a layer on a side CUDA stream before any bucket's
+step, so the gathers run under the steps; ``"serial"`` interleaves them on
+the current stream. Both give the same values.
+
 The SPMD runtime over several cards (``torch.distributed``) is not ported
 yet.
 """
@@ -27,10 +35,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..core.gnn import layer_step as _layer_step
-from ..core.partition import HierPartition, Partition, halo_exchange_tables
+from ..core.partition import (BucketedPartition, HierPartition, Partition,
+                              halo_exchange_tables)
 
 EXCHANGE_MODES = ("allgather", "alltoall")
+OVERLAP_MODES = ("overlap", "serial")
 
 
 @dataclasses.dataclass
@@ -199,5 +210,192 @@ def make_emulated_semi_forward(cfg, plan: TwoTierPlan,
              * gmask[..., None])                       # tier 0: [R, n_max, F]
         return _emulated_layers(params, x, nbr, wts, cfg, consts, mode,
                                 h_max)
+
+    return forward
+
+
+@dataclasses.dataclass
+class BucketedHaloPlan:
+    """Static exchange plan for the capacity-bucketed layout.
+
+    The exchange is ONE gather per destination bucket out of a *flat*
+    table concatenating every bucket's owned rows (``cluster_offset[c] =
+    bucket base + index_in[c] * n_cap``): ragged per-bucket shapes stay out
+    of the gather indices, and each bucket's fetch is an independent
+    launch that can run under another bucket's layer step. Wire-level
+    billing stays on the dense partition's send/recv tables; this plan
+    only moves values.
+    """
+    flat_src: tuple       # per bucket [K_b, h_cap] int32 into the flat table
+    halo_mask: tuple      # per bucket [K_b, h_cap] float32
+    n_caps: tuple
+    h_caps: tuple
+    flat_rows: int        # total rows of the concatenated owned table
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.flat_src)
+
+
+def build_bucketed_halo_plan(bpart: BucketedPartition) -> BucketedHaloPlan:
+    part = bpart.part
+    src_c, src_s, mask = halo_exchange_tables(part)
+    offset = np.zeros(part.n_clusters, np.int64)
+    base = 0
+    for b, cl in enumerate(bpart.clusters):
+        for j, c in enumerate(cl):
+            offset[c] = base + j * bpart.n_caps[b]
+        base += len(cl) * bpart.n_caps[b]
+    hcount = mask.sum(axis=1)
+    fsrc, fmask = [], []
+    for b, cl in enumerate(bpart.clusters):
+        hc = bpart.h_caps[b]
+        fs = np.zeros((len(cl), hc), np.int32)
+        fm = np.zeros((len(cl), hc), np.float32)
+        for j, c in enumerate(cl):
+            h = int(hcount[c])
+            fs[j, :h] = offset[src_c[c, :h]] + src_s[c, :h]
+            fm[j, :h] = 1.0
+        fsrc.append(fs)
+        fmask.append(fm)
+    return BucketedHaloPlan(tuple(fsrc), tuple(fmask), bpart.n_caps,
+                            bpart.h_caps, base)
+
+
+def _flat_rows(xs) -> torch.Tensor:
+    """Concatenate per-bucket owned tables [K_b, n_cap, F] into the flat
+    [sum(K_b * n_cap), F] table the bucketed halo gathers index."""
+    return torch.cat([x.reshape(-1, x.shape[-1]) for x in xs], dim=0)
+
+
+def _gather_halo(flat, idx, mask) -> torch.Tensor:
+    """One bucket's halo fetch: [.., h_cap, F] rows out of the flat table,
+    padding rows masked to zero."""
+    return flat[idx] * mask[..., None]
+
+
+def _bucket_layer(x, halo, nbr, wts, layer, cfg, act) -> torch.Tensor:
+    """One GNN layer over one bucket [K_b, n_cap(+h_cap), ...]: the layer
+    step once for each cluster of the bucket, so that every DAC scale of
+    the bit-accurate numerics stays per cluster, as on the dense path."""
+    table = torch.cat([x, halo], dim=1)
+    return torch.stack([
+        _layer_step(table[c], nbr[c], wts[c], layer, cfg, act)
+        for c in range(x.shape[0])])
+
+
+def make_emulated_bucketed_forward(cfg, bplan: BucketedHaloPlan,
+                                   mode: str = "alltoall",
+                                   overlap: str = "overlap", device="cuda"):
+    """Decentralized forward over the bucketed ragged layout, on one
+    device.
+
+    feats/nbr/wts: tuples of per-bucket [K_b, n_cap, {F, s_cap}] tensors.
+    Returns a tuple of per-bucket [K_b, n_cap, out_dim] tensors.
+
+    ``mode`` is accepted for symmetry with the dense runtimes: both
+    exchange strategies give identical halo *values*, and the bucketed
+    plan realizes them with the same flat gather — the allgather/alltoall
+    distinction lives in the billing of the dense send/recv tables.
+    ``overlap="overlap"`` issues every bucket's halo gather of a layer on a
+    side CUDA stream, once the flat table is made, before any bucket's
+    layer step; each step waits only on its own bucket's gather (an
+    event). ``"serial"`` interleaves gather -> step per bucket on the
+    current stream. On the CPU both run in order. Same values either way.
+    """
+    if mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(f"unknown overlap mode {overlap!r}; choose from "
+                         f"{OVERLAP_MODES}")
+    dev = resolve_device(device)
+    fidx = tuple(torch.as_tensor(i, dtype=torch.int64, device=dev)
+                 for i in bplan.flat_src)
+    fmask = tuple(torch.as_tensor(m, device=dev) for m in bplan.halo_mask)
+    nb = bplan.n_buckets
+    side = (torch.cuda.Stream(device=dev)
+            if overlap == "overlap" and dev.type == "cuda" else None)
+
+    def gathers_on_side(flat):
+        """Every bucket's halo on the side stream, after ``flat`` is made;
+        returns (halos, events recorded after each gather)."""
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        halos, done = [], []
+        with torch.cuda.stream(side):
+            for b in range(nb):
+                halos.append(_gather_halo(flat, fidx[b], fmask[b]))
+                done.append(torch.cuda.Event())
+                done[-1].record(side)
+        flat.record_stream(side)      # read on the side stream
+        for h in halos:
+            h.record_stream(main)     # made on the side, read on main
+        return halos, done
+
+    @torch.no_grad()
+    def forward(params, feats, nbrs, wtss):
+        xs = list(feats)
+        n_layers = len(params)
+        for i, layer in enumerate(params):
+            act = i < n_layers - 1 or cfg.final_activation
+            flat = _flat_rows(xs)
+            if overlap == "overlap":
+                if side is not None:
+                    halos, done = gathers_on_side(flat)
+                else:
+                    halos = [_gather_halo(flat, fidx[b], fmask[b])
+                             for b in range(nb)]
+                xs_next = []
+                for b in range(nb):
+                    if side is not None:
+                        torch.cuda.current_stream(dev).wait_event(done[b])
+                    xs_next.append(_bucket_layer(xs[b], halos[b], nbrs[b],
+                                                 wtss[b], layer, cfg, act))
+                xs = xs_next
+            else:
+                for b in range(nb):
+                    halo = _gather_halo(flat, fidx[b], fmask[b])
+                    xs[b] = _bucket_layer(xs[b], halo, nbrs[b], wtss[b],
+                                          layer, cfg, act)
+        return tuple(xs)
+
+    return forward
+
+
+def make_emulated_bucketed_semi_forward(cfg, bplan: BucketedHaloPlan,
+                                        hier: HierPartition,
+                                        bpart: BucketedPartition,
+                                        mode: str = "alltoall",
+                                        overlap: str = "overlap",
+                                        device="cuda"):
+    """Two-tier semi forward over the bucketed layout: the tier-0
+    spoke->head gather assembles each bucket's region tables straight from
+    the (dense) spoke tables, then the bucketed tier-1 runtime takes over.
+
+    spoke_feats: [R, P, m_max, F]; nbr/wts: per-bucket tuples.
+    Returns a tuple of per-bucket [K_b, n_cap, out_dim] tensors.
+    """
+    dev = resolve_device(device)
+    t0 = []
+    n_max = hier.region.n_max
+    for b, cl in enumerate(bpart.clusters):
+        ncap = bplan.n_caps[b]
+        w = min(ncap, n_max)
+        gs = np.zeros((len(cl), ncap), np.int64)
+        sl = np.zeros((len(cl), ncap), np.int64)
+        gm = np.zeros((len(cl), ncap), np.float32)
+        gs[:, :w] = hier.gather_spoke[cl, :w]
+        sl[:, :w] = hier.gather_slot[cl, :w]
+        gm[:, :w] = hier.region.local_mask[cl, :w]
+        t0.append(tuple(torch.as_tensor(a, device=dev) for a in
+                        (np.asarray(cl, np.int64), gs, sl, gm)))
+    inner = make_emulated_bucketed_forward(cfg, bplan, mode=mode,
+                                           overlap=overlap, device=dev)
+
+    @torch.no_grad()
+    def forward(params, spoke_feats, nbrs, wtss):
+        feats = tuple(spoke_feats[cids[:, None], gs, sl] * gm[..., None]
+                      for cids, gs, sl, gm in t0)
+        return inner(params, feats, nbrs, wtss)
 
     return forward

@@ -37,13 +37,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # codes under conductance noise are multiples of 1/GRID
-# (devices.variation.NOISE_GRID); GRID·code = DIGIT_BASE·hi + lo
+# (devices.variation.NOISE_GRID); GRID·code is split into int8 digits in
+# base DIGIT_BASE, most significant first
 GRID = 8
-DIGIT_BASE = 32
-# largest |code| whose GRID·code splits into int8 digits: hi in [-128, 127]
-MAX_DIGIT_CODE = 511
+DIGIT_BASE = 128
+DIGIT_BITS = 7
+# the most digits the kernels take: 4 hold |GRID·code| < 2^28, beyond every
+# code whose partials are exact in f32 (``_check_exact_partials``)
+MAX_DIGITS = 4
 # largest |code| that is one int8 digit
 ONE_DIGIT_CODE = 127
+# DAC codes the kernels take, in passes of 8 bit planes: up to 30 bits,
+# where the top level 2^in_bits (2^in_bits - 1 rounds up to it in float32
+# above 24 bits) still fits the int32 codes
+MAX_IN_BITS = 30
 
 
 # ------------------------------------------------------ programming
@@ -55,7 +62,8 @@ class Conductances(NamedTuple):
     wq: [F, H] signed conductance codes, float32 (what the plain version
     multiplies); w_scale: their float32 0-dim scale; digits: on the card,
     the kernels' int8 operand [D, H, Kp] (``digit_tiles`` of
-    ``conductance_digits``), None on the CPU; kp: its depth."""
+    ``conductance_digits``, D = ``digit_count``), None on the CPU; kp: its
+    depth."""
     wq: torch.Tensor
     w_scale: torch.Tensor
     digits: torch.Tensor | None
@@ -74,6 +82,15 @@ def _check_exact_partials(cfg: CrossbarNumerics) -> None:
             f"bit-plane partials are not exact in float32")
 
 
+def check_in_bits(cfg: CrossbarNumerics) -> None:
+    """Raise unless 1 <= in_bits <= MAX_IN_BITS. Above it the plain
+    version's top DAC level, 2^in_bits - 1 rounded in float32, overflows
+    its int32 codes."""
+    if not 1 <= cfg.in_bits <= MAX_IN_BITS:
+        raise ValueError(f"DAC codes of 1 to {MAX_IN_BITS} bits fit the "
+                         f"int32 codes; in_bits={cfg.in_bits}")
+
+
 def tile_depth(f: int, rows_per_xbar: int) -> int:
     """Depth of ``f`` rows with each crossbar tile of ``rows_per_xbar``
     rows starting at a multiple of 32: a multiple of 32."""
@@ -85,27 +102,46 @@ def tile_depth(f: int, rows_per_xbar: int) -> int:
     return (tiles - 1) * (-(-r // 32) * 32) + -(-last // 32) * 32
 
 
-def two_digits(cfg: CrossbarNumerics, noisy: bool) -> bool:
-    """Whether programmed codes take two int8 digits: under conductance
-    noise (multiples of 1/GRID) or beyond +-127. Read from the
-    configuration, not from the codes."""
-    return noisy or cfg.w_levels > ONE_DIGIT_CODE
+def _digits_for(top: float, integer: bool) -> int:
+    """Int8 digits for codes of magnitude <= ``top``: one for integer
+    codes within +-127, else the fewest D >= 2 with |GRID·code| <
+    2^(7 D)."""
+    if integer and top <= ONE_DIGIT_CODE:
+        return 1
+    d = 2
+    while GRID * top >= 1 << (DIGIT_BITS * d):
+        d += 1
+    return d
 
 
-def conductance_digits(wq: torch.Tensor, two: bool) -> torch.Tensor:
+def digit_count(cfg: CrossbarNumerics, noisy: bool) -> int:
+    """How many int8 digits programmed codes take, from the configuration
+    and the noise flag alone (no read of the codes): one for clean codes
+    within +-127; under conductance noise (multiples of 1/GRID) or beyond,
+    two up to w_levels 2,047 (w_bits 12), three up to 262,143 (w_bits 19),
+    else four."""
+    return _digits_for(cfg.w_levels, not noisy)
+
+
+def conductance_digits(wq: torch.Tensor, ndigits: int) -> torch.Tensor:
     """The int8 digits of conductance codes that the kernels' tensor cores
-    multiply, [D, F, H].
+    multiply, [D, F, H], D = ``ndigits``.
 
-    One digit (D = 1, ``two`` false): the code itself, for integer codes
-    with |code| <= 127. Two (D = 2): GRID·code, an integer for codes on the
-    1/GRID grid, split as ``DIGIT_BASE·hi + lo`` with lo in [0, 31] and hi
-    in [-128, 127]. The codes are not read on the host; codes outside these
-    cases give other digits (``program_conductances`` and
-    ``crossbar_matmul_quantized`` make none)."""
-    if not two:
+    One digit: the code itself, for integer codes with |code| <= 127. D >=
+    2: GRID·code, an integer for codes on the 1/GRID grid, in base
+    ``DIGIT_BASE``, most significant first: GRID·code = sum_d
+    128^(D - 1 - d) digit[d], the lower digits in [0, 127] and the top one
+    in [-128, 127], which holds |GRID·code| < 2^(7 D). The codes are not
+    read on the host; codes outside these cases give other digits
+    (``program_conductances`` and ``crossbar_matmul_quantized`` make
+    none)."""
+    if ndigits == 1:
         return wq.to(torch.int8)[None]
     w8 = (wq * float(GRID)).to(torch.int32)
-    return torch.stack([w8 >> 5, w8 & (DIGIT_BASE - 1)]).to(torch.int8)
+    shifts = [DIGIT_BITS * (ndigits - 1 - d) for d in range(ndigits)]
+    return torch.stack([w8 >> shifts[0]] + [(w8 >> sh) & (DIGIT_BASE - 1)
+                                            for sh in shifts[1:]]
+                       ).to(torch.int8)
 
 
 def digit_tiles(digits: torch.Tensor, rows_per_xbar: int):
@@ -134,16 +170,17 @@ def check_noise_grid(w_noise: torch.Tensor) -> None:
                          f"devices.sample_conductance_noise)")
 
 
-def check_codes(wq: torch.Tensor, cfg: CrossbarNumerics) -> bool:
+def check_codes(wq: torch.Tensor, cfg: CrossbarNumerics) -> int:
     """Raise unless every conductance code is a finite multiple of 1/GRID
-    within +-MAX_DIGIT_CODE whose partials stay exact in f32
-    (rows_per_xbar · 8 · max|code| < 2^24, and ``_check_exact_partials``).
-    Returns whether the codes take two int8 digits (any code off the
-    integers or beyond +-127). One read of the codes (a host sync on the
+    whose partials stay exact in f32 (rows_per_xbar · 8 · max|code| <
+    2^24, and ``_check_exact_partials``). Returns how many int8 digits the
+    codes take (``_digits_for`` their largest magnitude; one for integer
+    codes within +-127). One read of the codes (a host sync on the
     card)."""
     _check_exact_partials(cfg)
+    check_in_bits(cfg)
     if not wq.numel():
-        return False
+        return 1
     w8 = wq * float(GRID)
     stats = torch.stack([
         (~(torch.isfinite(w8) & (w8 == torch.round(w8)))).any().float(),
@@ -152,14 +189,11 @@ def check_codes(wq: torch.Tensor, cfg: CrossbarNumerics) -> bool:
     if off_grid:
         raise ValueError(f"conductance codes must be finite multiples of "
                          f"1/{GRID}")
-    if top > MAX_DIGIT_CODE:
-        raise ValueError(f"|code| = {top} > {MAX_DIGIT_CODE}: {GRID}·code "
-                         f"does not split into two int8 digits")
     if cfg.rows_per_xbar * GRID * top >= 1 << 24:
         raise ValueError(f"rows_per_xbar * 8 * max|code| = "
                          f"{cfg.rows_per_xbar * GRID * top} >= 2^24: the "
                          f"bit-plane partials are not exact in float32")
-    return bool(fraction) or top > ONE_DIGIT_CODE
+    return _digits_for(top, not fraction)
 
 
 def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
@@ -168,13 +202,10 @@ def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
     """Program ``w`` [F, H] onto crossbars: symmetric conductance codes
     (``quantize_weights``), plus ``w_noise`` clipped to +-w_levels
     (``apply_conductance_noise``), and on the card the kernels' int8
-    digits. Raises, on every device, for a draw off the 1/GRID grid, for
-    w_levels above ``MAX_DIGIT_CODE`` and where the partials leave f32
-    exactness. Without ``w_noise`` nothing is read back to the host."""
+    digits (``digit_count`` of them). Raises, on every device, for a draw
+    off the 1/GRID grid and where the partials leave f32 exactness. Without
+    ``w_noise`` nothing is read back to the host."""
     _check_exact_partials(cfg)
-    if cfg.w_levels > MAX_DIGIT_CODE:
-        raise ValueError(f"w_levels={cfg.w_levels} > {MAX_DIGIT_CODE}: "
-                         f"{GRID}·code does not split into two int8 digits")
     if w_noise is not None:
         check_noise_grid(w_noise)
     wq, w_scale = quantize_weights(w, cfg)
@@ -182,7 +213,7 @@ def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
     if wq.device.type == "cpu":
         return Conductances(wq, w_scale, None, 0)
     digits, kp = digit_tiles(
-        conductance_digits(wq, two_digits(cfg, w_noise is not None)),
+        conductance_digits(wq, digit_count(cfg, w_noise is not None)),
         cfg.rows_per_xbar)
     return Conductances(wq, w_scale, digits, kp)
 
@@ -226,14 +257,12 @@ def _check_xq(xq: torch.Tensor, wq: torch.Tensor) -> None:
 def _launch(xq: torch.Tensor, digits: torch.Tensor, kp: int, n: int,
             cfg: CrossbarNumerics) -> torch.Tensor:
     """The kernel on int32 codes [M, K] and int8 digits [D, N, kp]."""
-    if not 1 <= cfg.in_bits <= 8:
-        raise ValueError(f"the crossbar kernel keeps DAC codes in 8 bits; "
-                         f"in_bits={cfg.in_bits}")
     m, k = xq.shape
     if not k:                       # an empty sum; nothing to launch
         return torch.zeros((m, n), dtype=torch.float32, device=xq.device)
     if digits.device != xq.device or digits.dtype != torch.int8 \
-            or digits.shape[1:] != (n, kp) or digits.shape[0] not in (1, 2) \
+            or digits.shape[1:] != (n, kp) \
+            or not 1 <= digits.shape[0] <= MAX_DIGITS \
             or not digits.is_contiguous() or digits.data_ptr() % 16 \
             or kp != tile_depth(k, cfg.rows_per_xbar):
         raise ValueError("digits must be the contiguous int8 [D, N, Kp] "
@@ -259,17 +288,18 @@ def crossbar_matmul_quantized(xq: torch.Tensor, wq: torch.Tensor,
     """Bit-serial crossbar matmul on codes.
 
     xq: [M, K] int32 DAC codes (< 2**in_bits); wq: [K, N] float32 signed
-    conductance codes, finite multiples of 1/8 within +-MAX_DIGIT_CODE;
-    contiguous, on one device. Returns the integer-domain [M, N] float32
-    sum (the caller rescales). Raises, on every device, for codes off the
-    1/8 grid or beyond +-MAX_DIGIT_CODE (``check_codes``: one read of the
-    codes, which also picks one int8 digit or two)."""
+    conductance codes, finite multiples of 1/8; contiguous, on one device.
+    Returns the integer-domain [M, N] float32 sum (the caller rescales).
+    Raises, on every device, for codes off the 1/8 grid or whose partials
+    leave f32 exactness and for in_bits above MAX_IN_BITS (``check_codes``:
+    one read of the codes, which also picks the number of int8 digits)."""
     _check_xq(xq, wq)
     _validate_blocks(xq.shape[1], cfg, bm, bn, depth)
-    two = check_codes(wq, cfg)
+    ndigits = check_codes(wq, cfg)
     if xq.device.type == "cpu":
         return crossbar_matmul_quantized_plain(xq, wq, cfg)
-    digits, kp = digit_tiles(conductance_digits(wq, two), cfg.rows_per_xbar)
+    digits, kp = digit_tiles(conductance_digits(wq, ndigits),
+                             cfg.rows_per_xbar)
     return _launch(xq, digits, kp, wq.shape[1], cfg)
 
 
@@ -281,8 +311,10 @@ def crossbar_matmul_programmed(xq: torch.Tensor, codes: Conductances,
     """``crossbar_matmul_quantized`` of ``xq`` against programmed weights
     (``program_conductances`` with the same ``cfg``): on the card the
     kernel multiplies ``codes.digits`` with no read of the codes; on the
-    CPU the plain version multiplies ``codes.wq``."""
+    CPU the plain version multiplies ``codes.wq``. Raises, on every
+    device, for in_bits above MAX_IN_BITS."""
     _check_xq(xq, codes.wq)
+    check_in_bits(cfg)
     if xq.device.type == "cpu":
         return crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
     if codes.digits is None:

@@ -33,11 +33,12 @@ import torch
 from .. import _build
 # the programming helpers live with the crossbar; re-exported for the
 # quant layer's callers
-from ..crossbar_mvm.ops import (DIGIT_BASE, GRID, MAX_DIGIT_CODE,  # noqa: F401
+from ..crossbar_mvm.ops import (DIGIT_BASE, GRID, MAX_DIGITS,  # noqa: F401
                                 Conductances, _check_exact_partials,
-                                check_noise_grid, conductance_digits,
+                                check_in_bits, check_noise_grid,
+                                conductance_digits, digit_count,
                                 digit_tiles, program_conductances,
-                                tile_depth, two_digits)
+                                tile_depth)
 from ..crossbar_mvm.ref import (CrossbarNumerics, _const,
                                 crossbar_matmul_quantized_plain)
 from ..csr_aggregate.ops import check_gather_inputs, stream_ptr
@@ -152,13 +153,6 @@ def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
     return torch.clamp_min(h, 0.0) if relu else h
 
 
-# largest tile-padded depth (``tile_depth``) whose block of the quant
-# kernel fits the card's 227 KiB of shared memory: its narrowest column
-# group of int8 digits and one m16 row tile of both signs' codes. At a
-# rows_per_xbar that is a multiple of 32 that is F <= 4,768.
-MAX_DEPTH = 4768
-
-
 def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
                       weights: torch.Tensor, codes: Conductances,
                       b: torch.Tensor, scales: torch.Tensor,
@@ -177,25 +171,19 @@ def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
     therefore agree bit for bit on the same codes; a layer's output feeds
     the next layer's DAC, where one ulp can move a code and its ADC output
     by a whole step. Raises, on every device, where the partials leave f32
-    exactness and above a tile-padded depth of ``MAX_DEPTH``."""
+    exactness and for in_bits above MAX_IN_BITS (30). Any depth: DAC codes
+    wider than a byte take passes of 8 bit planes, and where the digits do
+    not fit the kernel's shared memory it stages K in chunks."""
     wq = codes.wq
     _check_layer(x, neighbors, weights, wq, b)
     if scales.shape != (3,) or scales.dtype != torch.float32 \
             or scales.device != x.device:
         raise ValueError("scales must be float32 [3] on x's device")
     _check_exact_partials(cfg)
-    depth = tile_depth(wq.shape[0], cfg.rows_per_xbar)
-    if depth > MAX_DEPTH:
-        raise ValueError(
-            f"F={wq.shape[0]} at rows_per_xbar={cfg.rows_per_xbar} has a "
-            f"tile-padded depth of {depth} > {MAX_DEPTH}: a block of the "
-            f"quant kernel keeps its digits in shared memory")
+    check_in_bits(cfg)
     if x.device.type == "cpu":
         return fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
                                        cfg, relu=relu)
-    if not 1 <= cfg.in_bits <= 8:
-        raise ValueError(f"the quant kernel keeps DAC codes in 8 bits; "
-                         f"in_bits={cfg.in_bits}")
     if codes.digits is None or codes.digits.device != x.device:
         raise ValueError("codes were not programmed on x's device")
     nd, s = neighbors.shape

@@ -18,11 +18,18 @@ direct signature compare; all three build the same graph:
   PYTHONPATH=src python -m repro_torch.launch.gnn --dataset recsys \
       --neighbor-mode cam-pallas --setting centralized --scale 0.1
 
+``--buckets auto|N`` serves the capacity-bucketed ragged layout (clusters
+grouped into power-of-two capacity buckets; ``N`` caps the bucket count)
+and prints its padding against the dense layout's:
+
+  PYTHONPATH=src python -m repro_torch.launch.gnn --setting decentralized \
+      --clusters 16 --buckets auto
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
 host. Not ported yet: ``--plan auto``, ``--stream`` (and with it the CAM
 dirty-frontier modes of ``--neighbor-mode``), ``--tech``,
-``--metrics``/``--trace``, ``--tune``, ``--buckets``, ``--mapping`` and
-the cost-model report lines.
+``--metrics``/``--trace``, ``--tune``, ``--mapping`` and the cost-model
+report lines.
 """
 from __future__ import annotations
 
@@ -131,6 +138,10 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", default="alltoall",
                     choices=("allgather", "alltoall"),
                     help="halo-exchange strategy (semi: tier-1)")
+    ap.add_argument("--buckets", default="off", metavar="auto|off|N",
+                    help="capacity-bucketed ragged layout: 'auto' buckets "
+                         "clusters by pow2 capacity, an int caps the bucket "
+                         "count, 'off' keeps dense padding")
     ap.add_argument("--sample", type=int, default=8)
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--requests", type=int, default=64)
@@ -155,11 +166,22 @@ def main(argv=None) -> None:
                          seed=0).gcn_normalize()
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     k = args.clusters or (n_dev if args.setting == "decentralized" else 4)
+    buckets = args.buckets if args.buckets in ("auto", "off") \
+        else int(args.buckets)
     plan = plan_execution(g, args.setting, backend=args.backend,
                           sample=args.sample,
                           n_clusters=None if args.setting == "centralized"
                           else k,
-                          spokes_per_head=args.spokes)
+                          spokes_per_head=args.spokes,
+                          buckets=buckets)
+    if plan.bucketed is not None:
+        ls = plan.layout_stats()
+        print(f"bucketed layout: {plan.bucketed.n_buckets} buckets, "
+              f"caps {plan.bucketed.n_caps}; padding ratio "
+              f"{ls['padding_ratio']:.2f}x vs dense "
+              f"{ls['dense_padding_ratio']:.2f}x, peak device bytes "
+              f"{ls['peak_device_bytes']:,} vs dense "
+              f"{ls['dense_peak_device_bytes']:,}")
     cfg = gnn.GNNConfig(in_dim=g.feature_len, hidden_dims=(args.hidden,),
                         out_dim=16, sample=args.sample)
     srv = GNNServer(plan, cfg, mode=args.mode, device=device)

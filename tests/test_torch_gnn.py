@@ -117,11 +117,18 @@ def test_exchange_modes_give_identical_halos(case):
 
 
 def test_untranslated_plan_options_raise(case):
+    """What is not ported raises, naming its ROADMAP item; the bucketed
+    layout is ported and computes what the dense layout does."""
     _, g = case
-    with pytest.raises(NotImplementedError, match="bucketed"):
-        plan_execution(g, "decentralized", sample=8, buckets="auto")
+    cfg = gnn.GNNConfig(in_dim=8, sample=8)
+    params = gnn.init_params(cfg, seed=0, device="cpu")
+    bucketed = plan_execution(g, "decentralized", sample=8, n_clusters=3,
+                              buckets="auto")
     plan = plan_execution(g, "decentralized", sample=8, n_clusters=3)
-    cfg = gnn.GNNConfig(in_dim=8)
+    assert bucketed.bucketed is not None and plan.bucketed is None
+    np.testing.assert_array_equal(
+        bucketed.scatter(bucketed.make_forward(cfg, device="cpu")(params)),
+        plan.scatter(plan.make_forward(cfg, device="cpu")(params)))
     for call in (lambda: plan.tune_kernels(cfg), plan.predicted_metrics,
                  plan.compile_mapping, plan.measured_traffic):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

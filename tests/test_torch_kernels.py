@@ -88,6 +88,11 @@ LAYER_CASES = [
     (IDEAL, 9, 600, 24, 9, 3, 0),         # F beyond one K chunk of the
     (IDEAL, 7, 1100, 16, 7, 2, 0),        # ideal kernel's gather window
     (IDEAL, 10, 40, 130, 10, 4, 0),       # H beyond one column tile
+    (dict(in_bits=12), 20, 40, 12, 20, 5, 0),   # DAC codes of two bytes
+    (dict(in_bits=16, adc_bits=12, rows_per_xbar=64), 20, 40, 12, 20, 5, 0),
+    (dict(w_bits=12, rows_per_xbar=64), 20, 40, 12, 20, 5, 0),  # 2 digits
+    (dict(w_bits=16, rows_per_xbar=64), 23, 130, 17, 11, 5, 0),  # 3 digits
+    (dict(in_bits=30), 20, 40, 12, 20, 5, 0),   # the widest DAC codes
 ]
 
 
@@ -129,6 +134,26 @@ def test_fused_layer_with_conductance_noise():
     clean = fused_gnn_layer(*_t(x, nbr, wts, w, b),
                             pt_xbar.CrossbarNumerics(**QUANT), relu=True)
     assert not torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("numerics", [
+    dict(w_bits=12, rows_per_xbar=64), dict(w_bits=16, rows_per_xbar=64),
+    dict(in_bits=16, adc_bits=12, rows_per_xbar=64)])
+def test_wide_numerics_with_conductance_noise(numerics):
+    """Conductance noise on 12- and 16-bit codes (two and three int8
+    digits on the card) and on 16-bit DAC codes moves the programmed codes
+    the same way on both sides."""
+    x, nbr, wts, w, b = _case(20, 70, 12, 20, 5, seed=10)
+    cfg = pt_xbar.CrossbarNumerics(**numerics)
+    noise = (np.round(np.random.default_rng(4).normal(size=(70, 12))
+                      * 0.05 * cfg.w_levels * 8) / 8).astype(np.float32)
+    ref = jx_fused_layer(jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(wts),
+                         jnp.asarray(w), jnp.asarray(b),
+                         jx_xbar.CrossbarNumerics(**numerics), relu=True,
+                         bf=32, w_noise=jnp.asarray(noise))
+    got = fused_gnn_layer(*_t(x, nbr, wts, w, b), cfg, relu=True,
+                          w_noise=torch.from_numpy(noise))
+    _close(got, ref)
 
 
 @pytest.mark.parametrize("n,f,nd,s", [(20, 32, 20, 4), (23, 50, 11, 5),
@@ -229,6 +254,35 @@ def test_crossbar_code_pass_matches_reference_kernel(numerics, m, k, n,
     _close(got, ref, rtol=1e-6, atol_rel=1e-6)
 
 
+@pytest.mark.parametrize("numerics,k,wide", [
+    (DEFAULT, 512, 512.0),              # beyond +-511: three digits
+    (QUANT, 256, -600.0),
+    (dict(in_bits=12), 512, None),      # DAC codes of two bytes
+    (dict(in_bits=16, adc_bits=12, rows_per_xbar=64), 256, None),
+    (dict(w_bits=12, rows_per_xbar=64), 256, None),
+    (dict(w_bits=16, rows_per_xbar=64), 256, None),
+    (dict(in_bits=30), 512, None),      # the widest DAC codes
+])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_crossbar_takes_wide_codes_like_the_reference(numerics, k, wide,
+                                                      noisy):
+    """Codes the int8 digits of two could not hold (beyond +-511, w_bits
+    12 and 16) and DAC codes of 12 and 16 bits compute, and agree with the
+    reference's kernel as the 8-bit codes do."""
+    cfg = pt_xbar.CrossbarNumerics(**numerics)
+    rng = np.random.default_rng(k + cfg.w_bits + cfg.in_bits)
+    xq = rng.integers(0, 1 << cfg.in_bits, size=(16, k)).astype(np.int32)
+    wq, _ = _grid_codes(k, 32, cfg.w_bits, noisy, seed=k)
+    wq = wq.numpy()
+    if wide is not None:
+        wq[3, 4] = wide
+    ref = np.asarray(jx_xbar_quantized(
+        jnp.asarray(xq.astype(np.uint32)), jnp.asarray(wq),
+        jx_xbar.CrossbarNumerics(**numerics), bm=16, bn=32, interpret=True))
+    got = pt_xbar.crossbar_matmul_quantized(*_t(xq, wq), cfg)
+    _close(got, ref, rtol=1e-6, atol_rel=1e-6)
+
+
 def test_crossbar_quantized_wrapper_is_its_plain_version_on_cpu():
     """Ragged M, K and N need no padding; the block knobs are validated
     and change nothing."""
@@ -250,14 +304,15 @@ def test_crossbar_quantized_wrapper_is_its_plain_version_on_cpu():
 @pytest.mark.parametrize("bad,numerics,match", [
     (0.3, DEFAULT, "1/8"), (0.0625, DEFAULT, "1/8"),
     (float("nan"), DEFAULT, "1/8"), (float("inf"), QUANT, "1/8"),
-    (512.0, DEFAULT, "512"), (-600.0, QUANT, "600"),
+    (4096.0, DEFAULT, "2\\^24"), (-40000.0, QUANT, "2\\^24"),
     (300.0, dict(rows_per_xbar=8192), "2\\^24"),
 ])
 def test_crossbar_quantized_refuses_codes_the_kernel_cannot_take(
         bad, numerics, match):
-    """Codes off the 1/8 grid, beyond +-511 (no two int8 digits) or whose
-    partials leave f32 exactness are refused on the CPU as on the card, so
-    both devices take the same inputs."""
+    """Codes off the 1/8 grid or whose partials leave f32 exactness
+    (rows_per_xbar * 8 * max|code| >= 2^24) are refused on the CPU as on
+    the card, so both devices take the same inputs; any code within that
+    bound takes enough int8 digits."""
     xq, wq = _noisy_codes(5, 40, 6, seed=2)
     wq[3, 4] = bad
     with pytest.raises(ValueError, match=match):
@@ -280,7 +335,7 @@ def test_crossbar_entry_points_agree_on_ragged_tiles(numerics, noisy):
     nz = torch.from_numpy((np.round(rng.normal(size=(1100, 24)) * 0.05 *
                                     127 * 8) / 8).astype(np.float32))
     codes = pt_xbar.program_conductances(w, cfg, nz if noisy else None)
-    assert xbar_ops.check_codes(codes.wq, cfg) == noisy
+    assert xbar_ops.check_codes(codes.wq, cfg) == (2 if noisy else 1)
     plain = pt_xbar.crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
     assert torch.equal(pt_xbar.crossbar_matmul_quantized(xq, codes.wq, cfg),
                        plain)
@@ -292,8 +347,8 @@ def test_programming_helpers_keep_their_fused_layer_names():
     """The helpers that program weights live with the crossbar and are
     the same objects under their old ``fused_layer.ops`` names."""
     for name in ("Conductances", "program_conductances", "conductance_digits",
-                 "digit_tiles", "tile_depth", "two_digits",
-                 "check_noise_grid", "GRID", "DIGIT_BASE", "MAX_DIGIT_CODE"):
+                 "digit_tiles", "tile_depth", "digit_count", "check_in_bits",
+                 "check_noise_grid", "GRID", "DIGIT_BASE", "MAX_DIGITS"):
         assert getattr(fl_ops, name) is getattr(xbar_ops, name)
 
 
@@ -422,47 +477,60 @@ def _grid_codes(k, n, w_bits, noisy, seed):
 
 
 @pytest.mark.parametrize("noisy", [False, True])
-@pytest.mark.parametrize("w_bits", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("w_bits", list(range(2, 17)))
 def test_conductance_digits_reconstruct_eight_times_the_code(w_bits, noisy):
-    """Clean codes are one int8 digit, the code; codes on the 1/8 grid are
-    two, 8 * code = 32 * hi + lo, hi in [-32, 31] and lo in [0, 31]. The
-    count comes from the configuration and the noise flag alone."""
+    """Clean codes within +-127 are one int8 digit, the code; other codes
+    are D digits of 8 * code in base 128, most significant first, the lower
+    ones in [0, 127] and the top one in [-128, 127]: two up to w_bits 12,
+    three up to 16 (and 19). The count comes from the configuration and
+    the noise flag alone."""
     wq, cfg = _grid_codes(70, 12, w_bits, noisy, seed=w_bits)
-    two = fl_ops.two_digits(cfg, noisy)
-    assert two == noisy
-    digits = fl_ops.conductance_digits(wq, two)
+    nd = fl_ops.digit_count(cfg, noisy)
+    assert nd == (1 if not noisy and w_bits <= 8
+                  else 2 if w_bits <= 12 else 3)
+    digits = fl_ops.conductance_digits(wq, nd)
     assert digits.dtype == torch.int8
+    assert digits.shape == (nd, 70, 12)
     d = digits.to(torch.int32)
     w8 = (wq * 8).to(torch.int32)
-    assert digits.shape == ((2 if two else 1), 70, 12)
-    if two:
-        hi, lo = d
-        assert int(lo.min()) >= 0 and int(lo.max()) <= 31
-        assert int(hi.min()) >= -32 and int(hi.max()) <= 31
-        assert torch.equal(fl_ops.DIGIT_BASE * hi + lo, w8)
-    else:
+    if nd == 1:
         assert torch.equal(8 * d[0], w8)
         assert int(d.abs().max()) <= cfg.w_levels
+        return
+    assert int(d[1:].min()) >= 0 and int(d[1:].max()) <= 127
+    value = torch.zeros_like(w8)
+    for digit in d:
+        value = fl_ops.DIGIT_BASE * value + digit
+    assert torch.equal(value, w8)
+    assert int(d[0].min()) >= -128 and int(d[0].max()) <= 127
 
 
 def test_conductance_digits_refuse_what_the_kernel_cannot_hold():
-    """Noise off the 1/8 grid and w_levels above 511 are refused where the
-    weights are programmed, on every device, so the plain version and the
-    kernel take the same inputs; codes above 127 (w_bits 9, 10) take the
-    two-digit path."""
+    """Noise off the 1/8 grid is refused where the weights are
+    programmed, on every device, so the plain version and the kernel take
+    the same inputs; wide codes are programmed with more digits: above 127
+    (w_bits 9 to 12) two, w_bits 11 as well, w_bits 16 three; only
+    partials that leave f32 exactness are refused."""
     cfg = pt_xbar.CrossbarNumerics()
     w = torch.ones(2, 2)
     for bad in (0.3, 0.0625, float("nan"), float("inf")):
         with pytest.raises(ValueError, match="1/8"):
             fl_ops.program_conductances(w, cfg, torch.tensor([[0.0, bad],
                                                               [0.5, 1.0]]))
-    with pytest.raises(ValueError, match="w_levels"):
-        fl_ops.program_conductances(w, pt_xbar.CrossbarNumerics(w_bits=11))
-    wide = pt_xbar.CrossbarNumerics(w_bits=10)
-    assert fl_ops.two_digits(wide, noisy=False)
-    wq = torch.tensor([[511.0, -511.0], [200.0, 3.0]])
-    hi, lo = fl_ops.conductance_digits(wq, True).to(torch.int32)
-    assert torch.equal(32 * hi + lo, (8 * wq).to(torch.int32))
+    w11 = pt_xbar.CrossbarNumerics(w_bits=11)
+    codes = fl_ops.program_conductances(w, w11)
+    assert torch.equal(codes.wq, torch.full((2, 2), 1023.0))
+    assert fl_ops.digit_count(w11, noisy=False) == 2
+    assert fl_ops.digit_count(pt_xbar.CrossbarNumerics(w_bits=10), False) == 2
+    assert fl_ops.digit_count(pt_xbar.CrossbarNumerics(
+        w_bits=16, rows_per_xbar=64), False) == 3
+    with pytest.raises(ValueError, match="2\\^24"):
+        fl_ops.program_conductances(w, pt_xbar.CrossbarNumerics(w_bits=16))
+    wq = torch.tensor([[1023.0, -1023.0], [200.0, -2047.0]])
+    value = torch.zeros((2, 2), dtype=torch.int32)
+    for digit in fl_ops.conductance_digits(wq, 2).to(torch.int32):
+        value = 128 * value + digit
+    assert torch.equal(value, (8 * wq).to(torch.int32))
 
 
 def test_fused_layer_refuses_noise_off_the_grid_on_every_device():
@@ -509,8 +577,9 @@ def test_digit_tiles_put_each_crossbar_tile_at_a_multiple_of_32(f, r):
 def _int8_tile_partials(codes_t, digits_t, in_bits):
     """The kernel's integer formulation of one crossbar tile: DAC codes
     packed four to a 32-bit word, plane b as (word >> b) & 0x01010101,
-    int32 products against each int8 digit, 32 * hi + lo, times 0.125 on
-    the two-digit path. Returns the f32 partials, [in_bits, M, N]."""
+    int32 products against each int8 digit, combined in base 128 (Horner's
+    rule, most significant digit first), times 0.125 with two or more
+    digits. Returns the f32 partials, [in_bits, M, N]."""
     m, kt = codes_t.shape
     packed = torch.zeros((m, -(-kt // 4) * 4), dtype=torch.uint8)
     packed[:, :kt] = codes_t.to(torch.uint8)
@@ -522,9 +591,20 @@ def _int8_tile_partials(codes_t, digits_t, in_bits):
         if len(acc) == 1:
             out.append(acc[0].to(torch.float32))
         else:
-            val = fl_ops.DIGIT_BASE * acc[0] + acc[1]
+            val = torch.zeros_like(acc[0])
+            for a in acc:
+                val = fl_ops.DIGIT_BASE * val + a
             out.append(val.to(torch.float32) * 0.125)
     return torch.stack(out)
+
+
+# the bit-accurate numerics whose codes the kernels split into passes of 8
+# bit planes (in_bits > 8) or three digits (w_bits > 12)
+IN12 = dict(in_bits=12)
+IN16_64 = dict(in_bits=16, adc_bits=12, rows_per_xbar=64)
+W12_64 = dict(w_bits=12, rows_per_xbar=64)
+W16_64 = dict(w_bits=16, rows_per_xbar=64)
+IN30 = dict(in_bits=30)
 
 
 @pytest.mark.parametrize("numerics", [DEFAULT, QUANT])
@@ -533,12 +613,11 @@ def test_int8_formulation_equals_the_f32_bit_plane_partials(numerics, noisy):
     """Every (tile, bit) partial of the integer formulation equals the f32
     product of the plain version bit for bit, and the ADC'd, shifted and
     tile-summed result equals ``crossbar_matmul_quantized_plain``; so does
-    the standalone crossbar's chunked staging of the same digits, at any
-    chunk depth."""
+    the kernels' chunked staging of the same digits, at any chunk depth."""
     cfg = pt_xbar.CrossbarNumerics(**numerics)
     xq, wq = _noisy_codes(24, 600, 20, seed=5, noisy=noisy)
     xq, wq = _t(xq, wq)
-    digits = fl_ops.conductance_digits(wq, fl_ops.two_digits(cfg, noisy))
+    digits = fl_ops.conductance_digits(wq, fl_ops.digit_count(cfg, noisy))
     assert digits.shape[0] == (2 if noisy else 1)
     r = cfg.rows_per_xbar
     acc = torch.zeros((24, 20), dtype=torch.float32)
@@ -558,41 +637,104 @@ def test_int8_formulation_equals_the_f32_bit_plane_partials(numerics, noisy):
         assert torch.equal(_staged_crossbar(xq, layout, kp, cfg, kc), plain)
 
 
+@pytest.mark.parametrize("numerics", [IN12, IN16_64, W12_64, W16_64, IN30])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_wide_codes_formulation_equals_the_plain_version(numerics, noisy):
+    """DAC codes wider than a byte, in passes of 8 bit planes with the
+    tile's sum carried from pass to pass, and conductance codes of two or
+    three digits, combined per k-step by Horner's rule: the kernels'
+    staging, emulated at several chunk depths (a tile then spans chunks
+    and is staged again for its second pass), equals
+    ``crossbar_matmul_quantized_plain`` bit for bit."""
+    cfg = pt_xbar.CrossbarNumerics(**numerics)
+    rng = np.random.default_rng(11)
+    xq = torch.from_numpy(rng.integers(0, 1 << cfg.in_bits,
+                                       (20, 300)).astype(np.int32))
+    wq, _ = _grid_codes(300, 12, cfg.w_bits, noisy, seed=cfg.w_bits)
+    nd = xbar_ops.check_codes(wq, cfg)
+    assert nd == fl_ops.digit_count(cfg, noisy) or not noisy
+    layout, kp = fl_ops.digit_tiles(fl_ops.conductance_digits(wq, nd),
+                                    cfg.rows_per_xbar)
+    plain = pt_xbar.crossbar_matmul_quantized_plain(xq, wq, cfg)
+    for kc in (32, 96, kp):
+        assert torch.equal(_staged_crossbar(xq, layout, kp, cfg, kc), plain)
+
+
 def _staged_crossbar(xq, layout, kp, cfg, kc):
-    """The standalone crossbar kernel's staging, emulated: DAC codes at the
+    """The bit-accurate kernels' staging, emulated: DAC codes at the
     digits' tile-padded depth p (row (p // rpad) * r + p % rpad of K, or a
-    pad), chunks of ``kc`` depth positions, int32 bit-plane sums carried
-    across chunks, and each tile's ADC, shift and add where it ends."""
+    pad), chunks of ``kc`` depth positions; the crossbar tiles in order,
+    and per pass of 8 bit planes (byte g of the codes) the tile's int32
+    bit-plane sums over the chunks it meets (one digit, two with an
+    accumulator each, or more combined per k-step of 32 by Horner's rule),
+    then the pass's ADC, shift and add into the tile's running sum, which
+    is added to the output where the tile ends."""
     r, m, k = cfg.rows_per_xbar, *xq.shape
     rpad = -(-r // 32) * 32
+    nd = layout.shape[0]
     p = torch.arange(kp)
     tile, off = p // rpad, p % rpad
     live = off < torch.clamp(k - tile * r, max=r)
     codes = torch.where(live, xq[:, torch.clamp(tile * r + off, max=k - 1)],
                         0)
+    digits = layout.to(torch.int32)
     mvm = torch.zeros((m, layout.shape[1]), dtype=torch.float32)
-    acc = torch.zeros((cfg.in_bits, layout.shape[0], m, layout.shape[1]),
-                      dtype=torch.int32)
-    for p0 in range(0, kp, kc):
-        p, stop = p0, min(p0 + kc, kp)
-        while p < stop:
-            tend = min((p // rpad + 1) * rpad, kp)
-            end = min(tend, stop)
-            for b in range(cfg.in_bits):
-                plane = (codes[:, p:end] >> b) & 1
-                for d in range(layout.shape[0]):
-                    acc[b, d] += plane @ layout[d, :, p:end].to(torch.int32).T
-            if end == tend:
-                part = acc[:, 0].float() if layout.shape[0] == 1 else (
-                    (fl_ops.DIGIT_BASE * acc[:, 0] + acc[:, 1]).float()
-                    * 0.125)
-                tile_sum = torch.zeros_like(mvm)
-                for b in range(cfg.in_bits):
-                    tile_sum = tile_sum + _adc(part[b], cfg) * (2.0 ** b)
-                mvm = mvm + tile_sum
-                acc.zero_()
-            p = end
+    for tb in range(0, kp, rpad):
+        te = min(tb + rpad, kp)
+        tile_sum = torch.zeros_like(mvm)
+        for g in range(-(-cfg.in_bits // 8)):
+            acc = torch.zeros((8, min(nd, 2), m, layout.shape[1]),
+                              dtype=torch.int32)
+            q = tb
+            while q < te:               # the chunks the tile meets
+                end = min(te, (q // kc + 1) * kc)
+                for ks in range(q, end, 32):
+                    byte = (codes[:, ks:ks + 32] >> (8 * g)) & 0xff
+                    for b in range(8):
+                        plane = (byte >> b) & 1
+                        prods = [plane @ digits[d, :, ks:ks + 32].T
+                                 for d in range(nd)]
+                        if nd <= 2:
+                            for d in range(nd):
+                                acc[b, d] += prods[d]
+                        else:
+                            c = torch.zeros_like(prods[0])
+                            for prod in prods:
+                                c = fl_ops.DIGIT_BASE * c + prod
+                            acc[b, 0] += c
+                q = end
+            if nd == 1:
+                part = acc[:, 0].float()
+            elif nd == 2:
+                part = (fl_ops.DIGIT_BASE * acc[:, 0] + acc[:, 1]).float() \
+                    * 0.125
+            else:
+                part = acc[:, 0].float() * 0.125
+            for b in range(8):
+                if 8 * g + b < cfg.in_bits:
+                    tile_sum = tile_sum + _adc(part[b], cfg) * (
+                        2.0 ** (8 * g + b))
+        mvm = mvm + tile_sum
     return mvm
+
+
+@pytest.mark.parametrize("in_bits", [0, 31, 32])
+def test_dac_codes_beyond_the_int32_codes_raise(in_bits):
+    """in_bits runs from 1 to MAX_IN_BITS (30) on every device: above it
+    the plain version's top DAC level, 2^in_bits - 1 rounded in float32,
+    overflows its int32 codes."""
+    assert xbar_ops.MAX_IN_BITS == 30
+    cfg = pt_xbar.CrossbarNumerics(in_bits=in_bits)
+    x, nbr, wts, w, b = _t(*_case(12, 32, 8, 12, 4))
+    codes = fl_ops.program_conductances(w, cfg)
+    scales = torch.tensor([0.1, 0.1, 0.01])
+    xq = torch.zeros((4, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32 codes"):
+        fused_quant_layer(x, nbr, wts, codes, b, scales, cfg)
+    with pytest.raises(ValueError, match="int32 codes"):
+        pt_xbar.crossbar_matmul_quantized(xq, codes.wq, cfg)
+    with pytest.raises(ValueError, match="int32 codes"):
+        xbar_ops.crossbar_matmul_programmed(xq, codes, cfg)
 
 
 def test_quant_layer_raises_where_partials_leave_f32_exactness():
@@ -615,27 +757,30 @@ def test_quant_layer_raises_where_partials_leave_f32_exactness():
 
 
 @pytest.mark.parametrize("f,r,depth", [(4768, 512, 4768), (4769, 512, 4800),
-                                       (4700, 50, 6016),
+                                       (4700, 50, 6016), (3703, 48, 4960),
                                        (3703, 512, 3712), (1433, 64, 1440)])
 def test_quant_layer_raises_above_its_shared_memory_depth(f, r, depth):
-    """A block of the quant kernel keeps its digits at the tile-padded
-    depth in shared memory: up to 4,768, F <= 4,768 where rows_per_xbar is
-    a multiple of 32. The wrapper raises above it, on any device."""
+    """The quant layer takes any tile-padded depth: where its digits and a
+    row tile's codes do not fit a block's shared memory, its kernel stages
+    K in chunks. On every device it computes where the reference does, and
+    agrees with it (citeseer's F = 3,703 at rows_per_xbar 48 has a depth
+    of 4,960)."""
     assert fl_ops.tile_depth(f, r) == depth
     cfg = pt_xbar.CrossbarNumerics(rows_per_xbar=r)
     rng = np.random.default_rng(f)
-    x = torch.from_numpy(rng.normal(size=(6, f)).astype(np.float32))
-    nbr = torch.zeros((3, 2), dtype=torch.int32)
-    wts = torch.full((3, 2), 0.5)
-    w = torch.from_numpy(rng.normal(size=(f, 2)).astype(np.float32))
-    b = torch.zeros(2)
+    x = rng.normal(size=(6, f)).astype(np.float32)
+    nbr = np.array([[0, 1], [2, 3], [4, 5]], np.int32)
+    wts = np.full((3, 2), 0.5, np.float32)
+    w = rng.normal(size=(f, 2)).astype(np.float32)
+    b = np.zeros(2, np.float32)
+    ref = jx_fused_layer(jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(wts),
+                         jnp.asarray(w), jnp.asarray(b),
+                         jx_xbar.CrossbarNumerics(rows_per_xbar=r), bf=32)
     codes, scales = fl_ops.quant_operands(
-        fl_ops.fused_zmax_plain(x, nbr, wts), w, cfg)
-    if depth <= fl_ops.MAX_DEPTH:
-        fused_quant_layer(x, nbr, wts, codes, b, scales, cfg)
-    else:
-        with pytest.raises(ValueError, match="depth"):
-            fused_quant_layer(x, nbr, wts, codes, b, scales, cfg)
+        fl_ops.fused_zmax_plain(*_t(x, nbr, wts)), torch.from_numpy(w), cfg)
+    got = fused_quant_layer(*_t(x, nbr, wts), codes, torch.from_numpy(b),
+                            scales, cfg)
+    _close(got, ref)
 
 
 # ---- the ideal kernel's 3xTF32 tensor-core formulation, checked on the CPU

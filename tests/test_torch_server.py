@@ -18,6 +18,7 @@ from repro_torch import devices, neighbors
 from repro_torch.core import gnn
 from repro_torch.core.graph import random_graph
 from repro_torch.core.partition import plan_execution
+from repro_torch.distributed import halo
 from repro_torch.launch.gnn import GNNServer, main
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -125,6 +126,49 @@ def test_served_embeddings_match_reference_server(setting):
                                atol=1e-4 * float(np.abs(ref).max()))
 
 
+@pytest.mark.parametrize("setting", ["centralized", "decentralized", "semi"])
+def test_served_bucketed_embeddings_match_reference_server(setting):
+    """A bucketed plan's server (the forward's tuple of per-bucket outputs
+    scattered at refresh) serves the reference server's embeddings."""
+    import jax
+    from repro.core import gnn as jx_gnn
+    from repro.core.graph import random_graph as jx_random_graph
+    from repro.core.partition import plan_execution as jx_plan_execution
+    from repro.launch.gnn import GNNServer as JxServer
+    kw = dict(sample=4, backend="fused", n_clusters=4, buckets="auto")
+    cfg_jx = jx_gnn.GNNConfig(in_dim=24, hidden_dims=(16,), out_dim=8,
+                              sample=4)
+    params = jx_gnn.init_params(jax.random.key(5), cfg_jx)
+    g_jx = jx_random_graph(60, 300, 24, seed=2).gcn_normalize()
+    ref = JxServer(jx_plan_execution(g_jx, setting, **kw), cfg_jx,
+                   params=params).query(np.arange(60))
+    g = random_graph(60, 300, 24, seed=2).gcn_normalize()
+    cfg = gnn.GNNConfig(in_dim=24, hidden_dims=(16,), out_dim=8, sample=4)
+    plan = plan_execution(g, setting, **kw)
+    assert plan.bucketed is not None
+    srv = GNNServer(plan, cfg, params=gnn.params_from_numpy(
+        params, device="cpu"), device="cpu")
+    got = srv.query(np.arange(60))
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(ref).max()))
+
+
+def test_cli_serves_a_bucketed_skewed_graph_on_cpu(capsys):
+    """``--buckets auto`` serves a bucketed plan and prints its layout line
+    (the reference CLI's), with the padding against the dense layout's."""
+    main(["--device", "cpu", "--scale", "0.002", "--clusters", "12",
+          "--buckets", "auto", "--requests", "3", "--batch", "4",
+          "--hidden", "8"])
+    out = capsys.readouterr().out
+    assert "bucketed layout: " in out and "padding ratio" in out
+    assert "vs dense" in out and "served 12 lookups" in out
+    main(["--device", "cpu", "--scale", "0.002", "--clusters", "12",
+          "--buckets", "2", "--setting", "semi", "--requests", "1",
+          "--batch", "2", "--hidden", "8"])
+    out = capsys.readouterr().out
+    assert "bucketed layout: " in out and "semi/fused" in out
+
+
 def test_cli_serves_on_cpu(capsys):
     main(["--device", "cpu", "--scale", "0.0002", "--clusters", "2",
           "--requests", "3", "--batch", "4", "--hidden", "8"])
@@ -165,7 +209,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("call", [
     "init_params", "params_from_numpy", "server", "make_forward", "cli",
-    "knn_graph", "scenario_graph", "mvm_error_bounds", "accuracy_bounds"])
+    "knn_graph", "scenario_graph", "mvm_error_bounds", "accuracy_bounds",
+    "bucketed_make_forward", "bucketed_cli", "bucketed_halo_forward"])
 def test_entry_points_raise_without_cuda(call, monkeypatch):
     """Asked for the default device on a host without CUDA, an entry point
     raises; it never falls back to the CPU on its own."""
@@ -185,6 +230,15 @@ def test_entry_points_raise_without_cuda(call, monkeypatch):
         "mvm_error_bounds": lambda: devices.mvm_error_bounds(
             "reram", backend="pallas"),
         "accuracy_bounds": lambda: devices.accuracy_bounds("reram"),
+        "bucketed_make_forward": lambda: plan_execution(
+            g, "decentralized", sample=4, n_clusters=3,
+            buckets="auto").make_forward(cfg, overlap="serial"),
+        "bucketed_cli": lambda: main(["--scale", "0.0002",
+                                      "--buckets", "auto"]),
+        "bucketed_halo_forward": lambda: halo.make_emulated_bucketed_forward(
+            cfg, halo.build_bucketed_halo_plan(plan_execution(
+                g, "decentralized", sample=4, n_clusters=3,
+                buckets="auto").bucketed)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()
