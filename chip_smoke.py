@@ -88,6 +88,36 @@ Phases, each printing its lines, each failing the run on any error:
          ``layout_stats``). Each prints its layout, host set-up, the warm
          refresh of each schedule (median of 3, taking turns) and the
          launches of one refresh.
+       * path D, streaming serving through ``StreamingGNNServer``, the
+         launch counters set to 0 before each part: D1, centralized collab
+         1.0 on ``fused``, ideal numerics, policy ``eager``, the
+         ``cam-pallas`` frontier: a cold refresh and 6 ticks of feature
+         churn at 0.001 of the nodes (372 rows a tick), each printing its
+         commit seconds, recompute fraction, ``cam_search`` calls and the
+         split of the commit between ``apply_deltas``, the frontier and
+         the dirty-row steps (from the telemetry's spans); the served
+         embeddings against a fresh ``make_forward`` of the shared plan on
+         ``fused`` and ``jnp`` (rtol 1e-4, atol 1e-4 * max|ref|); one
+         tick's frontier in ``numpy``, ``cam`` and ``cam-pallas`` mode,
+         equal bit for bit; one bit-accurate commit, which must fall back
+         to a full refresh equal bit for bit to a ``GNNServer`` refresh.
+         D2, collab 0.1: decentralized on 8 clusters in both exchange
+         modes, semi 4 x 4 and C1's bucketed plan, on ``fused`` and
+         ``pallas``, policy ``interval`` (2), 4 ticks of feature churn at
+         0.01 with 16 added and 4 removed edges: the embeddings against a
+         centralized ``jnp`` forward of the mutated graph within 1e-4 *
+         max|ref|, the summed incremental traffic at most the full
+         exchange's bytes times the commits. Over path D
+         ``fused_ideal_layer``, ``csr_aggregate``, ``cam_search``,
+         ``fused_zmax`` and ``fused_quant_layer`` must each launch.
+       * the traced refresh: one warm ``GNNServer`` refresh of
+         centralized collab 1.0 on ``fused``, ideal and bit-accurate, with
+         the port's telemetry on (``[trace]`` lines: ``server.refresh``,
+         ``plan.forward`` closed by its device sync, and the rest, the
+         scatter and its copy to the host), then under ``torch.profiler``
+         with the spans mirrored into ``record_function``: the device-busy
+         share of the ``server.refresh`` window (the chrome traces go to
+         ``chiprun_out/``).
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -129,6 +159,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import devices, neighbors  # noqa: E402
+from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.core import dataset_like, gnn, random_graph  # noqa: E402
 from repro_torch.core.partition import plan_execution  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
@@ -144,6 +175,8 @@ from repro_torch.kernels.fused_layer import ops as fl  # noqa: E402
 from repro_torch.launch import gnn as cli  # noqa: E402
 from repro_torch.launch.gnn import GNNServer  # noqa: E402
 from repro_torch.neighbors import knn  # noqa: E402
+from repro_torch.streaming import (StreamingGNNServer,  # noqa: E402
+                                   expand_frontier)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 flop/s on the CUDA
 # cores, int8 op/s on the tensor cores.
@@ -920,6 +953,319 @@ def path_c2(device, totals: dict) -> None:
                 ref_exact=False)
 
 
+# the streaming path: D1 at collab 1.0, D2 at collab 0.1
+D1_TICKS, D1_CHURN = 6, 0.001
+D2_TICKS, D2_CHURN, D2_ADD, D2_REMOVE = 4, 0.01, 16, 4
+PATH_D = ("fused_ideal_layer", "csr_aggregate", "cam_search", "fused_zmax",
+          "fused_quant_layer")
+D_SPANS = ("engine.apply_deltas", "engine.frontier", "engine.dirty_rows")
+
+
+def own_feats(plan):
+    """``plan`` with copies of its feature tables: the streaming engine
+    writes the mutated rows into the plan it serves, in place."""
+    feats = (tuple(f.copy() for f in plan.feats)
+             if isinstance(plan.feats, tuple) else plan.feats.copy())
+    return dataclasses.replace(plan, feats=feats)
+
+
+def churn_rows(rng, g, frac):
+    n = max(int(g.n_nodes * frac), 1)
+    return (rng.choice(g.n_nodes, n, replace=False),
+            rng.normal(size=(n, g.feature_len)).astype(np.float32))
+
+
+def close(got, ref, rtol: float) -> tuple:
+    """(ok, max|err|, tolerance at max|ref|) at atol 1e-4 * max|ref|."""
+    scale = float(np.abs(ref).max()) or 1.0
+    diff = np.abs(got - ref)
+    ok = bool(got.shape == ref.shape and np.isfinite(got).all()
+              and (diff <= 1e-4 * scale + rtol * np.abs(ref)).all())
+    return ok, float(diff.max()), 1e-4 * scale
+
+
+def path_d1(plan_c, cfg, params, device, d_totals: dict) -> None:
+    """The streaming path at full width: centralized collab 1.0 on
+    ``fused``, ideal numerics, policy ``eager``, the ``cam-pallas``
+    frontier; a cold refresh and D1_TICKS ticks of feature churn, then the
+    checks against a fresh forward of the shared plan, the frontier modes
+    against each other, and one bit-accurate commit against a
+    ``GNNServer`` refresh."""
+    g = plan_c.graph
+    nbytes = g.features.nbytes
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        g.features.copy()
+        copies.append(time.perf_counter() - t0)
+    print(f"[pathD] D1 host copy of the feature table ({nbytes / 1e6:.1f} "
+          f"MB, what apply_deltas and the server's live view copy each "
+          f"commit): median of 3 {np.median(copies) * 1e3:.1f} ms",
+          flush=True)
+    plan = own_feats(dataclasses.replace(plan_c, backend="fused"))
+    last = {}
+
+    def stream():
+        t0 = time.perf_counter()
+        srv = StreamingGNNServer(plan, cfg, params=params, policy="eager",
+                                 frontier_mode="cam-pallas", device=device)
+        t_set = time.perf_counter() - t0
+        t_cold = srv.refresh()
+        print(f"[pathD] D1 collab 1.0 centralized fused ideal eager "
+              f"cam-pallas: server set-up {t_set:.2f} s (host), cold full "
+              f"refresh {t_cold * 1e3:.1f} ms", flush=True)
+        rng = np.random.default_rng(17)
+        tel.enable()
+        try:
+            for tick in range(D1_TICKS):
+                nodes, rows = churn_rows(rng, g, D1_CHURN)
+                tel.reset()
+                cam0 = launch_counts()["cam_search"]
+                upd = srv.ingest(nodes=nodes, rows=rows)
+                cams = launch_counts()["cam_search"] - cam0
+                spans = tel.snapshot()["spans"]
+                require(upd is not None and not upd.full,
+                        "D1: an eager tick did not commit incrementally")
+                parts = {k: spans[k]["total_s"] for k in D_SPANS}
+                commit = spans["server.commit"]["total_s"]
+                rest = commit - sum(parts.values())
+                last["dirty"] = upd.frontier.masks[0]
+                print(f"[pathD] D1 tick {tick}: {len(nodes)} rows, commit "
+                      f"{upd.seconds * 1e3:.1f} ms (engine), server.commit "
+                      f"{commit * 1e3:.1f} ms = "
+                      + ", ".join(f"{k.split('.')[1]} {v * 1e3:.1f}"
+                                  for k, v in parts.items())
+                      + f", rest (live-view copy, scatter) "
+                      f"{rest * 1e3:.1f} ms; recompute fraction "
+                      f"{upd.recompute_fraction:.5f}, dirty rows by level "
+                      f"{upd.frontier.counts().tolist()}; cam_search calls "
+                      f"{cams}", flush=True)
+        finally:
+            tel.disable()
+            tel.reset()
+        return srv
+
+    srv = counted("D1 streaming ticks", stream,
+                  {"fused_ideal_layer": None, "cam_search": None}, d_totals)
+    served = srv.embeddings
+    require(served.shape == (g.n_nodes, cfg.out_dim)
+            and np.isfinite(served).all(), "D1: embeddings")
+    require(plan.graph is srv.engine.graph, "D1: the plan does not track "
+            "the live graph")
+    for backend in ("fused", "jnp"):
+        fresh = dataclasses.replace(plan, backend=backend)
+        ref = fresh.scatter(fresh.make_forward(cfg, device=device)(params))
+        ok, err, tol = close(served, ref, 1e-4)
+        print(f"[pathD] D1 served after {D1_TICKS} ticks vs a fresh "
+              f"make_forward of the shared plan on {backend}: max|err| "
+              f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}; equal "
+              f"bit for bit: {np.array_equal(served, ref)}", flush=True)
+        require(ok, f"D1: incremental embeddings differ from {backend}")
+    fd = last["dirty"]
+    nbr, wts = srv.engine._gnbr, srv.engine._gwts
+    fronts = {}
+    for mode in ("numpy", "cam", "cam-pallas"):
+        t0 = time.perf_counter()
+        fronts[mode] = expand_frontier(nbr, wts, fd, np.zeros_like(fd), 2,
+                                       mode=mode, device=device).masks
+        print(f"[pathD] D1 frontier of tick {D1_TICKS - 1} on {mode}: "
+              f"{time.perf_counter() - t0:.3f} s (host clock), counts "
+              f"{fronts[mode].sum(axis=1).tolist()}", flush=True)
+    same = all(np.array_equal(m, fronts["numpy"]) for m in fronts.values())
+    print(f"[pathD] D1 frontier masks of numpy, cam and cam-pallas equal "
+          f"bit for bit: {same}", flush=True)
+    require(same, "D1: the frontier modes differ")
+    del srv
+
+    c = dataclasses.replace(cfg, numerics=CrossbarNumerics(ideal=False))
+
+    def bit_accurate():
+        srv = StreamingGNNServer(plan, c, params=params, policy="eager",
+                                 frontier_mode="cam-pallas", device=device)
+        srv.refresh()
+        nodes, rows = churn_rows(np.random.default_rng(18), g, D1_CHURN)
+        return srv, srv.ingest(nodes=nodes, rows=rows)
+    srv, upd = counted("D1 bit-accurate commit", bit_accurate,
+                       {"fused_zmax": None, "fused_quant_layer": None,
+                        "cam_search": None}, d_totals)
+    ref_srv = GNNServer(plan, c, params=params, device=device)
+    ref_srv.refresh()
+    exact = np.array_equal(srv.embeddings, ref_srv.embeddings)
+    print(f"[pathD] D1 bit-accurate commit: full={upd.full}, "
+          f"{upd.seconds * 1e3:.1f} ms; equal bit for bit to a GNNServer "
+          f"refresh of the same plan: {exact}", flush=True)
+    require(upd.full, "D1: a bit-accurate commit did not fall back to a "
+            "full refresh")
+    require(exact, "D1: the bit-accurate commit differs from GNNServer")
+
+
+def d2_tick(srv, rng):
+    """One D2 tick: feature churn at D2_CHURN, D2_ADD random edges added
+    and D2_REMOVE edges of the live graph removed."""
+    live = srv.engine.graph
+    nodes, rows = churn_rows(rng, live, D2_CHURN)
+    gone = rng.choice(live.n_edges, D2_REMOVE, replace=False)
+    dst = np.searchsorted(live.indptr, gone, side="right") - 1
+    return srv.ingest(nodes=nodes, rows=rows,
+                      add_edges=(rng.integers(0, live.n_nodes, D2_ADD),
+                                 rng.integers(0, live.n_nodes, D2_ADD)),
+                      remove_edges=(dst, live.indices[gone]))
+
+
+def path_d2(plans: dict, g01, cfg, params, device, d_totals: dict) -> None:
+    """The exchange settings at collab 0.1 through ``StreamingGNNServer``
+    on ``fused`` and ``pallas``, ideal numerics, policy ``interval``
+    (every 2 ticks), D2_TICKS ticks of feature churn plus D2_ADD added and
+    D2_REMOVE removed edges (so the plan's structure is rebuilt): the
+    final embeddings against a centralized ``jnp`` forward of the mutated
+    graph, the summed incremental traffic against the full exchange's
+    bytes times the commits."""
+    for (label, mode), base in plans.items():
+        for backend in ("fused", "pallas"):
+            plan = own_feats(dataclasses.replace(base, backend=backend))
+            tag = f"D2 {label} {mode} {backend}"
+            split = []
+
+            def stream():
+                srv = StreamingGNNServer(plan, cfg, params=params, mode=mode,
+                                         policy="interval", interval=2,
+                                         device=device)
+                srv.refresh()
+                rng = np.random.default_rng(23)
+                tel.reset()
+                tel.enable()
+                try:
+                    ups = [d2_tick(srv, rng) for _ in range(D2_TICKS)]
+                    split[:] = [tel.snapshot()["spans"][k]["total_s"]
+                                for k in ("server.commit", *D_SPANS)]
+                finally:
+                    tel.disable()
+                    tel.reset()
+                return srv, [u for u in ups if u is not None]
+            t0 = time.perf_counter()
+            srv, ups = counted(tag, stream, {
+                "fused_ideal_layer" if backend == "fused"
+                else "csr_aggregate": None}, d_totals)
+            secs = time.perf_counter() - t0
+            require(len(ups) == D2_TICKS // 2 and not any(u.full
+                                                          for u in ups),
+                    f"{tag}: not one incremental commit every 2 ticks")
+            g = srv.engine.graph
+            cent = plan_execution(g, "centralized", backend="jnp",
+                                  sample=SAMPLE)
+            ref = cent.scatter(cent.make_forward(cfg, device=device)(params))
+            ok, err, tol = close(srv.embeddings, ref, 0.0)
+            inc = sum(u.traffic.total_bytes() for u in ups)
+            full = plan.measured_traffic(srv.cfg, mode=mode).total_bytes()
+            print(f"[pathD] {tag}: {len(ups)} commits in {secs:.2f} s (host, "
+                  f"set-up included), commit "
+                  + "/".join(f"{u.seconds * 1e3:.1f}" for u in ups)
+                  + " ms (engine; server.commit "
+                  + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in zip(
+                      ("total", "apply_deltas with the structure rebuild",
+                       "frontier", "dirty_rows"), split))
+                  + " ms over both), recompute fraction "
+                  + "/".join(f"{u.recompute_fraction:.4f}" for u in ups)
+                  + f"; vs centralized jnp of the mutated graph ({g.n_edges} "
+                  f"edges) max|err| {err:.3e} (tol {tol:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}; incremental traffic {inc:,} B "
+                  f"<= full {full:,} B x {len(ups)} commits: "
+                  f"{inc <= full * len(ups)}", flush=True)
+            require(ok, f"{tag}: embeddings differ from the centralized "
+                    f"forward")
+            require(inc <= full * len(ups), f"{tag}: incremental traffic "
+                    f"above the full exchange's")
+
+
+def refresh_window(trace_path: str) -> tuple | None:
+    """(window us, kernel us, copy us) of the ``server.refresh`` range in a
+    ``torch.profiler`` chrome trace: the device time of the kernels and
+    memory copies that start inside the range, clipped to it; None where
+    the trace holds no kernel."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    win = [e for e in events if e.get("name") == "server.refresh"
+           and e.get("cat") == "user_annotation"]
+    if not win:
+        return None
+    lo = float(win[0]["ts"])
+    hi = lo + float(win[0]["dur"])
+    busy = {"kernel": 0.0, "gpu_memcpy": 0.0}
+    for e in events:
+        cat = e.get("cat")
+        if cat in busy and lo <= float(e["ts"]) <= hi:
+            busy[cat] += min(float(e["ts"]) + float(e["dur"]), hi) \
+                - float(e["ts"])
+    if not busy["kernel"]:
+        return None
+    return hi - lo, busy["kernel"], busy["gpu_memcpy"]
+
+
+def trace_refresh(plan_c, cfg, params, device) -> None:
+    """One warm ``GNNServer`` refresh of centralized collab 1.0 on
+    ``fused``, ideal and bit-accurate, with the port's telemetry on: the
+    span split (``server.refresh``; ``plan.forward`` closed by its device
+    sync; the rest, ``scatter`` and its copy to the host), then the same
+    refresh under ``torch.profiler`` with the spans mirrored into
+    ``record_function``: the device-busy share of the ``server.refresh``
+    window (kernel time over the window's length)."""
+    from torch.profiler import ProfilerActivity, profile
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    for ideal in (True, False):
+        name = "ideal" if ideal else "bit-accurate"
+        c = dataclasses.replace(cfg, numerics=CrossbarNumerics(ideal=ideal))
+        srv = GNNServer(dataclasses.replace(plan_c, backend="fused"), c,
+                        params=params, device=device)
+        srv.refresh()
+        t_off = srv.refresh()
+        tel.reset()
+        tel.enable()
+        try:
+            t = srv.refresh()
+            spans = tel.snapshot()["spans"]
+        finally:
+            tel.disable()
+        r = spans["server.refresh"]["total_s"]
+        f = spans["plan.forward"]["total_s"]
+        sync = spans["plan.forward.sync"]["total_s"]
+        print(f"[trace] centralized collab 1.0 fused {name} warm refresh "
+              f"{t * 1e3:.3f} ms (telemetry off just before: "
+              f"{t_off * 1e3:.3f} ms): server.refresh {r * 1e3:.3f} ms = "
+              f"plan.forward {f * 1e3:.3f} ms (launches {(f - sync) * 1e3:.3f}"
+              f" ms on the host, then its device sync {sync * 1e3:.3f} ms) "
+              f"+ scatter and copy to the host {(r - f) * 1e3:.3f} ms",
+              flush=True)
+        path = os.path.join(out_dir, f"refresh_trace_{name}.json")
+        window = None
+        for attempt in range(3):
+            tel.reset()
+            tel.enable(profiler_annotations=True)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    srv.refresh()
+            finally:
+                tel.disable()
+            prof.export_chrome_trace(path)
+            window = refresh_window(path)
+            if window is not None:
+                break
+        if window is None:
+            print(f"[trace] {name}: device-busy share not measured (the "
+                  f"profiler's trace held no kernel in the window, 3 tries)",
+                  flush=True)
+            continue
+        span, kern, copy = window
+        print(f"[trace] {name} under torch.profiler: server.refresh window "
+              f"{span / 1e3:.3f} ms, kernels {kern / 1e3:.3f} ms "
+              f"(device-busy share {kern / span:.3f}), device-to-host copy "
+              f"{copy / 1e3:.3f} ms ({copy / span:.3f}); trace "
+              f"chiprun_out/{os.path.basename(path)}", flush=True)
+        del srv
+    tel.reset()
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1272,6 +1618,26 @@ def main() -> None:
     path_b(device, g01, totals)
     path_c1(g01, device, totals)
     path_c2(device, totals)
+
+    # ---- path D: streaming serving, then the traced refresh
+    t0 = time.perf_counter()
+    d_totals = {k: 0 for k in KERNELS}
+    path_d1(plan_c, cfg, params, device, d_totals)
+    plan_b = plan_execution(g01, "decentralized", sample=SAMPLE,
+                            n_clusters=16, partition_method="edge",
+                            buckets="auto")
+    path_d2({("decentralized 8", "allgather"): plan_d,
+             ("decentralized 8", "alltoall"): plan_d,
+             ("semi 4x4", "alltoall"): plan_s,
+             ("C1 bucketed 16", "alltoall"): plan_b},
+            g01, cfg, params, device, d_totals)
+    print(f"[pathD] launches over path D {json.dumps(d_totals)}; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    require(all(d_totals[k] > 0 for k in PATH_D),
+            "a kernel of path D never launched")
+    for k, v in d_totals.items():
+        totals[k] += v
+    trace_refresh(plan_c, cfg, params, device)
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
     require(all(v > 0 for v in totals.values()),

@@ -20,9 +20,12 @@ capacity buckets, each paying its bucket's capacity instead of the largest
 cluster's; ``ExecutionPlan.layout_stats`` prices it against the dense
 layout, and ``rebalance`` moves load off slow clusters.
 
+``ExecutionPlan.measured_traffic`` bills the exchanges' wire bytes
+(``distributed.traffic``), and ``make_forward`` wraps its forward in the
+telemetry's ``plan.forward`` span (``telemetry.instrument_forward``).
+
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): kernel tuning, the cost-model prediction, the crossbar mapping and
-the measured-traffic accounting.
+item): kernel tuning, the cost-model prediction and the crossbar mapping.
 """
 from __future__ import annotations
 
@@ -582,7 +585,19 @@ class ExecutionPlan:
         ``overlap="overlap"`` issues every bucket's halo gather of a layer,
         on a side CUDA stream, before any bucket's layer step; ``"serial"``
         interleaves gather and step on the current stream. Both give the
-        same values."""
+        same values.
+
+        The returned callable carries telemetry instrumentation (a
+        ``plan.forward`` span closed by a device sync, with exact wire-byte
+        accounting from ``measured_traffic``); with telemetry disabled (the
+        default) the wrapper is a single flag check."""
+        from ..telemetry import instrument_forward
+        fwd = self._build_forward(cfg, mode=mode, overlap=overlap,
+                                  device=device)
+        return instrument_forward(self, self.gnn_config(cfg), mode, fwd)
+
+    def _build_forward(self, cfg, mode: str = "alltoall",
+                       overlap: str = "overlap", device="cuda"):
         import torch
 
         from ..distributed import halo
@@ -699,8 +714,13 @@ class ExecutionPlan:
                           "cost-model lines of the CLI")
 
     def measured_traffic(self, cfg=None, mode: str = "alltoall"):
-        raise _not_ported("measured-traffic accounting",
-                          "cost-model lines of the CLI")
+        """Measured wire traffic of this plan's exchanges (bytes per device
+        per layer, counted on the executed send/recv tables). ``cfg`` (a
+        GNNConfig) supplies per-layer feature dims; without it a single
+        input-dim layer is assumed. Returns a
+        ``repro_torch.distributed.traffic.TrafficReport``."""
+        from ..distributed.traffic import measure_execution
+        return measure_execution(self, cfg=cfg, mode=mode)
 
 
 def _parse_buckets(buckets) -> int | None:

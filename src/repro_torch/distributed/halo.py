@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import telemetry as tel
 from .._device import resolve_device
 from ..core.gnn import layer_step as _layer_step
 from ..core.partition import (BucketedPartition, HierPartition, Partition,
@@ -316,7 +317,7 @@ def make_emulated_bucketed_forward(cfg, bplan: BucketedHaloPlan,
     side = (torch.cuda.Stream(device=dev)
             if overlap == "overlap" and dev.type == "cuda" else None)
 
-    def gathers_on_side(flat):
+    def gathers_on_side(flat, tracer, layer):
         """Every bucket's halo on the side stream, after ``flat`` is made;
         returns (halos, events recorded after each gather)."""
         main = torch.cuda.current_stream(dev)
@@ -324,7 +325,8 @@ def make_emulated_bucketed_forward(cfg, bplan: BucketedHaloPlan,
         halos, done = [], []
         with torch.cuda.stream(side):
             for b in range(nb):
-                halos.append(_gather_halo(flat, fidx[b], fmask[b]))
+                with tracer.span("halo.gather", layer=layer, bucket=b):
+                    halos.append(_gather_halo(flat, fidx[b], fmask[b]))
                 done.append(torch.cuda.Event())
                 done[-1].record(side)
         flat.record_stream(side)      # read on the side stream
@@ -334,6 +336,11 @@ def make_emulated_bucketed_forward(cfg, bplan: BucketedHaloPlan,
 
     @torch.no_grad()
     def forward(params, feats, nbrs, wtss):
+        # Spans here time the launches (the loop runs ahead of the device);
+        # telemetry's device_sync closes each layer only when tracing is
+        # enabled, so the overlap schedule is untouched when it is off.
+        # Disabled spans are shared no-op singletons.
+        tracer = tel.get_tracer()
         xs = list(feats)
         n_layers = len(params)
         for i, layer in enumerate(params):
@@ -341,22 +348,30 @@ def make_emulated_bucketed_forward(cfg, bplan: BucketedHaloPlan,
             flat = _flat_rows(xs)
             if overlap == "overlap":
                 if side is not None:
-                    halos, done = gathers_on_side(flat)
+                    halos, done = gathers_on_side(flat, tracer, i)
                 else:
-                    halos = [_gather_halo(flat, fidx[b], fmask[b])
-                             for b in range(nb)]
+                    halos = []
+                    for b in range(nb):
+                        with tracer.span("halo.gather", layer=i, bucket=b):
+                            halos.append(_gather_halo(flat, fidx[b],
+                                                      fmask[b]))
                 xs_next = []
                 for b in range(nb):
                     if side is not None:
                         torch.cuda.current_stream(dev).wait_event(done[b])
-                    xs_next.append(_bucket_layer(xs[b], halos[b], nbrs[b],
-                                                 wtss[b], layer, cfg, act))
+                    with tracer.span("halo.mvm", layer=i, bucket=b):
+                        xs_next.append(_bucket_layer(
+                            xs[b], halos[b], nbrs[b], wtss[b], layer, cfg,
+                            act))
                 xs = xs_next
             else:
                 for b in range(nb):
-                    halo = _gather_halo(flat, fidx[b], fmask[b])
-                    xs[b] = _bucket_layer(xs[b], halo, nbrs[b], wtss[b],
-                                          layer, cfg, act)
+                    with tracer.span("halo.gather", layer=i, bucket=b):
+                        halo = _gather_halo(flat, fidx[b], fmask[b])
+                    with tracer.span("halo.mvm", layer=i, bucket=b):
+                        xs[b] = _bucket_layer(xs[b], halo, nbrs[b], wtss[b],
+                                              layer, cfg, act)
+            tracer.device_sync(xs, name="halo.layer_sync")
         return tuple(xs)
 
     return forward
@@ -394,8 +409,9 @@ def make_emulated_bucketed_semi_forward(cfg, bplan: BucketedHaloPlan,
 
     @torch.no_grad()
     def forward(params, spoke_feats, nbrs, wtss):
-        feats = tuple(spoke_feats[cids[:, None], gs, sl] * gm[..., None]
-                      for cids, gs, sl, gm in t0)
+        with tel.get_tracer().span("halo.tier0_gather", buckets=len(t0)):
+            feats = tuple(spoke_feats[cids[:, None], gs, sl] * gm[..., None]
+                          for cids, gs, sl, gm in t0)
         return inner(params, feats, nbrs, wtss)
 
     return forward

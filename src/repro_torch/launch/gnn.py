@@ -25,11 +25,24 @@ and prints its padding against the dense layout's:
   PYTHONPATH=src python -m repro_torch.launch.gnn --setting decentralized \
       --clusters 16 --buckets auto
 
+Streaming mode (``--stream N``) serves the same plan through
+``repro_torch.streaming.StreamingGNNServer``: N synthetic feature ticks
+(``--churn`` of the nodes each) are ingested under the chosen refresh
+``--policy``, embeddings refresh incrementally over the k-hop dirty
+frontier, and the driver prints the recomputed-node fraction and the
+measured incremental traffic. In stream mode ``--neighbor-mode`` also
+picks the frontier's membership test (``topk``: numpy on the host,
+``cam``/``cam-pallas``: the CAM search's plain version / kernel):
+
+  PYTHONPATH=src python -m repro_torch.launch.gnn --setting decentralized \
+      --stream 16 --churn 0.05 --policy bounded-staleness
+
+``--metrics PATH`` / ``--trace PATH`` turn the port's telemetry on and
+write the metrics registry / the span trees as JSONL on exit.
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-host. Not ported yet: ``--plan auto``, ``--stream`` (and with it the CAM
-dirty-frontier modes of ``--neighbor-mode``), ``--tech``,
-``--metrics``/``--trace``, ``--tune``, ``--mapping`` and the cost-model
-report lines.
+host. Not ported yet: ``--plan auto``, ``--tech``, ``--tune``,
+``--mapping`` and the cost-model report lines.
 """
 from __future__ import annotations
 
@@ -39,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry as tel
 from .._device import resolve_device
 from ..core import dataset_like, gnn
 from ..core.partition import ExecutionPlan, plan_execution
@@ -91,10 +105,11 @@ class GNNServer:
         """Recompute all node embeddings; returns wall-clock seconds (the
         copy of the embeddings to the host ends the device work)."""
         t0 = time.perf_counter()
-        if self._forward is None:
-            self._forward = self.plan.make_forward(
-                self.cfg, mode=self.mode, device=self.device)
-        self.embeddings = self.plan.scatter(self._forward(self.params))
+        with tel.span("server.refresh", setting=self.plan.setting):
+            if self._forward is None:
+                self._forward = self.plan.make_forward(
+                    self.cfg, mode=self.mode, device=self.device)
+            self.embeddings = self.plan.scatter(self._forward(self.params))
         self.refreshes += 1
         self._served_version = self.version
         return time.perf_counter() - t0
@@ -105,15 +120,72 @@ class GNNServer:
         Ids are validated against the served embedding table: out-of-range
         ids raise IndexError naming the bound; any batch shape gathers in
         one fancy index."""
-        if self.stale:
-            self.refresh()
-        ids = np.asarray(node_ids, np.int64)
-        n = len(self.embeddings)
-        if ids.size and (ids.min() < 0 or ids.max() >= n):
-            raise IndexError(
-                f"node ids must be in [0, {n}); batch spans "
-                f"[{ids.min()}, {ids.max()}]")
-        return self.embeddings[ids]
+        with tel.span("server.query"):
+            if self.stale:
+                self.refresh()
+            ids = np.asarray(node_ids, np.int64)
+            n = len(self.embeddings)
+            if ids.size and (ids.min() < 0 or ids.max() >= n):
+                raise IndexError(
+                    f"node ids must be in [0, {n}); batch spans "
+                    f"[{ids.min()}, {ids.max()}]")
+            out = self.embeddings[ids]
+            tel.counter("server.queries").inc(ids.size)
+        return out
+
+
+def stream_main(args, g, plan, cfg, device) -> None:
+    """--stream driver: ingest a synthetic tick stream, serve batched
+    lookups between commits, report incremental refresh statistics."""
+    from ..streaming import StreamingGNNServer
+    frontier = {"topk": "numpy", "cam": "cam",
+                "cam-pallas": "cam-pallas"}[args.neighbor_mode]
+    srv = StreamingGNNServer(plan, cfg, mode=args.mode, policy=args.policy,
+                             frontier_mode=frontier, device=device)
+    t_cold = srv.refresh()
+    print(f"plan: {args.setting}/{args.backend}, {g.n_nodes} nodes, "
+          f"{plan.n_clusters} clusters on {device}; policy {args.policy}; "
+          f"frontier membership via {frontier}; "
+          f"cold full refresh {t_cold * 1e3:.1f} ms")
+    rng = np.random.default_rng(0)
+    served = 0
+    inc_bytes = 0
+    loop_commits = 0
+    t0 = time.perf_counter()
+    for tick in range(args.stream):
+        n_mut = max(int(g.n_nodes * args.churn), 1)
+        nodes = rng.choice(g.n_nodes, n_mut, replace=False)
+        rows = rng.normal(size=(n_mut, g.feature_len)).astype(np.float32)
+        upd = srv.ingest(nodes=nodes, rows=rows)
+        if upd is not None:
+            loop_commits += 1
+            if upd.traffic is not None:
+                inc_bytes += upd.traffic.total_bytes()
+        served += len(srv.query(rng.integers(0, g.n_nodes, args.batch)))
+    dt = time.perf_counter() - t0
+    # the cold-start commit is a full refresh by construction — keep it out
+    # of the incremental statistics it would otherwise bias
+    fracs = [u.recompute_fraction for u in srv.updates if not u.full]
+    print(f"{args.stream} ticks, {srv.commits} commits "
+          f"({srv.full_refreshes} full), mean incremental recompute "
+          f"fraction {float(np.mean(fracs)) if fracs else 1.0:.3f}")
+    if plan.setting != "centralized" and loop_commits:
+        full = plan.measured_traffic(srv.cfg, mode=args.mode).total_bytes()
+        print(f"measured incremental traffic {inc_bytes / 1e6:.3f} MB "
+              f"(full-refresh equivalent "
+              f"{full * loop_commits / 1e6:.3f} MB)")
+    print(f"served {served} lookups alongside the stream in "
+          f"{dt * 1e3:.1f} ms")
+
+
+def _dump_telemetry(args) -> None:
+    """--metrics / --trace exit dumps (telemetry enabled in main)."""
+    if args.metrics:
+        n = tel.export_metrics(args.metrics)
+        print(f"telemetry: wrote {n} metric/event lines to {args.metrics}")
+    if args.trace:
+        n = tel.export_trace(args.trace)
+        print(f"telemetry: wrote {n} span trees to {args.trace}")
 
 
 def main(argv=None) -> None:
@@ -128,8 +200,10 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=float, default=0.001)
     ap.add_argument("--neighbor-mode", default="topk", dest="neighbor_mode",
                     choices=("topk", "cam", "cam-pallas"),
-                    help="scenario k-NN construction: direct compare, CAM "
-                         "plain version, or the CAM kernel (same graph)")
+                    help="scenario k-NN construction and, in stream mode, "
+                         "the dirty-frontier membership test: direct "
+                         "compare / numpy, the CAM plain version, or the "
+                         "CAM kernel (same results)")
     ap.add_argument("--clusters", type=int, default=0,
                     help="default: one per CUDA device (decentralized) / "
                          "4 heads (semi)")
@@ -146,10 +220,27 @@ def main(argv=None) -> None:
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--stream", type=int, default=0, metavar="TICKS",
+                    help="serve a TICKS-long synthetic feature stream "
+                         "through StreamingGNNServer (incremental refresh)")
+    ap.add_argument("--churn", type=float, default=0.05,
+                    help="stream mode: fraction of nodes mutated per tick")
+    ap.add_argument("--policy", default="eager",
+                    choices=("eager", "interval", "bounded-staleness"),
+                    help="stream mode: refresh policy")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="enable telemetry; dump the metrics registry "
+                         "(counters/gauges/histograms + audit events) as "
+                         "JSONL to PATH on exit")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable telemetry; export the recorded span trees "
+                         "as JSONL to PATH on exit")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.metrics or args.trace:
+        tel.enable()
 
     if args.dataset in SCENARIOS:
         g = scenario_graph(
@@ -184,12 +275,18 @@ def main(argv=None) -> None:
               f"{ls['dense_peak_device_bytes']:,}")
     cfg = gnn.GNNConfig(in_dim=g.feature_len, hidden_dims=(args.hidden,),
                         out_dim=16, sample=args.sample)
+    if args.stream:
+        stream_main(args, g, plan, cfg, device)
+        return _dump_telemetry(args)
     srv = GNNServer(plan, cfg, mode=args.mode, device=device)
 
     dt = srv.refresh()
     print(f"plan: {args.setting}/{args.backend}, {g.n_nodes} nodes, "
           f"{plan.n_clusters} clusters on {device}; "
           f"embedding refresh {dt * 1e3:.1f} ms")
+    if args.setting != "centralized":
+        print("measured traffic —",
+              plan.measured_traffic(cfg, mode=args.mode).summary())
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     served = 0
@@ -200,6 +297,7 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     print(f"served {served} lookups in {dt * 1e3:.1f} ms "
           f"({served / dt:.0f} lookups/s)")
+    _dump_telemetry(args)
 
 
 if __name__ == "__main__":

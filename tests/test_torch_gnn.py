@@ -118,7 +118,8 @@ def test_exchange_modes_give_identical_halos(case):
 
 def test_untranslated_plan_options_raise(case):
     """What is not ported raises, naming its ROADMAP item; the bucketed
-    layout is ported and computes what the dense layout does."""
+    layout is ported and computes what the dense layout does (and
+    ``measured_traffic`` is ported: see the next test)."""
     _, g = case
     cfg = gnn.GNNConfig(in_dim=8, sample=8)
     params = gnn.init_params(cfg, seed=0, device="cpu")
@@ -130,9 +131,31 @@ def test_untranslated_plan_options_raise(case):
         bucketed.scatter(bucketed.make_forward(cfg, device="cpu")(params)),
         plan.scatter(plan.make_forward(cfg, device="cpu")(params)))
     for call in (lambda: plan.tune_kernels(cfg), plan.predicted_metrics,
-                 plan.compile_mapping, plan.measured_traffic):
+                 plan.compile_mapping):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+@pytest.mark.parametrize("mode", ["allgather", "alltoall"])
+def test_measured_traffic_equals_reference(case, mode):
+    """``measured_traffic`` is ported: on the plan of the case above it
+    equals the reference's report field for field."""
+    g_jx, g = case
+    cfg = gnn.GNNConfig(in_dim=8, hidden_dims=(16,), out_dim=4, sample=8)
+    cfg_jx = jx_gnn.GNNConfig(in_dim=8, hidden_dims=(16,), out_dim=4,
+                              sample=8)
+    plan = plan_execution(g, "decentralized", sample=8, n_clusters=3)
+    plan_jx = jx_plan_execution(g_jx, "decentralized", sample=8,
+                                n_clusters=3)
+    got = plan.measured_traffic(cfg, mode=mode)
+    ref = plan_jx.measured_traffic(cfg_jx, mode=mode)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+    assert got.total_bytes() == ref.total_bytes() > 0
 
 
 def test_init_params_is_seeded_and_glorot_scaled():
