@@ -118,6 +118,28 @@ Phases, each printing its lines, each failing the run on any error:
          with the spans mirrored into ``record_function``: the device-busy
          share of the ``server.refresh`` window (the chrome traces go to
          ``chiprun_out/``).
+       * path E, the kernels' launch choices, tuning and calibration:
+         E1 runs every tuning candidate (``tuning.candidates``) of every
+         kernel at collab 1.0's layer 1 and layer 2, at the largest
+         bucket of C1's bucketed plan, at the repaired deep shapes (F
+         3,703 at 48 and 64 rows, 8- and 16-bit DAC codes, clean and
+         noisy, and 13-bit conductance codes: the quant layer and the
+         crossbar, whose carried sums a chunk depth must keep) and at the
+         CAM's k-NN and frontier launches, each equal to the default
+         launch with ``torch.equal``, and prints its CUDA-event ms; E2
+         runs ``ExecutionPlan.tune_kernels`` on centralized collab 1.0
+         (``fused`` ideal and bit-accurate, ``pallas``) and C1's bucketed
+         plan on ``fused`` into a temporary ``TuneCache``: each winner no
+         slower than the default, a second tune answered from the cache
+         with no measurement and no launch, a tuned ``GNNServer`` refresh
+         equal to the untuned one bit for bit; E3 calibrates the cost
+         model's per-pass primitives on the card (``devices.calibrate``),
+         loads them back strictly under the card's platform tag and prices
+         the plan with them; E4 runs ``python -m repro_torch.launch.gnn
+         --setting centralized --dataset collab --scale 0.1 --tune
+         --tune-cache <tmp> --mapping --tech reram`` and holds its
+         cost-model and mapper lines equal to the same plan's in this
+         process. E2 and E3 must launch every kernel.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -144,11 +166,15 @@ without the repository around it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -177,6 +203,14 @@ from repro_torch.launch.gnn import GNNServer  # noqa: E402
 from repro_torch.neighbors import knn  # noqa: E402
 from repro_torch.streaming import (StreamingGNNServer,  # noqa: E402
                                    expand_frontier)
+from repro_torch import tuning  # noqa: E402
+from repro_torch.tuning import (AggregateGeometry, CamGeometry,  # noqa: E402
+                                CrossbarGeometry, FusedGeometry, TuneCache,
+                                candidates, default_config, plan_geometries,
+                                registry)
+from repro_torch.analysis.roofline import H100  # noqa: E402
+from repro_torch.tuning.autotune import plan_tables  # noqa: E402
+from repro_torch.tuning.measure import measurer, time_callable  # noqa: E402
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 flop/s on the CUDA
 # cores, int8 op/s on the tensor cores.
@@ -1266,6 +1300,287 @@ def trace_refresh(plan_c, cfg, params, device) -> None:
     tel.reset()
 
 
+# ------------------------------------------------------------------ path E
+
+
+def event_ms(fn) -> float:
+    """The tuner's protocol: min CUDA-event ms of 3 calls after one."""
+    return 1e3 * time_callable(fn, iters=3, warmup=1)
+
+
+def candidate_sweep(label: str, geom, run, card: str) -> int:
+    """E1: every candidate of ``geom``, run by ``run(config)``, equal to
+    the default launch (candidate #0) with ``torch.equal``; prints each
+    candidate's CUDA-event ms."""
+    cands = candidates(geom)
+    ref = run(cands[0])
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    times = []
+    for c in cands:
+        out = run(c)
+        out = out if isinstance(out, tuple) else (out,)
+        require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                f"E1 {label}: candidate {c} differs from the default launch")
+        times.append(f"{tuple(c.as_dict().values())} "
+                     f"{event_ms(lambda: run(c)):.4f}")
+    print(f"[pathE] E1 {label}: {len(cands)} candidates equal to the "
+          f"default launch bit for bit; ms (candidate #0 first): "
+          f"{'; '.join(times)} ({card})", flush=True)
+    return len(cands)
+
+
+def layer_sweeps(tag, x, nbr, wts, w, b, card, numerics=None,
+                 noise=None) -> int:
+    """E1 at one layer's shape: the ideal layer, the quant layer (its launch
+    alone, on the numerics' programmed codes), the aggregation and the
+    crossbar (on the DAC codes of Z); ``numerics`` set: only the two
+    bit-accurate kernels."""
+    nd, s = nbr.shape
+    n, f = x.shape
+    h = w.shape[1]
+    swept = 0
+    if numerics is None:
+        swept += candidate_sweep(
+            f"{tag} fused_ideal_layer", FusedGeometry(nd, n, f, h, s, True),
+            lambda c: fl.fused_ideal_layer(x, nbr, wts, w, b, relu=True,
+                                           config=c), card)
+        swept += candidate_sweep(
+            f"{tag} csr_aggregate", AggregateGeometry(nd, n, f, s),
+            lambda c: csr_aggregate(x, nbr, wts, config=c), card)
+    cfg = CrossbarNumerics(**(numerics or {}))
+    zmax = fl.fused_zmax(x, nbr, wts)
+    codes, scales = fl.quant_operands(zmax, w, cfg, noise)
+    swept += candidate_sweep(
+        f"{tag} fused_quant_layer",
+        FusedGeometry(nd, n, f, h, s, False, cfg.rows_per_xbar),
+        lambda c: fl.fused_quant_layer(x, nbr, wts, codes, b, scales, cfg,
+                                       relu=True, config=c), card)
+    xq, _ = xb.quantize_inputs(torch.clamp_min(
+        csr_aggregate_ref(x, nbr, wts), 0.0), cfg)
+    swept += candidate_sweep(
+        f"{tag} crossbar_matmul_quantized",
+        CrossbarGeometry(nd, f, h, cfg.rows_per_xbar, cfg.in_bits),
+        lambda c: xb.crossbar_matmul_programmed(xq, codes, cfg, config=c),
+        card)
+    return swept
+
+
+def path_e1(x1, x2, nbr, wts, params, plan_b, device, card) -> None:
+    """E1: every tuning candidate of every kernel equals the default launch
+    at collab 1.0's layers 1 and 2, at C1's largest bucket, at the repaired
+    deep shapes (F 3,703 at 48 and 64 rows, 8- and 16-bit DAC codes, clean
+    and ReRAM-noisy; 13-bit conductance codes) and at the CAM's k-NN and
+    frontier launches."""
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(device)
+    for name, want in (("shared_memory_per_block_optin", H100.smem_bytes),
+                       ("shared_memory_per_multiprocessor",
+                        H100.sm_smem_bytes)):
+        got = getattr(props, name, None)
+        require(got in (None, want), f"E1: the card's {name} is {got}, "
+                f"the launch plans assume {want}")
+        print(f"[pathE] E1 the launch plans' {name} {want}, the card's "
+              f"{'not reported' if got is None else got}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(17)
+    swept = 0
+    for tag, x, layer in (("layer1 496->64", x1, params[0]),
+                          ("layer2 64->16", x2, params[1])):
+        swept += layer_sweeps(tag, x, nbr, wts, layer["w"], layer["b"], card)
+    bp = plan_b.bucketed
+    big = max(range(bp.n_buckets), key=lambda i: bp.n_caps[i])
+    nd, n, s = bp.n_caps[big], bp.n_caps[big] + bp.h_caps[big], \
+        bp.s_caps[big]
+    for f, layer in ((x1.shape[1], params[0]), (x2.shape[1], params[1])):
+        xb_ = torch.randn((n, f), generator=gen, device=device)
+        nb = torch.randint(0, n, (nd, s), generator=gen, device=device,
+                           dtype=torch.int32)
+        wb = torch.rand((nd, s), generator=gen, device=device)
+        wb[:, s // 2:] = 0.0                   # padding slots
+        swept += layer_sweeps(f"C1 bucket {nd}x{s} of {n} rows F={f}", xb_,
+                              nb, wb, layer["w"], layer["b"], card)
+    deep = deep_inputs(device, 11)
+    nbr_w = torch.remainder(nbr[:3000], 4000)
+    wts_w = wts[:3000].contiguous()
+    x, w, b = deep[3703]
+    for numerics in (dict(rows_per_xbar=48), dict(rows_per_xbar=64),
+                     dict(in_bits=16, rows_per_xbar=48),
+                     dict(in_bits=16, rows_per_xbar=64),
+                     dict(in_bits=16, w_bits=13, rows_per_xbar=64)):
+        cfg = CrossbarNumerics(**numerics)
+        for noisy in (False, True):
+            nz = torch.from_numpy(devices.sample_conductance_noise(
+                3, tuple(w.shape), "reram", cfg)).to(device) \
+                if noisy else None
+            swept += layer_sweeps(
+                f"3000 rows 3703->64 {numerics_tag(numerics)} "
+                f"noisy={noisy}", x, nbr_w, wts_w, w, b, card,
+                numerics=numerics, noise=nz)
+    entries, queries = cam_inputs(device)
+    swept += candidate_sweep(
+        f"cam_search k-NN Q={queries.shape[0]} E={entries.shape[0]}",
+        CamGeometry(entries.shape[0], queries.shape[0]),
+        lambda c: cam_search(entries, queries, config=c), card)
+    ci = torch.randint(0, 400, (525,), generator=gen, device=device,
+                       dtype=torch.int32)
+    qs = torch.randint(-1, 400, (45_100,), generator=gen, device=device,
+                       dtype=torch.int32)
+    swept += candidate_sweep("cam_search frontier Q=45100 E=525",
+                             CamGeometry(525, 45_100),
+                             lambda c: cam_search(ci, qs, config=c), card)
+    print(f"[pathE] E1: {swept} candidate launches, all equal to their "
+          f"default launch; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _refuse_measure(geom, config):
+    raise RuntimeError(f"E2: a cached geometry was measured again: {geom}")
+
+
+def confirm_winner(label, geom, winner, tables, device, card) -> None:
+    """E2: a winner that took the default's place, timed again beside the
+    default on the same tables in turns (default, winner, winner,
+    default), is no slower than the default within this run's spread: its
+    fastest timing is at most the default's slowest."""
+    default = default_config(geom)
+    fn = measurer(seed=1, iters=3, warmup=1, device=device, tables=tables)
+    t = {default: [], winner: []}
+    for c in (default, winner, winner, default):
+        t[c].append(1e3 * fn(geom, c))
+    require(min(t[winner]) <= max(t[default]),
+            f"E2 {label}: winner {winner} slower than the default "
+            f"({t[winner]} against {t[default]} ms)")
+    print(f"[pathE] E2 {label} {geom.key()[1:]}: retimed in turns, default "
+          f"{' / '.join(f'{v:.4f}' for v in t[default])} ms, winner "
+          f"{' / '.join(f'{v:.4f}' for v in t[winner])} ms ({card})",
+          flush=True)
+
+
+def path_e2(plan_c, plan_b, cfg, params, device, card) -> None:
+    """E2: ``tune_kernels`` on the card for centralized collab 1.0 on
+    ``fused`` (ideal and bit-accurate) and ``pallas``, and C1's bucketed
+    plan on ``fused``, into one ``TuneCache`` in a temporary file, each
+    geometry timed on the plan's own tables; each winner that took the
+    default's place retimed beside it in turns and no slower within the
+    run's spread; a second ``tune_kernels`` answered from the cache with no
+    measurement and no launch; a ``GNNServer`` refresh with the tuned plan
+    equal to the untuned refresh bit for bit."""
+    t0 = time.perf_counter()
+    platform = tuning.current_platform(device)
+    quant = dataclasses.replace(cfg, numerics=CrossbarNumerics())
+    cases = (("centralized collab 1.0 fused ideal", plan_c, "fused", cfg),
+             ("centralized collab 1.0 fused bit-accurate", plan_c, "fused",
+              quant),
+             ("centralized collab 1.0 pallas ideal", plan_c, "pallas", cfg),
+             ("C1 bucketed 16 fused ideal", plan_b, "fused", cfg))
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = TuneCache(os.path.join(tmp, "tuned_configs_torch.json"))
+        for label, base, backend, c in cases:
+            plan = dataclasses.replace(base, backend=backend, tuned=None,
+                                       mapping=None)
+            registry.clear()
+            untuned = GNNServer(plan, c, params=params, device=device)
+            untuned.refresh()
+            t1 = time.perf_counter()
+            tuned = plan.tune_kernels(c, cache=cache, device=device,
+                                      iters=3, warmup=1)
+            t_tune = time.perf_counter() - t1
+            geoms = plan_geometries(plan, plan.gnn_config(c))
+            require(len(tuned) == len({g.key() for g in geoms}) > 0,
+                    f"E2 {label}: {len(tuned)} tuned geometries")
+            tables = plan_tables(plan)
+            for geom in dict.fromkeys(geoms):
+                rec = cache.entries["|".join(
+                    str(v) for v in (*geom.key(), platform))]
+                winner = tuned.lookup(geom.key())
+                print(f"[pathE] E2 {label} {geom.kernel} {geom.key()[1:]}: "
+                      f"default {rec['default_s'] * 1e3:.4f} ms, fastest "
+                      f"of {rec['n_measured']} "
+                      f"{tuple(rec['fastest'].values())} lead "
+                      f"{rec['lead_s'] * 1e3:.4f} ms, spread "
+                      f"{rec['spread_s'] * 1e3:.4f} ms: winner "
+                      f"{tuple(rec['config'].values())} "
+                      f"{rec['measured_s'] * 1e3:.4f} ms ({card})",
+                      flush=True)
+                if winner != default_config(geom):
+                    confirm_winner(label, geom, winner,
+                                   tables[(geom.nd, geom.n, geom.sample)],
+                                   device, card)
+            before = launch_counts()
+            again = plan.tune_kernels(c, cache=cache, device=device,
+                                      measure_fn=_refuse_measure)
+            require(again == tuned and launch_counts() == before,
+                    f"E2 {label}: the rerun did not answer from the cache")
+            served = GNNServer(plan, c, params=params, device=device)
+            served.refresh()
+            require(np.array_equal(served.embeddings, untuned.embeddings),
+                    f"E2 {label}: the tuned refresh differs from the "
+                    f"untuned one")
+            print(f"[pathE] E2 {label}: {len(tuned)} geometries tuned in "
+                  f"{t_tune:.1f} s on the plan's tables; rerun from the "
+                  f"cache, no measurement; tuned refresh equal to the "
+                  f"untuned one bit for bit", flush=True)
+        print(f"[pathE] E2: cache of {len(cache)} entries; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    registry.clear()
+
+
+def path_e3(plan_c, cfg, device, card) -> None:
+    """E3: ``devices.calibrate`` on the card into a temporary file, loaded
+    back strictly, and the derived cost model and the mapper on it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "host_calibration_torch.json")
+        cal = devices.calibrate(path, device=device)
+        require(cal.platform == "cuda:" + torch.cuda.get_device_name(0)
+                and "H100" in cal.platform,
+                f"E3: calibration platform {cal.platform!r}")
+        require(devices.load_calibration(path, device=device) == cal,
+                "E3: the calibration did not load back")
+    m = plan_c.predicted_metrics(mode="derived", calibration=cal)
+    mapping = plan_c.compile_mapping(cfg, calibration=cal)
+    require(all(np.isfinite(v) and v > 0 for v in (
+        m.t_compute, m.t_communicate, mapping.t_compute, mapping.energy_j)),
+        "E3: derived prediction not finite")
+    print(f"[pathE] E3 calibration {cal.platform}: t_cam "
+          f"{cal.t_cam * 1e3:.4f} ms, t_agg {cal.t_agg * 1e3:.4f} ms, t_fx "
+          f"{cal.t_fx * 1e3:.4f} ms ({card}); derived on it: T_compute "
+          f"{m.t_compute:.3e} s (modeled device), mapper "
+          f"{mapping.t_compute:.3e} s", flush=True)
+
+
+def path_e4(device) -> None:
+    """E4: the CLI with --tune --mapping --tech reram on centralized collab
+    0.1; its cost-model and mapper lines equal what the same plan prints in
+    this process."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--setting", "centralized", "--dataset", "collab",
+                "--scale", "0.1", "--tune", "--tune-cache",
+                os.path.join(tmp, "tuned.json"), "--mapping", "--tech",
+                "reram"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.gnn",
+                              *argv], capture_output=True, text=True,
+                             env=env, cwd=ROOT, timeout=600)
+        require(out.returncode == 0, f"E4: the CLI failed:\n{out.stderr}")
+    lines = out.stdout.splitlines()
+    g = dataset_like("collab", scale=0.1, seed=0).gcn_normalize()
+    plan = plan_execution(g, "centralized", backend="fused", sample=SAMPLE)
+    cfg = gnn.GNNConfig(in_dim=g.feature_len, hidden_dims=(HIDDEN,),
+                        out_dim=OUT, sample=SAMPLE)
+    args = argparse.Namespace(setting="centralized", tech="reram",
+                              mapping=True, dataset="collab")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.print_cost_model(args, g, plan, cfg, "reram")
+    want = buf.getvalue().splitlines()
+    require(lines[-len(want):] == want,
+            "E4: the CLI's cost-model lines differ from the in-process ones")
+    tuned_line = [ln for ln in lines if ln.startswith("tuned ")]
+    require(len(tuned_line) == 1, "E4: no tuning line")
+    print(f"[pathE] E4 CLI --tune --mapping --tech reram: exit 0, "
+          f"{tuned_line[0]}; {want[0]}; {want[1]}; guideline line equal; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1638,6 +1953,20 @@ def main() -> None:
     for k, v in d_totals.items():
         totals[k] += v
     trace_refresh(plan_c, cfg, params, device)
+
+    # ---- path E: launch choices, tuning, calibration, the CLI's report
+    path_e1(x1, x2, nbr, wts, params, plan_b, device, card)
+    reset_launch_counts()
+    path_e2(plan_c, plan_b, cfg, params, device, card)
+    path_e3(plan_c, cfg, device, card)
+    e_totals = launch_counts()
+    print(f"[pathE] launches over E2 and E3 {json.dumps(e_totals)}",
+          flush=True)
+    require(all(v > 0 for v in e_totals.values()),
+            "a kernel of path E never launched")
+    for k, v in e_totals.items():
+        totals[k] += v
+    path_e4(device)
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
     require(all(v > 0 for v in totals.values()),

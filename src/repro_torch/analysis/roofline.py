@@ -1,0 +1,85 @@
+"""Roofline terms of one kernel launch on an NVIDIA H100.
+
+The counterpart of ``repro.analysis.roofline`` for what the tuner needs
+(``HW``, ``RooflineTerms``, ``roofline_terms``); the reference's
+``model_flops`` belongs to the LM stack and is not carried. All three
+terms are seconds on one card:
+
+  compute_s    = operations / the card's peak rate for their type
+  memory_s     = device-memory bytes / the memory rate
+  collective_s = bytes across cards / (links * link rate)
+
+The dominant term lower-bounds the launch; ``bound_s`` is the largest.
+``H100`` is NVIDIA's H100 SXM data sheet (dense rates, no sparsity) at
+its full 700 W power limit: 3.35 TB/s HBM3, 80 GB, 232,448 bytes of
+shared memory a block, NVLink 450 GB/s each way, 67 TFLOP/s f32 on the
+CUDA cores, 495 TFLOP/s TF32 and 1,979 TOP/s int8 on the tensor cores.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class HW:
+    peak_flops: float = 67e12       # f32 on the CUDA cores, flop/s
+    tf32_flops: float = 495e12      # TF32 tensor cores, dense
+    int8_ops: float = 1979e12       # int8 tensor cores, dense
+    hbm_bw: float = 3.35e12         # bytes/s
+    link_bw: float = 450e9          # NVLink, bytes/s each way
+    n_links: int = 1                # the aggregate NVLink rate above
+    smem_bytes: int = 232_448       # shared memory a block may opt into
+    sm_smem_bytes: int = 233_472    # shared memory of one SM
+    n_sms: int = 132
+    hbm_bytes: int = 80 * 10 ** 9
+
+    def peak(self, precision: str) -> float:
+        """Peak rate for operations of ``precision``: ``f32`` (CUDA
+        cores), ``tf32`` or ``int8`` (tensor cores)."""
+        return {"f32": self.peak_flops, "tf32": self.tf32_flops,
+                "int8": self.int8_ops}[precision]
+
+
+H100 = HW()
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops: float
+    hbm_bytes: float
+    collective_bytes: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def as_dict(self) -> dict:
+        return {"compute_s": self.compute_s, "memory_s": self.memory_s,
+                "collective_s": self.collective_s, "dominant": self.dominant,
+                "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+                "collective_bytes": self.collective_bytes}
+
+
+def roofline_terms(cost, hw: HW = H100) -> RooflineTerms:
+    """cost: anything with ``flops``, ``hbm_bytes`` and
+    ``collective_bytes`` (a ``tuning.prune.LaunchCost``); its
+    ``precision`` (default ``f32``) picks the peak the operations run
+    at."""
+    peak = hw.peak(getattr(cost, "precision", "f32"))
+    return RooflineTerms(
+        compute_s=cost.flops / peak,
+        memory_s=cost.hbm_bytes / hw.hbm_bw,
+        collective_s=cost.collective_bytes / (hw.n_links * hw.link_bw),
+        flops=cost.flops,
+        hbm_bytes=cost.hbm_bytes,
+        collective_bytes=cost.collective_bytes,
+    )

@@ -1,12 +1,18 @@
 """IMA-GNN core in PyTorch: graphs, partitions, execution plans, the GNN."""
 from .graph import (Graph, GraphStats, TABLE2_DATASETS, TAXI_STATS,
                     dataset_like, random_graph)
+from .costmodel import (HardwareParams, DEFAULT_HW, NetMetrics, CoreLatency,
+                        predict, compute_latency, communicate_latency, power,
+                        headline_averages, table1, pick_setting)
 from .partition import (ExecutionPlan, HierPartition, hier_partition,
                         plan_execution)
-from . import gnn, partition
+from . import costmodel, gnn, partition
 
 __all__ = [
     "ExecutionPlan", "HierPartition", "hier_partition", "plan_execution",
     "Graph", "GraphStats", "TABLE2_DATASETS", "TAXI_STATS", "random_graph",
-    "dataset_like", "gnn", "partition",
+    "dataset_like", "HardwareParams", "DEFAULT_HW", "NetMetrics",
+    "CoreLatency", "predict", "compute_latency", "communicate_latency",
+    "power", "headline_averages", "table1", "pick_setting",
+    "costmodel", "gnn", "partition",
 ]

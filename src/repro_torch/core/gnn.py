@@ -41,6 +41,7 @@ class GNNConfig:
     numerics: CrossbarNumerics = CrossbarNumerics(ideal=True)
     backend: str = "jnp"                   # one of BACKENDS
     final_activation: bool = False
+    tuned: object | None = None            # TunedKernels bundle (tuning)
 
     @property
     def dims(self) -> tuple:
@@ -84,11 +85,13 @@ def layer_step(h: torch.Tensor, neighbors: torch.Tensor,
     honors ``cfg.numerics`` on every backend."""
     if cfg.backend == "fused":
         return fused_gnn_layer(h, neighbors, weights, layer["w"],
-                               layer["b"], cfg.numerics, relu=act)
+                               layer["b"], cfg.numerics, relu=act,
+                               tuned=cfg.tuned)
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; "
                          f"choose from {BACKENDS}")
-    z = aggregate(h, neighbors, weights, backend=cfg.backend)
+    z = aggregate(h, neighbors, weights, backend=cfg.backend,
+                  tuned=cfg.tuned)
     h = _transform(z, layer["w"], cfg) + layer["b"]
     return torch.clamp_min(h, 0.0) if act else h
 

@@ -23,9 +23,12 @@ layout, and ``rebalance`` moves load off slow clusters.
 ``ExecutionPlan.measured_traffic`` bills the exchanges' wire bytes
 (``distributed.traffic``), and ``make_forward`` wraps its forward in the
 telemetry's ``plan.forward`` span (``telemetry.instrument_forward``).
-
-Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): kernel tuning, the cost-model prediction and the crossbar mapping.
+``predicted_metrics`` prices the plan's setting with the paper's cost
+model (``core.costmodel``), ``compile_mapping`` / ``mapping_report``
+compile its workload onto the modeled crossbar inventory
+(``repro_torch.mapper``): both describe the paper's in-memory edge
+devices, not the card. ``tune_kernels`` picks the Hopper kernels' launch
+choices for the plan's shapes (``repro_torch.tuning``).
 """
 from __future__ import annotations
 
@@ -524,12 +527,6 @@ def halo_exchange_tables(part: Partition):
 
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, port queue: "
-        f"{item}); the JAX package has it")
-
-
 @dataclasses.dataclass
 class ExecutionPlan:
     """One GNN, three execution settings, one switchable kernel backend.
@@ -562,12 +559,31 @@ class ExecutionPlan:
     #                                 (bucketed: tuple of [K_b, n_cap, s_cap])
     weights: np.ndarray             # [K, n_max, S] (bucketed: tuple)
     hier: HierPartition | None = None   # set for setting == "semi"
+    mapping: object | None = None   # cached CompiledMapping (mapper)
+    tuned: object | None = None     # cached TunedKernels (tuning)
     bucketed: BucketedPartition | None = None   # the ragged layout
 
     def gnn_config(self, cfg):
-        """Rebind a GNNConfig to this plan's backend and sample."""
+        """Rebind a GNNConfig to this plan's backend/sample (and its tuned
+        kernel configs, when ``tune_kernels`` has run)."""
+        tuned = self.tuned if self.tuned is not None else cfg.tuned
         return dataclasses.replace(cfg, backend=self.backend,
-                                   sample=self.sample)
+                                   sample=self.sample, tuned=tuned)
+
+    def tune_kernels(self, cfg, cache=None, device="cuda", **tune_kw):
+        """Tune the Hopper kernel launches this plan's forward makes
+        (``repro_torch.tuning``) and cache the winners on ``self.tuned``
+        so that ``make_forward`` picks them up. ``cache`` is a
+        ``TuneCache`` (or a path to load one from); candidates are the
+        kernels' own launch choices, roofline-pruned and timed on
+        ``device`` with CUDA events, and bit-identical to the default
+        launch. Returns the ``TunedKernels`` bundle (empty on ``jnp``)."""
+        from ..tuning import TuneCache, tune_plan
+        if isinstance(cache, str):
+            cache = TuneCache.load(cache)
+        self.tuned = tune_plan(self, self.gnn_config(cfg), cache=cache,
+                               device=device, **tune_kw)
+        return self.tuned
 
     def make_forward(self, cfg, mode: str = "alltoall",
                      overlap: str = "overlap", device="cuda"):
@@ -702,16 +718,58 @@ class ExecutionPlan:
                 "peak_device_bytes": peak,
                 "dense_peak_device_bytes": dense_peak}
 
-    def tune_kernels(self, cfg, cache=None, **tune_kw):
-        raise _not_ported("kernel tuning", "tuning")
+    def predicted_metrics(self, workload_scaled: bool = False,
+                          mode: str = "calibrated", inventory=None,
+                          layer_dims: tuple | None = None,
+                          technology=None, calibration=None):
+        """Cost-model (Eqs. 1-7) prediction for this plan's setting, on the
+        paper's modeled devices.
 
-    def predicted_metrics(self, *args, **kwargs):
-        raise _not_ported("the cost-model prediction",
-                          "cost-model lines of the CLI")
+        ``mode="derived"`` prices compute through the crossbar mapper
+        instead of the Table-1 calibration (DESIGN.md §8); ``inventory`` /
+        ``layer_dims`` / ``technology`` / ``calibration`` are forwarded
+        to it (DESIGN.md §13)."""
+        from . import costmodel
+        return costmodel.predict(
+            self.setting, self.graph.stats("plan"),
+            workload_scaled=workload_scaled, n_clusters=self.n_clusters,
+            sample=self.sample, mode=mode, inventory=inventory,
+            layer_dims=layer_dims, technology=technology,
+            calibration=calibration)
 
-    def compile_mapping(self, *args, **kwargs):
-        raise _not_ported("the crossbar mapping",
-                          "cost-model lines of the CLI")
+    def compile_mapping(self, cfg=None, hw=None, inventory=None,
+                        technology=None, calibration=None):
+        """Compile this plan's workload onto a crossbar inventory.
+
+        ``cfg`` (a GNNConfig, optional) supplies the layer dims — without
+        it the mapper prices the calibration workload (one
+        ``feature_len -> 128`` layer). ``technology`` / ``calibration``
+        re-anchor the per-pass primitives (DESIGN.md §13). The result is
+        cached on ``self.mapping`` and returned (a
+        ``repro_torch.mapper.CompiledMapping``: per-layer tilings, array
+        allocation, pass schedule, derived latency/energy)."""
+        from ..mapper.compile import compile_mapping
+        dims = (cfg.dims if cfg is not None
+                else (max(self.graph.feature_len, 1), 128))
+        self.mapping = compile_mapping(
+            dims, self.graph.stats("plan"), hw, inventory, self.setting,
+            self.n_clusters, self.sample, technology=technology,
+            calibration=calibration)
+        return self.mapping
+
+    def mapping_report(self, cfg=None, hw=None, inventory=None,
+                       technology=None, calibration=None) -> str:
+        """Human-readable report of the compiled hardware mapping (tile
+        shapes, padding, duplication/serialization, pass schedule, derived
+        latency/energy). Compiles on first use; recompiles when any
+        argument is given."""
+        if (self.mapping is None or cfg is not None or hw is not None
+                or inventory is not None or technology is not None
+                or calibration is not None):
+            self.compile_mapping(cfg, hw=hw, inventory=inventory,
+                                 technology=technology,
+                                 calibration=calibration)
+        return self.mapping.mapping_report()
 
     def measured_traffic(self, cfg=None, mode: str = "alltoall"):
         """Measured wire traffic of this plan's exchanges (bytes per device

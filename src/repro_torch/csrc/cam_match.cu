@@ -11,20 +11,26 @@
 //
 // What bounds it on this card: bytes written. It writes Q * E bitmap bytes
 // and reads 4E + 4Q, one compare per byte. The design:
-//   * a thread block cluster owns a group of kQueries queries and all of E,
+//   * a thread block cluster owns a group of kQ queries and all of E,
 //     so it owns whole bitmap rows and writes their counts itself: no fill
 //     before the launch and no atomics;
 //   * its blocks stride over E in chunks of kThreads * kPer entries; a
 //     thread keeps kPer entries in registers, loads the next chunk's while
 //     it matches this one, and writes the kPer match bytes of each of the
-//     group's queries with one 8-byte store (a warp writes 256 contiguous
-//     bytes of a row), with the default write-back policy: the k-NN fold
-//     reads the bitmap right after, from L2;
+//     group's queries with one store (8 bytes at kPer = 8: a warp writes
+//     256 contiguous bytes of a row), with the default write-back policy:
+//     the k-NN fold reads the bitmap right after, from L2;
 //   * each thread counts its hits per query (a popcount of its match
 //     words), a warp sums them, the block sums its warps, and block rank 0
 //     sums the cluster's blocks in rank order through distributed shared
 //     memory: integer sums, exact in any order.
 // Queries beyond the grid's y limit are taken by the group loop.
+//
+// Launch choices (tuning's CamConfig): kQ, the queries of a cluster's group
+// (4, 8 or 16; 8 by default), and kPer, the entries a thread holds per chunk
+// (4, 8 or 16; 8 by default, so a warp matches 32 * kPer entries a chunk:
+// CamConfig.be). Both are template parameters. The bitmap is the same and
+// the counts are integer sums, so every choice gives the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -33,16 +39,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPer = 8;                     // entries per thread and chunk
-constexpr int kChunk = kThreads * kPer;     // entries per block and chunk
-constexpr int kQueries = 8;                 // queries of a cluster's group
 constexpr int kMaxCluster = 16;             // blocks of a cluster, at most
 constexpr unsigned kMaxGridY = 65535;
 
-// kVec: E % kPer == 0, ci 16-byte and match 8-byte aligned, so a thread's
-// kPer entries are all in range or all out of it, and load and store as
-// vectors.
-template <bool kVec>
+// kVec: kPer % 4 == 0, E % kPer == 0, ci 16-byte and match kPer-byte
+// aligned, so a thread's kPer entries are all in range or all out of it,
+// and load and store as vectors.
+template <bool kVec, int kPer>
 __device__ __forceinline__ void load_chunk(const int* __restrict__ ci,
                                            long long e, long long e0,
                                            int (&ent)[kPer]) {
@@ -67,32 +70,39 @@ __device__ __forceinline__ void load_chunk(const int* __restrict__ ci,
 
 // The match bytes of one chunk against the group's nq queries, into rows
 // [q0, q0 + nq) of the bitmap; hits[j] += this thread's matches of query j.
-template <bool kVec>
+template <bool kVec, int kPer, int kQ>
 __device__ __forceinline__ void match_chunk(const int (&ent)[kPer],
-                                            const int (&qv)[kQueries], int nq,
+                                            const int (&qv)[kQ], int nq,
                                             long long e, long long e0,
                                             signed char* __restrict__ rows,
-                                            int (&hits)[kQueries]) {
+                                            int (&hits)[kQ]) {
+  constexpr int kWords = (kPer + 3) / 4;
   if (e0 >= e) return;
 #pragma unroll
-  for (int j = 0; j < kQueries; ++j) {
+  for (int j = 0; j < kQ; ++j) {
     if (j >= nq) break;
-    unsigned w[kPer / 4];
+    unsigned w[kWords];
 #pragma unroll
-    for (int wi = 0; wi < kPer / 4; ++wi) {
+    for (int wi = 0; wi < kWords; ++wi) {
       w[wi] = 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int idx = 4 * wi + i;
-        const bool hit =
-            qv[j] >= 0 && ent[idx] == qv[j] && (kVec || e0 + idx < e);
-        w[wi] |= (hit ? 1u : 0u) << (8 * i);
+        if (idx < kPer) {
+          const bool hit =
+              qv[j] >= 0 && ent[idx] == qv[j] && (kVec || e0 + idx < e);
+          w[wi] |= (hit ? 1u : 0u) << (8 * i);
+        }
       }
       hits[j] += __popc(w[wi]);
     }
     signed char* dst = rows + (long long)j * e + e0;
-    if constexpr (kVec) {
+    if constexpr (kVec && kPer == 4) {
+      *reinterpret_cast<unsigned*>(dst) = w[0];
+    } else if constexpr (kVec && kPer == 8) {
       *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else if constexpr (kVec && kPer == 16) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
     } else {
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
@@ -102,45 +112,49 @@ __device__ __forceinline__ void match_chunk(const int (&ent)[kPer],
   }
 }
 
-template <bool kVec>
+template <bool kVec, int kPer, int kQ>
 __global__ void __launch_bounds__(kThreads)
 cam_search_kernel(const int* __restrict__ ci, const int* __restrict__ queries,
                   signed char* __restrict__ match, int* __restrict__ counts,
                   long long e, int q) {
-  __shared__ int warp_hits[kThreads / 32][kQueries];
-  __shared__ int block_hits[kQueries];
+  constexpr int kChunk = kThreads * kPer;  // entries per block and chunk
+  __shared__ int warp_hits[kThreads / 32][kQ];
+  __shared__ int block_hits[kQ];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
   const int tid = threadIdx.x;
   const long long nchunks = (e + kChunk - 1) / kChunk;
-  const int ngroups = (q + kQueries - 1) / kQueries;
+  const int ngroups = (q + kQ - 1) / kQ;
   for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
-    const int q0 = grp * kQueries, nq = min(kQueries, q - q0);
-    int qv[kQueries];
+    const int q0 = grp * kQ, nq = min(kQ, q - q0);
+    int qv[kQ];
 #pragma unroll
-    for (int j = 0; j < kQueries; ++j)
+    for (int j = 0; j < kQ; ++j)
       qv[j] = j < nq ? __ldg(queries + q0 + j) : -1;
-    int hits[kQueries] = {};
+    int hits[kQ] = {};
     signed char* rows = match + (long long)q0 * e;
     int ent[kPer] = {}, next[kPer] = {};
     long long c = rank;
-    if (c < nchunks) load_chunk<kVec>(ci, e, c * kChunk + tid * kPer, ent);
+    if (c < nchunks)
+      load_chunk<kVec, kPer>(ci, e, c * kChunk + tid * kPer, ent);
     for (; c < nchunks; c += csize) {
       if (c + csize < nchunks)  // in flight while this chunk is matched
-        load_chunk<kVec>(ci, e, (c + csize) * kChunk + tid * kPer, next);
-      match_chunk<kVec>(ent, qv, nq, e, c * kChunk + tid * kPer, rows, hits);
+        load_chunk<kVec, kPer>(ci, e, (c + csize) * kChunk + tid * kPer,
+                               next);
+      match_chunk<kVec, kPer, kQ>(ent, qv, nq, e, c * kChunk + tid * kPer,
+                                  rows, hits);
 #pragma unroll
       for (int i = 0; i < kPer; ++i) ent[i] = next[i];
     }
     // counts: warp sums, block sum in warp order, cluster sum in rank order
 #pragma unroll
-    for (int j = 0; j < kQueries; ++j) {
+    for (int j = 0; j < kQ; ++j) {
       const int h = (int)__reduce_add_sync(0xffffffffu, (unsigned)hits[j]);
       if ((tid & 31) == 0) warp_hits[tid / 32][j] = h;
     }
     __syncthreads();
-    if (tid < kQueries) {
+    if (tid < kQ) {
       int s = 0;
       for (int w = 0; w < kThreads / 32; ++w) s += warp_hits[w][tid];
       block_hits[tid] = s;
@@ -158,10 +172,11 @@ cam_search_kernel(const int* __restrict__ ci, const int* __restrict__ queries,
 
 // A cluster of up to kMaxCluster blocks per query group, as many as E has
 // chunks; group y-blocks up to the grid's limit.
-template <bool kVec>
+template <bool kVec, int kPer, int kQ>
 int launch(const int* ci, const int* queries, signed char* match, int* counts,
            long long e, int q, cudaStream_t stream) {
-  auto kernel = cam_search_kernel<kVec>;
+  constexpr int kChunk = kThreads * kPer;
+  auto kernel = cam_search_kernel<kVec, kPer, kQ>;
   static bool configured[64] = {};  // non-portable cluster sizes, per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -175,7 +190,7 @@ int launch(const int* ci, const int* queries, signed char* match, int* counts,
   const unsigned csize =
       (unsigned)(nchunks < kMaxCluster ? (nchunks > 0 ? nchunks : 1)
                                        : kMaxCluster);
-  const unsigned ngroups = (unsigned)((q + kQueries - 1) / kQueries);
+  const unsigned ngroups = (unsigned)((q + kQ - 1) / kQ);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(csize, ngroups < kMaxGridY ? ngroups : kMaxGridY);
   config.blockDim = dim3(kThreads);
@@ -192,18 +207,45 @@ int launch(const int* ci, const int* queries, signed char* match, int* counts,
   return (int)cudaGetLastError();
 }
 
+// The variants of one kQ: kPer x float4 or scalar.
+template <int kQ>
+int launch_per(int per, bool vec, const int* ci, const int* queries,
+               signed char* match, int* counts, long long e, int q,
+               cudaStream_t st) {
+  switch (per) {
+    case 4:
+      return (vec ? launch<true, 4, kQ> : launch<false, 4, kQ>)(
+          ci, queries, match, counts, e, q, st);
+    case 8:
+      return (vec ? launch<true, 8, kQ> : launch<false, 8, kQ>)(
+          ci, queries, match, counts, e, q, st);
+    case 16:
+      return (vec ? launch<true, 16, kQ> : launch<false, 16, kQ>)(
+          ci, queries, match, counts, e, q, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// bq: queries of a cluster's group (4, 8 or 16); per: entries a thread
+// holds per chunk (4, 8 or 16).
 extern "C" int cam_search_i32(const void* ci, const void* queries,
                               void* match, void* counts, long long e, int q,
-                              void* stream) {
+                              int bq, int per, void* stream) {
   if (q < 1) return (int)cudaSuccess;
-  const bool vec =
-      e % kPer == 0 && (size_t)ci % 16 == 0 && (size_t)match % 8 == 0;
-  auto run = [&](auto launch_fn) {
-    return launch_fn((const int*)ci, (const int*)queries,
-                     (signed char*)match, (int*)counts, e, q,
-                     (cudaStream_t)stream);
-  };
-  return vec ? run(launch<true>) : run(launch<false>);
+  if (per != 4 && per != 8 && per != 16)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = per % 4 == 0 && e % per == 0 && (size_t)ci % 16 == 0 &&
+                   (size_t)match % per == 0;
+  const int* c = (const int*)ci;
+  const int* qs = (const int*)queries;
+  signed char* m = (signed char*)match;
+  int* n = (int*)counts;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bq == 4) return launch_per<4>(per, vec, c, qs, m, n, e, q, st);
+  if (bq == 8) return launch_per<8>(per, vec, c, qs, m, n, e, q, st);
+  if (bq == 16) return launch_per<16>(per, vec, c, qs, m, n, e, q, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -36,6 +36,16 @@
 //     and applies the ADC where the pass ends, carrying the tile's f32 sum
 //     from pass to pass. With several passes the chunks hold whole tiles
 //     where a tile fits one, so that no chunk is staged twice.
+// Launch plan: the wrapper computes it on the host
+// (kernels/launch_plans.py crossbar_resolve, the default and tuning's
+// CrossbarConfig alike) and the launcher refuses one that does not fit:
+// the block's columns bn (column groups bn / kCols, a power of two up to 8;
+// the m16 tiles follow from the 8 warps) and the chunk depth kc (a multiple
+// of 32 up to kp; with several passes whole tiles where a tile fits).
+// Neither moves a bit: a column group's outputs do not depend on the
+// others, a tile's int32 sums are exact in any chunking, and the ADC, the
+// bit order and the tile order stay.
+//
 // Numerics: the int32 sums are exact and convert to the plain version's f32
 // partials exactly (crossbar_mma.cuh); the ADC, the shift and add in bit
 // order and the add across tiles in tile order are the plain version's, so
@@ -50,7 +60,6 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxCols = 64;  // columns of a block, at most
 // Dynamic shared memory of a block, at most: two blocks share an SM.
 constexpr int kSmemBudget = 112 * 1024;
 constexpr int kLoads = 4;  // int4 code loads a thread keeps in flight
@@ -193,15 +202,13 @@ crossbar_mma_kernel(const int* __restrict__ xq,
   }
 }
 
-// Picks the block's column groups (the fewest power of two that covers N,
-// up to 64 columns) and m16 tiles (the rest of the 8 warps), the chunk
-// depth (as deep as kSmemBudget allows, at most kp; with several passes a
-// multiple of the tile where a tile fits) and a persistent grid of as many
-// blocks as fit on the card at once.
+// Launches the host's plan (bn columns, chunks of kc) on a persistent grid
+// of as many blocks as fit on the card at once.
 template <int kD, bool kPasses>
 int launch(const int* xq, const signed char* digits, int ndig, float* out,
            long long m, int k, int n, int r, int kp, int nbits, float fs,
-           float lsb, float inv_lsb, cudaStream_t stream) {
+           float lsb, float inv_lsb, int bn, int kc,
+           cudaStream_t stream) {
   constexpr int kCols = xmma::Shape<kD>::kCols;
   auto kernel = crossbar_mma_kernel<kD, kPasses>;
   static bool configured[64] = {};  // the shared memory limit, per device
@@ -215,17 +222,16 @@ int launch(const int* xq, const signed char* digits, int ndig, float* out,
     if (err == cudaSuccess && dev < 64) configured[dev] = true;
   }
   if (err != cudaSuccess) return (int)err;
-  int ncg = 1;
-  while (ncg * kCols < n && ncg * kCols < kMaxCols) ncg *= 2;
+  const int ncg = bn / kCols;
+  if (bn % kCols != 0 || ncg < 1 || ncg > kWarps || (ncg & (ncg - 1)) != 0 ||
+      kc < 32 || kc % 32 != 0 || kc > kp)
+    return (int)cudaErrorInvalidValue;
   const int ng = (nbits + xmma::kPlanes - 1) / xmma::kPlanes;
-  const int rows = xmma::kRows * (kWarps / ncg), bn = ncg * kCols;
+  const int rows = xmma::kRows * (kWarps / ncg);
   const int rpad = (r + 31) / 32 * 32;
   const int per_row = ng * rows + ndig * bn;  // shared bytes per depth
-  int kc = (kSmemBudget / per_row - 16) / 32 * 32;
-  if (ng > 1 && rpad <= kc) kc = kc / rpad * rpad;
-  kc = std::min(kp, kc);
-  if (kc < 32) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)per_row * (kc + 16);
+  if (smem > (size_t)kSmemBudget) return (int)cudaErrorInvalidValue;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   if (err != cudaSuccess) return (int)err;
@@ -243,10 +249,11 @@ int launch(const int* xq, const signed char* digits, int ndig, float* out,
 
 }  // namespace
 
+// bn, kc: the launch plan (launch_plans.crossbar_resolve).
 extern "C" int crossbar_matmul_quantized_i8(
     const void* xq, const void* digits, int ndigits, void* out, long long m,
     int k, int n, int rows_per_xbar, int kp, int in_bits, float full_scale,
-    float lsb, float inv_lsb, void* stream) {
+    float lsb, float inv_lsb, int bn, int kc, void* stream) {
   if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1 ||
       kp < 32 || kp % 32 != 0 || (size_t)digits % 16 != 0 || ndigits < 1 ||
       ndigits > xmma::kMaxDigits)
@@ -254,7 +261,7 @@ extern "C" int crossbar_matmul_quantized_i8(
   auto run = [&](auto launch_fn) {
     return launch_fn((const int*)xq, (const signed char*)digits, ndigits,
                      (float*)out, m, k, n, rows_per_xbar, kp, in_bits,
-                     full_scale, lsb, inv_lsb, (cudaStream_t)stream);
+                     full_scale, lsb, inv_lsb, bn, kc, (cudaStream_t)stream);
   };
   const bool passes = in_bits > xmma::kPlanes;
   if (ndigits == 1)

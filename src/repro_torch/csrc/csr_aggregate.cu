@@ -19,6 +19,10 @@
 // variant of the same loop, in the same slot order, takes F % 4 != 0 or
 // unaligned operands.
 //
+// Launch choice: warps per block, 4, 8 (the default) or 16, a template
+// parameter (tuning's AggregateConfig.warps). A row's sum is the same in
+// any block, so every choice gives the same bits.
+//
 // Numerics: one rounded multiply and one rounded add per live slot
 // (__fmul_rn/__fadd_rn, never contracted into an FMA), in slot order, from
 // +0. A skipped weight-0 slot would add 0 * x = +-0, which changes no bit of
@@ -30,10 +34,8 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // warps per block
-
 // One destination row per kLanes lanes: 32 / kLanes rows per warp.
-template <bool kVec, int kLanes>
+template <bool kVec, int kLanes, int kWarps>
 __global__ void __launch_bounds__(32 * kWarps)
 csr_aggregate_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
                      const float* __restrict__ wts, float* __restrict__ out,
@@ -52,29 +54,44 @@ csr_aggregate_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
       [&](int c, const T& z) { __stcs(o + c, z); });
 }
 
-template <bool kVec, int kLanes>
+template <bool kVec, int kLanes, int kWarps>
 void launch(const void* x, const void* nbr, const void* wts, void* out,
             long long nd, int s, int f, cudaStream_t stream) {
   constexpr long long kRowsPerBlock = 32 * kWarps / kLanes;
   const dim3 grid((unsigned)((nd + kRowsPerBlock - 1) / kRowsPerBlock));
-  csr_aggregate_kernel<kVec, kLanes><<<grid, 32 * kWarps, 0, stream>>>(
-      (const float*)x, (const int*)nbr, (const float*)wts, (float*)out, nd, s,
-      f);
+  csr_aggregate_kernel<kVec, kLanes, kWarps>
+      <<<grid, 32 * kWarps, 0, stream>>>((const float*)x, (const int*)nbr,
+                                         (const float*)wts, (float*)out, nd,
+                                         s, f);
+}
+
+template <int kWarps>
+void dispatch(bool vec, bool half, const void* x, const void* nbr,
+              const void* wts, void* out, long long nd, int s, int f,
+              cudaStream_t st) {
+  if (vec)
+    (half ? launch<true, 16, kWarps> : launch<true, 32, kWarps>)(
+        x, nbr, wts, out, nd, s, f, st);
+  else
+    (half ? launch<false, 16, kWarps> : launch<false, 32, kWarps>)(
+        x, nbr, wts, out, nd, s, f, st);
 }
 
 }  // namespace
 
 extern "C" int csr_aggregate_f32(const void* x, const void* nbr,
                                  const void* wts, void* out, long long nd,
-                                 int s, int f, void* stream) {
+                                 int s, int f, int warps, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool vec = gather::vector_ok(f, x, out);
   const bool half = gather::lanes_for(f, vec) == 16;
-  if (vec)
-    (half ? launch<true, 16> : launch<true, 32>)(x, nbr, wts, out, nd, s, f,
-                                                 st);
+  if (warps == 4)
+    dispatch<4>(vec, half, x, nbr, wts, out, nd, s, f, st);
+  else if (warps == 8)
+    dispatch<8>(vec, half, x, nbr, wts, out, nd, s, f, st);
+  else if (warps == 16)
+    dispatch<16>(vec, half, x, nbr, wts, out, nd, s, f, st);
   else
-    (half ? launch<false, 16> : launch<false, 32>)(x, nbr, wts, out, nd, s,
-                                                   f, st);
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

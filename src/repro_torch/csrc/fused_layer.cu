@@ -67,6 +67,22 @@
 //     each chunk gathers the column window of z that it holds. There is no
 //     depth limit.
 //
+// Launch plans: the wrapper computes each launch's plan on the host
+// (kernels/launch_plans.py, the one place a plan is made, the default and
+// tuning's FusedConfig alike) and passes it in; the launchers only refuse a
+// plan that does not fit the card:
+//   * ideal layer: bm (rows a block: 32, 64 or 128), bn (32 or 64 columns)
+//     and kc (K's chunk: F, or a multiple of 32 below it). The kernel splits
+//     K across ideal_splits(units, kc) warps of a unit; the host takes only
+//     choices whose split is the default plan's, so every output element
+//     sums the same k8 steps in the same order in every choice: the same
+//     bits.
+//   * quant layer: bn (a multiple of the unit's columns, up to 64), mt (m16
+//     tiles a row tile, 1 to 4) and kc (the chunk depth); the kCarry
+//     variant takes several passes or a chunk that is not whole tiles. The
+//     int32 sums are exact in any chunking and the ADC, bit, pass and tile
+//     orders stay: the same bits.
+//
 // Exactness of the quant kernel: the int32 sums are exact, and the partial
 // of each (tile, bit) is converted to f32 exactly while
 // rows_per_xbar * 8 * w_levels < 2^24 (the wrapper raises above it), where
@@ -379,8 +395,7 @@ fused_ideal_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
   }
 }
 
-size_t ideal_smem(int bm, int bn, int kc8) {
-  const int nsplit = ideal_splits(bm / kUnit * (bn / kUnit), kc8);
+size_t ideal_smem(int bm, int bn, int kc8, int nsplit) {
   return sizeof(float) *
          ((size_t)kc8 * (bn + 8) +
           std::max((size_t)bm * z_stride(kc8),
@@ -388,22 +403,22 @@ size_t ideal_smem(int bm, int bn, int kc8) {
 }
 
 struct IdealPlan {
-  int bm, bn, kc;
+  int bm, bn, kc, nsplit;
 };
 
-// The block's columns (32 at H <= 32, else 64), its row tile (64, or 32
-// where that keeps W resident) and K's chunk (all of F where W fits the
-// card's shared memory at 32 rows, else the deepest multiple of 32 that
-// fits; kc = 0 where nothing fits).
-IdealPlan ideal_plan(int f, int h, int max_smem) {
-  const int bn = h <= kUnit ? kUnit : kIMaxCols;
-  int bm = 2 * kUnit, kc = f;
-  if (ideal_smem(bm, bn, round8(kc)) > (size_t)max_smem) bm = kUnit;
-  if (ideal_smem(bm, bn, round8(kc)) > (size_t)max_smem) {
-    kc = f / 32 * 32;
-    while (kc > 0 && ideal_smem(bm, bn, kc) > (size_t)max_smem) kc -= 32;
-  }
-  return {bm, bn, kc};
+// The host's plan (launch_plans.ideal_resolve) with its K split; kc = 0
+// where the plan does not fit the card.
+IdealPlan ideal_fit(int f, int bm, int bn, int kc, int max_smem) {
+  IdealPlan o{bm, bn, std::min(kc, f), 0};
+  const bool shape = o.bm >= kUnit && o.bm <= 4 * kUnit &&
+                     o.bm % kUnit == 0 &&
+                     (o.bn == kUnit || o.bn == kIMaxCols);
+  if (shape) o.nsplit = ideal_splits(o.bm / kUnit * (o.bn / kUnit), o.kc);
+  const bool ok =
+      shape && (o.kc == f || (o.kc >= 32 && o.kc % 32 == 0)) &&
+      ideal_smem(o.bm, o.bn, round8(o.kc), o.nsplit) <= (size_t)max_smem;
+  if (!ok) o.kc = 0;
+  return o;
 }
 
 // Launches a persistent grid of as many blocks as fit on the card at once.
@@ -414,7 +429,8 @@ int launch_ideal(const float* x, const int* nbr, const float* wts,
                  cudaStream_t stream) {
   auto kernel = fused_ideal_kernel<kVec, kLanes, kResident>;
   int per_sm = 0;
-  const size_t smem = ideal_smem(pl.bm, pl.bn, round8(std::min(pl.kc, f)));
+  const size_t smem =
+      ideal_smem(pl.bm, pl.bn, round8(std::min(pl.kc, f)), pl.nsplit);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -716,42 +732,22 @@ struct QuantPlan {
   bool carry;      // the kCarry variant
 };
 
-// The block's column count (the unit's `cols` times enough groups to cover
-// H, up to 64) and m16 tiles per row tile (enough units for the 8 warps, at
-// most 4). Where the whole depth fits shared memory (kc = kp): with one
-// pass, fewer columns a block until two blocks share an SM (three digits at
-// F = 496). Deeper: at most 4 column groups, so that the units are at most
-// the 8 warps, and the deepest chunk that fits, a multiple of the tile
-// where a tile fits (else the kCarry variant), rather than fewer columns:
-// narrower blocks would gather each row of z once for each column block.
-// kc = 0 where nothing fits.
-QuantPlan quant_plan(int cols, int ndig, int ng, int h, int r, int kp,
-                     int max_smem, int sm_smem) {
-  auto mts = [&](int bn) {
-    return std::max(1, std::min(4, kQWarps / (2 * (bn / cols))));
-  };
-  QuantPlan pl{std::min(kQMaxCols, (h + cols - 1) / cols * cols), 0, kp,
-               ng > 1};
-  pl.mt = mts(pl.bn);
-  if (quant_smem(ndig, ng, pl.bn, pl.mt, kp) <= (size_t)max_smem) {
-    while (!pl.carry && pl.bn > cols &&
-           2 * (quant_smem(ndig, ng, pl.bn, pl.mt, kp) + 1024) >
-               (size_t)sm_smem)
-      pl.bn = std::max(cols, pl.bn / 2 / cols * cols);
-    return pl;
-  }
-  pl.bn = std::min(pl.bn, 4 * cols);
-  pl.mt = mts(pl.bn);
-  const int rows = xmma::kRows * pl.mt, rpad = (r + 31) / 32 * 32;
-  const size_t fixed = sizeof(float) * 2 * rows * (size_t)(pl.bn + 1);
-  const int per_pos = ndig * pl.bn + 2 * ng * rows;  // bytes a depth
-  int kc = ((int)((max_smem - fixed) / per_pos) - 16) / 32 * 32;
-  if (rpad <= kc)
-    kc = kc / rpad * rpad;
-  else
-    pl.carry = true;
-  pl.kc = kc < 32 ? 0 : kc;
-  return pl;
+// The host's plan (launch_plans.quant_resolve). The kCarry variant takes
+// any plan and is needed for several passes or a chunk that is not whole
+// tiles; chunks need the units within the 8 warps; a chunk deeper than kp
+// is one chunk. kc = 0 where the plan does not fit the card.
+QuantPlan quant_fit(int cols, int ndig, int ng, int r, int kp, int bn, int mt,
+                    int kc, bool carry, int max_smem) {
+  QuantPlan o{bn, mt, kc, carry};
+  const int rpad = (r + 31) / 32 * 32;
+  const bool ok =
+      o.bn >= cols && o.bn <= kQMaxCols && o.bn % cols == 0 && o.mt >= 1 &&
+      o.mt <= 4 && o.kc >= 32 && o.kc % 32 == 0 &&
+      (o.carry || (ng == 1 && (o.kc >= kp || o.kc % rpad == 0))) &&
+      (o.kc >= kp || 2 * (o.bn / cols) * o.mt <= kQWarps) &&
+      quant_smem(ndig, ng, o.bn, o.mt, o.kc) <= (size_t)max_smem;
+  if (!ok) o.kc = 0;
+  return o;
 }
 
 // Launches a persistent grid of as many blocks as fit on the card at once.
@@ -805,11 +801,12 @@ extern "C" int fused_zmax_f32(const void* x, const void* nbr, const void* wts,
                        : run(launch_zmax<false, 32>);
 }
 
+// bm, bn, kc: the launch plan (launch_plans.ideal_resolve).
 extern "C" int fused_ideal_layer_f32(const void* x, const void* nbr,
                                      const void* wts, const void* w,
                                      const void* b, void* out, long long nd,
-                                     int s, int f, int h, int relu,
-                                     void* stream) {
+                                     int s, int f, int h, int relu, int bm,
+                                     int bn, int kc, void* stream) {
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -818,7 +815,7 @@ extern "C" int fused_ideal_layer_f32(const void* x, const void* nbr,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const IdealPlan pl = ideal_plan(f, h, max_smem);
+  const IdealPlan pl = ideal_fit(f, bm, bn, kc, max_smem);
   if (pl.kc < 1) return (int)cudaErrorInvalidValue;
   const bool vec = gather::vector_ok(f, x, x);
   const int lanes = gather::lanes_covering(f, vec, kIPer);
@@ -839,6 +836,7 @@ extern "C" int fused_ideal_layer_f32(const void* x, const void* nbr,
                        : run(launch_ideal<false, 32, true>);
 }
 
+// bn, mt, kc, carry: the launch plan (launch_plans.quant_resolve).
 extern "C" int fused_quant_layer_f32(const void* x, const void* nbr,
                                      const void* wts, const void* digits,
                                      int ndigits, const void* b,
@@ -846,27 +844,26 @@ extern "C" int fused_quant_layer_f32(const void* x, const void* nbr,
                                      long long nd, int s, int f, int h,
                                      int rows_per_xbar, int kp, int in_bits,
                                      float full_scale, float lsb,
-                                     float inv_lsb, int relu, void* stream) {
+                                     float inv_lsb, int relu, int bn, int mt,
+                                     int kc, int carry, void* stream) {
   if (in_bits < 1 || in_bits > xbar::kMaxBits || rows_per_xbar < 1 ||
       kp % 32 != 0 || ndigits < 1 || ndigits > xmma::kMaxDigits)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, max_smem = 0, sm_smem = 0, sms = 0;
+  int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const bool vec = gather::vector_ok(f, x, x) && rows_per_xbar % 4 == 0;
   const int ng = (in_bits + xmma::kPlanes - 1) / xmma::kPlanes;
   const int kd = std::min(ndigits, 3);
+  const int cols = kd == 1 ? xmma::Shape<1>::kCols : xmma::Shape<2>::kCols;
   const QuantPlan pl =
-      quant_plan(kd == 1 ? xmma::Shape<1>::kCols : xmma::Shape<2>::kCols,
-                 ndigits, ng, h, rows_per_xbar, kp, max_smem, sm_smem);
+      quant_fit(cols, ndigits, ng, rows_per_xbar, kp, bn, mt, kc, carry != 0,
+                max_smem);
   if (pl.kc < 32) return (int)cudaErrorInvalidValue;
   const bool half = gather::lanes_for(f, vec) == 16;
   auto run = [&](auto launch) {

@@ -185,9 +185,10 @@ def noisy_forward(params, x: torch.Tensor, neighbors: torch.Tensor,
         if cfg.backend == "fused":
             h = fused_gnn_layer(h, neighbors, weights, layer["w"],
                                 layer["b"], cfg.numerics, relu=act,
-                                w_noise=nz)
+                                tuned=cfg.tuned, w_noise=nz)
             continue
-        z = aggregate(h, neighbors, weights, backend=cfg.backend)
+        z = aggregate(h, neighbors, weights, backend=cfg.backend,
+                      tuned=cfg.tuned)
         h = crossbar_matmul_signed_ref(z, layer["w"], cfg.numerics,
                                        w_noise=nz) + layer["b"]
         if act:

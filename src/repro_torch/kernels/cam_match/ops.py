@@ -8,9 +8,13 @@ no other fallback. ``search`` is the backend switch:
   * ``pallas`` — the hand-written kernel.
 
 The kernel masks ragged E and Q, zeroes negative queries and writes the
-counts itself, so no sentinel padding and no fill are needed.
-``bq``/``be`` are kept for the reference's contract (a non-positive value
-raises); the kernel's tiles are fixed and results do not depend on them. ``cam_search.launches`` counts launches.
+counts itself, so no sentinel padding and no fill are needed. Its launch
+choices (``CamConfig``) are ``bq``, the queries of a cluster's group (4, 8
+or 16), and ``be``, the entries a warp matches per chunk (128, 256 or 512;
+8 and 256 by default). ``search`` resolves them from the explicit
+``bq``/``be``, then ``tuned``, the tuning registry and the default
+(``tuning.registry.resolve``); every choice gives the same bits.
+``cam_search.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -19,35 +23,48 @@ import functools
 
 import torch
 
+from ...tuning import registry as _registry
+from ...tuning.space import CamConfig, CamGeometry
 from .. import _build
 from ..csr_aggregate.ops import stream_ptr
+from ..launch_plans import cam_per
 from .ref import cam_scan_ref, cam_search_ref
 
 
-def _validate_blocks(bq, be) -> None:
-    """An explicit non-positive block is a caller bug, not a default
-    request."""
+def _explicit(bq, be) -> CamConfig | None:
+    """The caller's launch choice, or None. An explicit non-positive
+    block is a caller bug, not a default request; a missing one keeps the
+    default."""
     for name, val in (("bq", bq), ("be", be)):
         if val is not None and int(val) < 1:
             raise ValueError(f"{name} must be a positive block size, got "
                              f"{val!r} (pass None for the default)")
+    if bq is None and be is None:
+        return None
+    d = CamConfig()
+    return CamConfig(d.bq if bq is None else int(bq),
+                     d.be if be is None else int(be))
 
 
 @functools.cache
 def _entry() -> ctypes._CFuncPtr:
     """The kernel's C entry point, looked up once."""
     p = ctypes.c_void_p
+    i = ctypes.c_int
     return _build.c_function("cam_match", "cam_search_i32", (
-        p, p, p, p, ctypes.c_longlong, ctypes.c_int, p))
+        p, p, p, p, ctypes.c_longlong, i, i, i, p))
 
 
-def cam_search(ci: torch.Tensor, queries: torch.Tensor):
+def cam_search(ci: torch.Tensor, queries: torch.Tensor,
+               config: CamConfig | None = None):
     """Match queries against the CAM entries.
 
     ci: [E] int32; queries: [Q] int32, contiguous, on one device. Returns
     (match [Q, E] int8, counts [Q] int32). On the card one launch writes
     both, the counts included: the wrapper allocates and checks only what
-    the kernel needs, since the k-NN build calls it once per query chunk."""
+    the kernel needs, since the k-NN build calls it once per query chunk.
+    ``config``: the launch choice (None: the default); a choice the kernel
+    does not have raises ``ValueError`` on every device."""
     if ci.dim() != 1 or queries.dim() != 1:
         raise ValueError(f"want ci [E] and queries [Q]; got "
                          f"{tuple(ci.shape)}, {tuple(queries.shape)}")
@@ -58,6 +75,8 @@ def cam_search(ci: torch.Tensor, queries: torch.Tensor):
         raise ValueError("ci and queries must share a device")
     if not (ci.is_contiguous() and queries.is_contiguous()):
         raise ValueError("ci and queries must be contiguous")
+    config = config or CamConfig()
+    per = cam_per(config.bq, config.be)
     if ci.is_cpu:
         return cam_search_ref(ci, queries)
     e, q = ci.shape[0], queries.shape[0]
@@ -66,7 +85,7 @@ def cam_search(ci: torch.Tensor, queries: torch.Tensor):
     if q:
         _build.check(_entry()(ci.data_ptr(), queries.data_ptr(),
                               match.data_ptr(), counts.data_ptr(), e, q,
-                              stream_ptr(ci)), "cam_search")
+                              config.bq, per, stream_ptr(ci)), "cam_search")
         cam_search.launches += 1
     return match, counts
 
@@ -79,17 +98,20 @@ def search(ci: torch.Tensor, queries: torch.Tensor, backend: str = "jnp",
     """Match queries against the CSR column-index array.
 
     Returns (match [Q, E] int8, counts [Q] int32); negative query ids
-    match nothing on both backends."""
-    _validate_blocks(bq, be)
-    if tuned is not None:
-        raise NotImplementedError(
-            "kernel tuning is not ported to repro_torch yet (ROADMAP.md, "
-            "port queue: tuning); pass tuned=None")
+    match nothing on both backends. On ``pallas`` the launch choice
+    resolves from ``bq``/``be``, then ``tuned``, the tuning registry and
+    the default."""
+    explicit = _explicit(bq, be)
+    if explicit is not None:
+        cam_per(explicit.bq, explicit.be)
     if backend == "jnp":
         return cam_search_ref(ci, queries)
     if backend != "pallas":
         raise ValueError(f"unknown CAM backend {backend!r}")
-    return cam_search(ci, queries)
+    config = _registry.resolve(
+        CamGeometry(e=int(ci.shape[0]), q=int(queries.shape[0])), explicit,
+        tuned)
+    return cam_search(ci, queries, config=config)
 
 
 scan = cam_scan_ref  # the RP scan is a searchsorted on every backend

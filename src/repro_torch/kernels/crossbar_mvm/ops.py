@@ -15,9 +15,17 @@ layer does, so that on the same device::
     crossbar_matmul(x, w, cfg)  ==  ref.crossbar_matmul_ref(x, w, cfg)
 
 bit for bit. The kernel masks ragged M, N and K itself and takes any K:
-nothing is padded to a block grid. ``bm``/``bn``/``depth`` are kept for the
-reference's contract and validated; the kernel's tiles are fixed and
-results do not depend on them.
+nothing is padded to a block grid. Its launch choices (``CrossbarConfig``)
+are ``bn``, the output columns of a block (8, 16, 32 or 64), and
+``depth``, the crossbar tiles of a K chunk (dividing the crossbar count
+ceil(K / rows_per_xbar), as the reference's must); 0 or ``None`` keeps the
+default plan's (``kernels.launch_plans`` computes every launch's plan).
+The reference's ``bm`` has no counterpart (a block's rows follow from its
+8 warps): it is validated and ignored. ``crossbar_matmul``
+and ``crossbar_matmul_signed`` resolve the choice from the explicit
+``bn``/``depth``, then ``tuned``, the tuning registry and the default
+(``tuning.registry.resolve``); the kernel-level entry points take the
+explicit choice or the default. Every choice gives the same bits.
 """
 from __future__ import annotations
 
@@ -27,8 +35,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ...tuning import registry as _registry
+from ...tuning.space import CrossbarConfig, CrossbarGeometry
 from .. import _build
 from ..csr_aggregate.ops import stream_ptr
+from ..launch_plans import crossbar_resolve, passes
 from .ref import (CrossbarNumerics, apply_conductance_noise,
                   check_matmul_shapes, crossbar_matmul_quantized_plain,
                   quantize_inputs, quantize_weights)
@@ -221,9 +232,11 @@ def program_conductances(w: torch.Tensor, cfg: CrossbarNumerics,
 # ------------------------------------------------------ the kernel
 
 
-def _validate_blocks(k: int, cfg: CrossbarNumerics, bm, bn, depth) -> None:
-    """Explicit blocks must be positive, and ``depth`` (crossbars per
-    step) must divide the crossbar count ceil(K / rows_per_xbar)."""
+def _validate_blocks(k: int, cfg: CrossbarNumerics, bm, bn,
+                     depth) -> CrossbarConfig | None:
+    """The caller's launch choice, or None. Explicit blocks must be
+    positive, and ``depth`` (crossbars per step) must divide the crossbar
+    count ceil(K / rows_per_xbar); ``bm`` is validated and ignored."""
     for name, val in (("bm", bm), ("bn", bn)):
         if val is not None and int(val) < 1:
             raise ValueError(f"{name} must be a positive block size, got "
@@ -234,13 +247,21 @@ def _validate_blocks(k: int, cfg: CrossbarNumerics, bm, bn, depth) -> None:
             raise ValueError(f"pipeline depth {depth} must divide the "
                              f"crossbar count ceil(K/rows_per_xbar) = "
                              f"{crossbars}")
+    if bn is None and depth is None:
+        return None
+    return CrossbarConfig(int(bn or 0), int(depth or 0))
 
 
-def _refuse_tuned(tuned) -> None:
-    if tuned is not None:
-        raise NotImplementedError(
-            "kernel tuning is not ported to repro_torch yet (ROADMAP.md, "
-            "port queue: tuning); pass tuned=None")
+def crossbar_plan(k: int, n: int, ndigits: int, cfg: CrossbarNumerics,
+                  config: CrossbarConfig | None):
+    """(bn, kc) of the launch plan for ``config`` (None: the default
+    plan), ``launch_plans.crossbar_resolve``; raises ``ValueError`` where
+    the choice does not fit the card."""
+    c = config or CrossbarConfig()
+    r = cfg.rows_per_xbar
+    pl = crossbar_resolve(ndigits, passes(cfg.in_bits), n, r,
+                          tile_depth(k, r), -(-k // r), c.bn, c.depth)
+    return pl.cols(ndigits), pl.kc
 
 
 def _check_xq(xq: torch.Tensor, wq: torch.Tensor) -> None:
@@ -255,11 +276,13 @@ def _check_xq(xq: torch.Tensor, wq: torch.Tensor) -> None:
 
 
 def _launch(xq: torch.Tensor, digits: torch.Tensor, kp: int, n: int,
-            cfg: CrossbarNumerics) -> torch.Tensor:
+            cfg: CrossbarNumerics,
+            config: CrossbarConfig | None = None) -> torch.Tensor:
     """The kernel on int32 codes [M, K] and int8 digits [D, N, kp]."""
     m, k = xq.shape
     if not k:                       # an empty sum; nothing to launch
         return torch.zeros((m, n), dtype=torch.float32, device=xq.device)
+    bn, kc = crossbar_plan(k, n, digits.shape[0], cfg, config)
     if digits.device != xq.device or digits.dtype != torch.int8 \
             or digits.shape[1:] != (n, kp) \
             or not 1 <= digits.shape[0] <= MAX_DIGITS \
@@ -272,11 +295,11 @@ def _launch(xq: torch.Tensor, digits: torch.Tensor, kp: int, n: int,
         fn = _build.c_function(
             "crossbar_mvm", "crossbar_matmul_quantized_i8", (
                 _P, _P, _I, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
-                ctypes.c_float, ctypes.c_float, ctypes.c_float, _P))
+                ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P))
         _build.check(fn(xq.data_ptr(), digits.data_ptr(), digits.shape[0],
                         out.data_ptr(), m, k, n, cfg.rows_per_xbar, kp,
                         cfg.in_bits, cfg.full_scale, cfg.lsb, cfg.inv_lsb,
-                        stream_ptr(xq)), "crossbar_matmul_quantized")
+                        bn, kc, stream_ptr(xq)), "crossbar_matmul_quantized")
         crossbar_matmul_quantized.launches += 1
     return out
 
@@ -292,39 +315,63 @@ def crossbar_matmul_quantized(xq: torch.Tensor, wq: torch.Tensor,
     Returns the integer-domain [M, N] float32 sum (the caller rescales).
     Raises, on every device, for codes off the 1/8 grid or whose partials
     leave f32 exactness and for in_bits above MAX_IN_BITS (``check_codes``:
-    one read of the codes, which also picks the number of int8 digits)."""
+    one read of the codes, which also picks the number of int8 digits),
+    and for a launch choice (``bn``/``depth``) that does not fit the
+    card."""
     _check_xq(xq, wq)
-    _validate_blocks(xq.shape[1], cfg, bm, bn, depth)
+    config = _validate_blocks(xq.shape[1], cfg, bm, bn, depth)
     ndigits = check_codes(wq, cfg)
+    if config is not None:
+        crossbar_plan(xq.shape[1], wq.shape[1], ndigits, cfg, config)
     if xq.device.type == "cpu":
         return crossbar_matmul_quantized_plain(xq, wq, cfg)
     digits, kp = digit_tiles(conductance_digits(wq, ndigits),
                              cfg.rows_per_xbar)
-    return _launch(xq, digits, kp, wq.shape[1], cfg)
+    return _launch(xq, digits, kp, wq.shape[1], cfg, config)
 
 
 crossbar_matmul_quantized.launches = 0
 
 
 def crossbar_matmul_programmed(xq: torch.Tensor, codes: Conductances,
-                               cfg: CrossbarNumerics) -> torch.Tensor:
+                               cfg: CrossbarNumerics,
+                               config: CrossbarConfig | None = None
+                               ) -> torch.Tensor:
     """``crossbar_matmul_quantized`` of ``xq`` against programmed weights
     (``program_conductances`` with the same ``cfg``): on the card the
     kernel multiplies ``codes.digits`` with no read of the codes; on the
-    CPU the plain version multiplies ``codes.wq``. Raises, on every
-    device, for in_bits above MAX_IN_BITS."""
+    CPU the plain version multiplies ``codes.wq``. ``config``: the launch
+    choice (None: the default plan). Raises, on every device, for
+    in_bits above MAX_IN_BITS; a choice that does not fit the card raises
+    ``ValueError`` (on the CPU, checked for one digit)."""
     _check_xq(xq, codes.wq)
     check_in_bits(cfg)
     if xq.device.type == "cpu":
+        if config is not None:
+            crossbar_plan(xq.shape[1], codes.wq.shape[1], 1, cfg, config)
         return crossbar_matmul_quantized_plain(xq, codes.wq, cfg)
     if codes.digits is None:
         raise ValueError("codes were not programmed on xq's device")
-    return _launch(xq, codes.digits, codes.kp, codes.wq.shape[1], cfg)
+    return _launch(xq, codes.digits, codes.kp, codes.wq.shape[1], cfg,
+                   config)
 
 
-def _programmed_matmul(x, codes: Conductances, cfg) -> torch.Tensor:
+def _programmed_matmul(x, codes: Conductances, cfg,
+                       config=None) -> torch.Tensor:
     xq, xs = quantize_inputs(x, cfg)
-    return crossbar_matmul_programmed(xq, codes, cfg) * (xs * codes.w_scale)
+    return crossbar_matmul_programmed(xq, codes, cfg, config) * (
+        xs * codes.w_scale)
+
+
+def _resolve(x, w, cfg, bm, bn, depth, tuned) -> CrossbarConfig:
+    """The launch choice of ``crossbar_matmul``: explicit ``bn``/``depth``
+    first, then ``tuned``, the tuning registry, the default."""
+    explicit = _validate_blocks(x.shape[1], cfg, bm, bn, depth)
+    geom = CrossbarGeometry(m=int(x.shape[0]), k=int(x.shape[1]),
+                            n=int(w.shape[1]),
+                            rows_per_xbar=cfg.rows_per_xbar,
+                            in_bits=cfg.in_bits)
+    return _registry.resolve(geom, explicit, tuned)
 
 
 def crossbar_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -337,12 +384,12 @@ def crossbar_matmul(x: torch.Tensor, w: torch.Tensor,
     x: [M, K] float (clipped at 0); w: [K, N]; ``w_noise``: optional
     [K, N] conductance-code perturbation on the 1/8 grid, ignored on the
     ideal path."""
-    _refuse_tuned(tuned)
     if cfg.ideal:
         return x.float() @ w.float()
     check_matmul_shapes(x, w)
-    _validate_blocks(x.shape[1], cfg, bm, bn, depth)
-    return _programmed_matmul(x, program_conductances(w, cfg, w_noise), cfg)
+    config = _resolve(x, w, cfg, bm, bn, depth, tuned)
+    return _programmed_matmul(x, program_conductances(w, cfg, w_noise), cfg,
+                              config)
 
 
 def crossbar_matmul_signed(x: torch.Tensor, w: torch.Tensor,
@@ -354,12 +401,11 @@ def crossbar_matmul_signed(x: torch.Tensor, w: torch.Tensor,
     """Signed activations: two DAC passes recombined digitally; one
     ``w_noise`` draw is shared by both (same programmed arrays: the
     weights are programmed once)."""
-    _refuse_tuned(tuned)
     if cfg.ideal:
         return x.float() @ w.float()
     check_matmul_shapes(x, w)
-    _validate_blocks(x.shape[1], cfg, bm, bn, depth)
+    config = _resolve(x, w, cfg, bm, bn, depth, tuned)
     codes = program_conductances(w, cfg, w_noise)
-    pos = _programmed_matmul(torch.clamp_min(x, 0.0), codes, cfg)
-    neg = _programmed_matmul(torch.clamp_min(-x, 0.0), codes, cfg)
+    pos = _programmed_matmul(torch.clamp_min(x, 0.0), codes, cfg, config)
+    neg = _programmed_matmul(torch.clamp_min(-x, 0.0), codes, cfg, config)
     return pos - neg

@@ -10,6 +10,12 @@ composed path:
   * ``pallas`` — the hand-written kernel (the name is the reference's: its
     backend of hand-written kernels).
 
+The kernel's launch choice is its warps per block (``AggregateConfig``, 8
+by default): an explicit ``warps`` wins, else the ``TunedKernels`` bundle
+passed via ``tuned=`` (threaded from ``GNNConfig.tuned``), else the
+process-wide tuning registry, else the default (``tuning.registry.resolve``).
+Every choice gives the same bits. The reference's feature block ``bf`` has
+no counterpart (the kernel pads nothing): it is validated and ignored.
 ``csr_aggregate.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -18,11 +24,11 @@ import ctypes
 
 import torch
 
+from ...tuning import registry as _registry
+from ...tuning.space import AggregateConfig, AggregateGeometry
 from .. import _build
+from ..launch_plans import check_warps
 from .ref import csr_aggregate_ref
-
-DEFAULT_BF = 128
-
 
 def _validate_bf(bf) -> None:
     """An explicit ``bf=0`` is a caller bug, not a default request."""
@@ -60,11 +66,16 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def csr_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor,
+                  config: AggregateConfig | None = None) -> torch.Tensor:
     """Weighted neighbor-feature aggregation ``z[i] = sum_s w[i,s] *
     x[nbr[i,s]]`` (slot order). x: [N, F] float32; neighbors: [Nd, S]
-    int32 in [0, N); weights: [Nd, S] float32. Returns [Nd, F] float32."""
+    int32 in [0, N); weights: [Nd, S] float32. Returns [Nd, F] float32.
+    ``config``: the launch choice (warps per block; None: 8); a choice the
+    kernel does not have raises ``ValueError`` on every device."""
     check_gather_inputs(x, neighbors, weights)
+    warps = (config or AggregateConfig()).warps
+    check_warps(warps)
     if x.device.type == "cpu":
         return csr_aggregate_ref(x, neighbors, weights)
     nd, s = neighbors.shape
@@ -73,10 +84,10 @@ def csr_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
         fn = _build.c_function("csr_aggregate", "csr_aggregate_f32", (
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p))
+            ctypes.c_int, ctypes.c_void_p))
         _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
                         weights.data_ptr(), out.data_ptr(), nd, s,
-                        x.shape[1], stream_ptr(x)), "csr_aggregate")
+                        x.shape[1], warps, stream_ptr(x)), "csr_aggregate")
         csr_aggregate.launches += 1
     return out
 
@@ -86,15 +97,22 @@ csr_aggregate.launches = 0
 
 def aggregate(x: torch.Tensor, neighbors: torch.Tensor,
               weights: torch.Tensor, backend: str = "jnp",
-              bf: int | None = None) -> torch.Tensor:
+              bf: int | None = None, warps: int | None = None,
+              tuned=None) -> torch.Tensor:
     """Weighted neighbor aggregation ``Z = sum_s w[:, s] * X[nbr[:, s]]``.
 
     ``bf`` is kept for the reference's contract (a non-positive value
-    raises); the kernel's column slice is fixed at 128 and results do not
-    depend on it."""
+    raises); the kernel pads nothing and results do not depend on it. On
+    ``pallas`` the kernel's warps per block resolve from ``warps``, then
+    ``tuned``, the tuning registry and the default."""
     _validate_bf(bf)
     if backend == "jnp":
         return csr_aggregate_ref(x, neighbors, weights)
     if backend != "pallas":
         raise ValueError(f"unknown aggregation backend {backend!r}")
-    return csr_aggregate(x, neighbors, weights)
+    geom = AggregateGeometry(nd=int(neighbors.shape[0]), n=int(x.shape[0]),
+                             f=int(x.shape[1]),
+                             sample=int(neighbors.shape[1]))
+    config = _registry.resolve(
+        geom, None if warps is None else AggregateConfig(int(warps)), tuned)
+    return csr_aggregate(x, neighbors, weights, config=config)

@@ -23,6 +23,16 @@ launches in ``<wrapper>.launches``. ``fused_gnn_layer`` is the layer the
 ``fused`` backend runs: one launch on the ideal path; zmax, the global
 scales, the weight codes and the quant kernel on the bit-accurate one.
 No padding to a block grid is needed: the kernels mask ragged edges.
+
+The launch choices of the ideal and the quant layer (``FusedConfig``: a
+block's rows ``bm`` and columns ``bn``, K's chunk ``depth``; 0 keeps the
+default plan's; ``kernels.launch_plans`` computes every launch's plan,
+the default's too, and the launcher only checks that it fits) resolve in
+``fused_gnn_layer`` from its explicit ``config``, then ``tuned``, the
+tuning registry and the default
+(``tuning.registry.resolve``); every choice gives the same bits. The
+reference's lane block ``bf`` has no counterpart: it is validated and
+ignored.
 """
 from __future__ import annotations
 
@@ -30,12 +40,15 @@ import ctypes
 
 import torch
 
+from ...tuning import registry as _registry
+from ...tuning.space import FusedConfig, FusedGeometry
 from .. import _build
+from ..launch_plans import ideal_resolve, passes, quant_resolve
 # the programming helpers live with the crossbar; re-exported for the
 # quant layer's callers
 from ..crossbar_mvm.ops import (DIGIT_BASE, GRID, MAX_DIGITS,  # noqa: F401
                                 Conductances, _check_exact_partials,
-                                check_in_bits, check_noise_grid,
+                                _digits_for, check_in_bits, check_noise_grid,
                                 conductance_digits, digit_count,
                                 digit_tiles, program_conductances,
                                 tile_depth)
@@ -72,26 +85,46 @@ def fused_ideal_layer_plain(x, neighbors, weights, w, b, *,
     return torch.clamp_min(h, 0.0) if relu else h
 
 
+def _is_default(config) -> bool:
+    return config is None or config == FusedConfig()
+
+
+def ideal_plan_args(f: int, h: int, config: FusedConfig | None) -> tuple:
+    """(bm, bn, kc) of the ideal layer's launch plan for ``config`` (None:
+    the default plan); raises ``ValueError`` where the choice does not fit
+    the card."""
+    c = config or FusedConfig()
+    pl = ideal_resolve(f, h, c.bm, c.bn, c.depth)
+    return pl.bm, pl.bn, pl.kc
+
+
 def fused_ideal_layer(x: torch.Tensor, neighbors: torch.Tensor,
                       weights: torch.Tensor, w: torch.Tensor,
-                      b: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
+                      b: torch.Tensor, *, relu: bool = False,
+                      config: FusedConfig | None = None) -> torch.Tensor:
     """``act((A_hat @ X) @ W + b)`` in one kernel, ideal float numerics.
 
     x: [N, F]; neighbors/weights: [Nd, S]; w: [F, H]; b: [H].
-    Returns [Nd, H] float32."""
+    Returns [Nd, H] float32. ``config``: the launch choice (None: the
+    default plan); one that does not fit the card raises ``ValueError``
+    on every device."""
     _check_layer(x, neighbors, weights, w, b)
+    nd, s = neighbors.shape
+    f, h = w.shape
+    if not _is_default(config) and f and h:
+        ideal_plan_args(f, h, config)   # an illegal choice raises anywhere
     if x.device.type == "cpu":
         return fused_ideal_layer_plain(x, neighbors, weights, w, b,
                                        relu=relu)
-    nd, s = neighbors.shape
-    f, h = w.shape
     out = torch.empty((nd, h), dtype=torch.float32, device=x.device)
     if nd and h:
+        plan = ideal_plan_args(f, h, config)
         fn = _build.c_function("fused_layer", "fused_ideal_layer_f32", (
-            _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P))
+            _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
+            _I, _I, _P))
         _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
                         weights.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        out.data_ptr(), nd, s, f, h, int(relu),
+                        out.data_ptr(), nd, s, f, h, int(relu), *plan,
                         stream_ptr(x)), "fused_ideal_layer")
         fused_ideal_layer.launches += 1
     return out
@@ -153,11 +186,24 @@ def fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
     return torch.clamp_min(h, 0.0) if relu else h
 
 
+def quant_plan_args(f: int, h: int, ndigits: int, cfg: CrossbarNumerics,
+                    config: FusedConfig | None) -> tuple:
+    """(bn, mt, kc, carry) of the quant layer's launch plan for ``config``
+    (None: the default plan) and ``ndigits`` conductance digits; raises
+    ``ValueError`` where the choice does not fit the card."""
+    c = config or FusedConfig()
+    pl = quant_resolve(ndigits, passes(cfg.in_bits), h, cfg.rows_per_xbar,
+                       tile_depth(f, cfg.rows_per_xbar), c.bm, c.bn,
+                       c.depth)
+    return pl.bn, pl.mt, pl.kc, int(pl.carry)
+
+
 def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
                       weights: torch.Tensor, codes: Conductances,
                       b: torch.Tensor, scales: torch.Tensor,
                       cfg: CrossbarNumerics, *,
-                      relu: bool = False) -> torch.Tensor:
+                      relu: bool = False,
+                      config: FusedConfig | None = None) -> torch.Tensor:
     """Bit-accurate fused layer on programmed conductance codes.
 
     codes: ``program_conductances`` of the layer's [F, H] weights (on the
@@ -173,7 +219,9 @@ def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
     by a whole step. Raises, on every device, where the partials leave f32
     exactness and for in_bits above MAX_IN_BITS (30). Any depth: DAC codes
     wider than a byte take passes of 8 bit planes, and where the digits do
-    not fit the kernel's shared memory it stages K in chunks."""
+    not fit the kernel's shared memory it stages K in chunks. ``config``:
+    the launch choice (None: the default plan); one that does not fit
+    the card for these codes raises ``ValueError`` on every device."""
     wq = codes.wq
     _check_layer(x, neighbors, weights, wq, b)
     if scales.shape != (3,) or scales.dtype != torch.float32 \
@@ -181,26 +229,31 @@ def fused_quant_layer(x: torch.Tensor, neighbors: torch.Tensor,
         raise ValueError("scales must be float32 [3] on x's device")
     _check_exact_partials(cfg)
     check_in_bits(cfg)
+    nd, s = neighbors.shape
+    f, h = wq.shape
     if x.device.type == "cpu":
+        if not _is_default(config) and f and h:  # the card's digits
+            top = float(wq.abs().max()) if wq.numel() else 0.0
+            quant_plan_args(f, h, _digits_for(
+                top, bool((wq == torch.round(wq)).all())), cfg, config)
         return fused_quant_layer_plain(x, neighbors, weights, wq, b, scales,
                                        cfg, relu=relu)
     if codes.digits is None or codes.digits.device != x.device:
         raise ValueError("codes were not programmed on x's device")
-    nd, s = neighbors.shape
-    f, h = wq.shape
     out = torch.empty((nd, h), dtype=torch.float32, device=x.device)
     if nd and h:
+        plan = quant_plan_args(f, h, codes.digits.shape[0], cfg, config)
         fn = _build.c_function("fused_layer", "fused_quant_layer_f32", (
             _P, _P, _P, _P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
             _I, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_float, _I,
-            _P))
+            _I, _I, _I, _I, _P))
         _build.check(fn(x.data_ptr(), neighbors.data_ptr(),
                         weights.data_ptr(), codes.digits.data_ptr(),
                         codes.digits.shape[0], b.data_ptr(),
                         scales.data_ptr(), out.data_ptr(), nd, s, f, h,
                         cfg.rows_per_xbar, codes.kp, cfg.in_bits,
                         cfg.full_scale, cfg.lsb, cfg.inv_lsb, int(relu),
-                        stream_ptr(x)), "fused_quant_layer")
+                        *plan, stream_ptr(x)), "fused_quant_layer")
         fused_quant_layer.launches += 1
     return out
 
@@ -228,17 +281,31 @@ def quant_operands(zmax: torch.Tensor, w: torch.Tensor,
 def fused_gnn_layer(x: torch.Tensor, neighbors: torch.Tensor,
                     weights: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     cfg: CrossbarNumerics = CrossbarNumerics(ideal=True),
-                    *, relu: bool = False,
+                    *, relu: bool = False, bf: int | None = None,
+                    config: FusedConfig | None = None, tuned=None,
                     w_noise: torch.Tensor | None = None) -> torch.Tensor:
     """``act((A_hat @ X) @ W + b)`` with Z kept out of device memory.
 
     Matches ``ref.fused_layer_ref`` for ideal and bit-accurate ``cfg``.
-    ``w_noise``: optional [F, H] conductance-code perturbation, ignored on
-    the ideal path; on every device it must be multiples of 1/GRID, as
+    The launch choice is ``config``, else ``tuned`` (a ``TunedKernels``),
+    the tuning registry and the default, looked up by this launch's
+    ``FusedGeometry``. ``bf`` (the reference's lane block) is validated and
+    ignored: the kernels pad nothing. ``w_noise``: optional [F, H]
+    conductance-code perturbation, ignored on the ideal path; on every
+    device it must be multiples of 1/GRID, as
     ``devices.sample_conductance_noise`` draws them (raises otherwise)."""
+    if bf is not None and int(bf) < 1:
+        raise ValueError(f"bf must be a positive lane block, got {bf!r} "
+                         f"(pass None for the default)")
+    geom = FusedGeometry(nd=int(neighbors.shape[0]), n=int(x.shape[0]),
+                         f_in=int(x.shape[1]), f_out=int(w.shape[1]),
+                         sample=int(neighbors.shape[1]), ideal=cfg.ideal,
+                         rows_per_xbar=cfg.rows_per_xbar)
+    config = _registry.resolve(geom, config, tuned)
     if cfg.ideal:
-        return fused_ideal_layer(x, neighbors, weights, w, b, relu=relu)
+        return fused_ideal_layer(x, neighbors, weights, w, b, relu=relu,
+                                 config=config)
     zmax = fused_zmax(x, neighbors, weights)
     codes, scales = quant_operands(zmax, w, cfg, w_noise)
     return fused_quant_layer(x, neighbors, weights, codes, b, scales, cfg,
-                             relu=relu)
+                             relu=relu, config=config)

@@ -40,9 +40,20 @@ picks the frontier's membership test (``topk``: numpy on the host,
 ``--metrics PATH`` / ``--trace PATH`` turn the port's telemetry on and
 write the metrics registry / the span trees as JSONL on exit.
 
+``--tune`` tunes the plan's kernel launches on the card before serving
+(``repro_torch.tuning``; winners cache to ``--tune-cache``). At the end of
+a run the CLI prints the paper's cost model for the plan's setting
+(``T_compute``, ``T_comm``, ``P``; ``--tech NAME[+NAME]`` prices it on a
+device technology through the mapper), the mapper-derived ``T_compute``,
+the compiled crossbar mapping under ``--mapping``, and the cost model's
+guideline: these price the paper's modeled in-memory edge devices, not
+the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.gnn --setting centralized \
+      --tune --mapping --tech reram
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-host. Not ported yet: ``--plan auto``, ``--tech``, ``--tune``,
-``--mapping`` and the cost-model report lines.
+host (``--tune`` needs the card). Not ported yet: ``--plan auto``.
 """
 from __future__ import annotations
 
@@ -54,7 +65,7 @@ import torch
 
 from .. import telemetry as tel
 from .._device import resolve_device
-from ..core import dataset_like, gnn
+from ..core import costmodel, dataset_like, gnn
 from ..core.partition import ExecutionPlan, plan_execution
 from ..neighbors import SCENARIOS, scenario_graph
 
@@ -220,6 +231,20 @@ def main(argv=None) -> None:
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--mapping", action="store_true",
+                    help="print the compiled crossbar mapping report")
+    ap.add_argument("--tune", action="store_true",
+                    help="tune the plan's kernel launches on the card before "
+                         "serving (repro_torch.tuning); winners cache to "
+                         "--tune-cache")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="tuned-config cache file (default: "
+                         "results/tuned_configs_torch.json)")
+    ap.add_argument("--tech", default=None, metavar="NAME[+NAME]",
+                    help="device technology for the derived cost/mapping "
+                         "reports (sot-mram, reram, sram, fefet); a "
+                         "'spoke+head' pair prices the mapper with the "
+                         "head technology")
     ap.add_argument("--stream", type=int, default=0, metavar="TICKS",
                     help="serve a TICKS-long synthetic feature stream "
                          "through StreamingGNNServer (incremental refresh)")
@@ -241,6 +266,13 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     if args.metrics or args.trace:
         tel.enable()
+    tech = None
+    if args.tech:
+        tech = (tuple(args.tech.split("+")) if "+" in args.tech
+                else args.tech)
+        from ..devices import resolve_technology
+        for name in (tech if isinstance(tech, tuple) else (tech,)):
+            resolve_technology(name)        # typos fail here, by name
 
     if args.dataset in SCENARIOS:
         g = scenario_graph(
@@ -275,6 +307,12 @@ def main(argv=None) -> None:
               f"{ls['dense_peak_device_bytes']:,}")
     cfg = gnn.GNNConfig(in_dim=g.feature_len, hidden_dims=(args.hidden,),
                         out_dim=16, sample=args.sample)
+    if args.tune:
+        from ..tuning import DEFAULT_CACHE_PATH, TuneCache
+        cache = TuneCache.load(args.tune_cache or DEFAULT_CACHE_PATH)
+        tuned = plan.tune_kernels(cfg, cache=cache, device=device)
+        print(f"tuned {len(tuned)} kernel geometries "
+              f"(cache: {cache.path}, {len(cache)} entries)")
     if args.stream:
         stream_main(args, g, plan, cfg, device)
         return _dump_telemetry(args)
@@ -297,7 +335,31 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     print(f"served {served} lookups in {dt * 1e3:.1f} ms "
           f"({served / dt:.0f} lookups/s)")
+    print_cost_model(args, g, plan, cfg, tech)
     _dump_telemetry(args)
+
+
+def print_cost_model(args, g, plan, cfg, tech) -> None:
+    """The paper's cost model and mapper for this plan, on the modeled
+    in-memory devices (not the card): calibrated or, with ``tech``,
+    mapper-derived; the mapping report under ``--mapping``; the
+    guideline."""
+    # a per-tier pair prices the mapper with the head (compute) tier
+    head_tech = tech[-1] if isinstance(tech, tuple) else tech
+    m = plan.predicted_metrics(**(dict(mode="derived", technology=head_tech)
+                                  if tech else {}))
+    label = f"{args.setting}, {args.tech}" if tech else args.setting
+    print(f"cost model ({label}): T_compute {m.t_compute:.3e} s, "
+          f"T_comm {m.t_communicate:.3e} s, P {m.p_net * 1e3:.1f} mW")
+    mapping = plan.compile_mapping(cfg, technology=head_tech)
+    print(f"mapper-derived T_compute {mapping.t_compute:.3e} s "
+          f"({mapping.t_compute / max(m.t_compute, 1e-30):.2f}x calibrated); "
+          f"run with --mapping for the full report")
+    if args.mapping:
+        print(plan.mapping_report())    # reuses the cached mapping
+    best, _ = costmodel.pick_setting(g.stats(args.dataset),
+                                     n_clusters=plan.n_clusters)
+    print(f"cost-model guideline for this graph: {best}")
 
 
 if __name__ == "__main__":

@@ -117,10 +117,12 @@ def test_exchange_modes_give_identical_halos(case):
 
 
 def test_untranslated_plan_options_raise(case):
-    """What is not ported raises, naming its ROADMAP item; the bucketed
-    layout is ported and computes what the dense layout does (and
-    ``measured_traffic`` is ported: see the next test)."""
-    _, g = case
+    """The plan options that once raised are ported: the bucketed layout
+    computes what the dense layout does, and the cost-model prediction,
+    the crossbar mapping and kernel tuning (nothing to tune on ``jnp``)
+    answer as the reference's (``measured_traffic``: see the next
+    test)."""
+    g_jx, g = case
     cfg = gnn.GNNConfig(in_dim=8, sample=8)
     params = gnn.init_params(cfg, seed=0, device="cpu")
     bucketed = plan_execution(g, "decentralized", sample=8, n_clusters=3,
@@ -130,10 +132,13 @@ def test_untranslated_plan_options_raise(case):
     np.testing.assert_array_equal(
         bucketed.scatter(bucketed.make_forward(cfg, device="cpu")(params)),
         plan.scatter(plan.make_forward(cfg, device="cpu")(params)))
-    for call in (lambda: plan.tune_kernels(cfg), plan.predicted_metrics,
-                 plan.compile_mapping):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    plan_jx = jx_plan_execution(g_jx, "decentralized", sample=8,
+                                n_clusters=3)
+    assert dataclasses.asdict(plan.predicted_metrics()) == \
+        dataclasses.asdict(plan_jx.predicted_metrics())
+    assert plan.mapping_report() == plan_jx.mapping_report()
+    tuned = plan.tune_kernels(cfg, device="cpu")
+    assert len(tuned) == 0 and plan.gnn_config(cfg).tuned is tuned
 
 
 @pytest.mark.parametrize("mode", ["allgather", "alltoall"])

@@ -43,6 +43,8 @@ from repro_torch.kernels.fused_layer import (fused_gnn_layer,
                                              fused_layer_ref,
                                              fused_quant_layer, fused_zmax)
 from repro_torch.kernels.fused_layer import ops as fl_ops
+from repro_torch.tuning import (CamConfig, CamGeometry, CrossbarConfig,
+                                CrossbarGeometry, TunedKernels)
 
 QUANT = dict(in_bits=8, w_bits=8, adc_bits=12, rows_per_xbar=64)
 IDEAL = dict(ideal=True)
@@ -297,8 +299,14 @@ def test_crossbar_quantized_wrapper_is_its_plain_version_on_cpu():
             pt_xbar.crossbar_matmul_quantized(*_t(xq, wq), cfg, **bad)
     with pytest.raises(TypeError):
         pt_xbar.crossbar_matmul_quantized(*_t(xq.astype(np.int64), wq), cfg)
-    with pytest.raises(NotImplementedError, match="tuning"):
-        pt_xbar.crossbar_matmul(*_t(np.abs(wq.T), wq), cfg, tuned={})
+    # a tuned bundle is honoured and changes nothing (on the card neither)
+    x, w = _t(np.ascontiguousarray(np.abs(wq.T)), wq)
+    geom = CrossbarGeometry(m=x.shape[0], k=x.shape[1], n=w.shape[1],
+                            rows_per_xbar=cfg.rows_per_xbar,
+                            in_bits=cfg.in_bits)
+    tuned = TunedKernels.of({geom.key(): CrossbarConfig(bn=16, depth=1)})
+    assert torch.equal(pt_xbar.crossbar_matmul(x, w, cfg, tuned=tuned),
+                       pt_xbar.crossbar_matmul(x, w, cfg))
 
 
 @pytest.mark.parametrize("bad,numerics,match", [
@@ -403,7 +411,7 @@ def test_cam_search_matches_reference(e, q):
     np.testing.assert_array_equal(match.numpy(), np.asarray(ref_match))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
     for backend in ("jnp", "pallas"):
-        m2, c2 = search(*_t(ci, queries), backend=backend, bq=4, be=64)
+        m2, c2 = search(*_t(ci, queries), backend=backend, bq=4, be=128)
         assert torch.equal(m2, match) and torch.equal(c2, counts)
     if q:
         assert int(counts[queries < 0].abs().sum()) == 0
@@ -415,8 +423,11 @@ def test_cam_search_contract_errors_and_scan():
     for bad in (dict(bq=0), dict(be=-128)):
         with pytest.raises(ValueError):
             search(ci, queries, backend="pallas", **bad)
-    with pytest.raises(NotImplementedError, match="tuning"):
-        search(ci, queries, backend="pallas", tuned={})
+    tuned = TunedKernels.of({CamGeometry(e=8, q=2).key():
+                             CamConfig(bq=16, be=512)})
+    for got, want in zip(search(ci, queries, backend="pallas", tuned=tuned),
+                         search(ci, queries, backend="pallas")):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match="backend"):
         search(ci, queries, backend="mosaic")
     with pytest.raises(TypeError):
