@@ -140,6 +140,38 @@ Phases, each printing its lines, each failing the run on any error:
          --tune-cache <tmp> --mapping --tech reram`` and holds its
          cost-model and mapper lines equal to the same plan's in this
          process. E2 and E3 must launch every kernel.
+       * path F, the planner (``repro_torch.planner``), host code whose
+         plans are served on the kernels: F1 runs ``plan`` model-only on
+         the statistics of taxi and the four Table-2 datasets under the
+         three objectives, static and mixed (churn 0.01, 64 lookups a
+         tick), each recommendation the exhaustive argmin of
+         ``score_candidate`` (taxi mixed must recommend semi), then the
+         CLI's measured phase on collab 1.0 (shortlist 2), the ranking
+         unchanged by it; F2, the load loops of ``benchmarks/load_serve.py
+         --auto`` at collab 0.1 on ``fused`` with the ``cam-pallas``
+         frontier, for centralized, decentralized 8, semi 4 x 4 (``eager``)
+         and the planner's recommendation with a ``ReplanMonitor``
+         attached: a closed loop, then an open loop of Poisson arrivals at
+         0.8 of the closed loop's capacity, each 64 requests of 16 lookups
+         with a tick of 1 % churn every 4 requests; every lookup served,
+         percentiles monotone, a commit in the loops, the final embeddings
+         equal to a centralized ``jnp`` forward of the mutated graph within
+         1e-4 * max|ref|; F3, a pinned decentralized 8 ``pallas`` plan
+         under a ``ReplanMonitor(window=2, tol=2.0, cooldown=1)``: 4
+         ticks of 1 % churn, then ticks of 90 % until drift re-plans and
+         swaps the plan on the card (measured above tol x reference,
+         measured churn above 4x the assumed, a new configuration); F3b,
+         a drift fed through ``observe`` with samples of the mixed
+         workload swaps a pinned centralized server to the bucketed
+         recommendation; after each swap the parameters are the same
+         tensors, the first commit is a full refresh the ledger skips,
+         the new backend's kernel launches and the lookups equal a fresh
+         ``jnp`` forward of the live graph; F4 runs ``python -m
+         repro_torch.launch.gnn --plan auto --dataset collab --scale 0.1``
+         and the same with ``--stream 8 --neighbor-mode cam-pallas`` (at
+         once), each one's summary equal to the same ``plan(...)`` made in
+         this process. Over path F ``fused_ideal_layer`` and
+         ``cam_search`` must launch.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -187,6 +219,7 @@ import torch  # noqa: E402
 from repro_torch import devices, neighbors  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.core import dataset_like, gnn, random_graph  # noqa: E402
+from repro_torch.core.graph import TABLE2_DATASETS, TAXI_STATS  # noqa: E402
 from repro_torch.core.partition import plan_execution  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
@@ -201,6 +234,11 @@ from repro_torch.kernels.fused_layer import ops as fl  # noqa: E402
 from repro_torch.launch import gnn as cli  # noqa: E402
 from repro_torch.launch.gnn import GNNServer  # noqa: E402
 from repro_torch.neighbors import knn  # noqa: E402
+from repro_torch.planner import (OBJECTIVES, Candidate,  # noqa: E402
+                                 CommitSample, PlanContext,
+                                 ReplanMonitor, WorkloadProfile,
+                                 candidate_space, plan,
+                                 score_candidate)
 from repro_torch.streaming import (StreamingGNNServer,  # noqa: E402
                                    expand_frontier)
 from repro_torch import tuning  # noqa: E402
@@ -1581,6 +1619,396 @@ def path_e4(device) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------------ path F
+
+# the load loops of benchmarks/load_serve.py --auto: 64 requests of 16
+# lookups a loop, a churn tick of 1 % of the rows every 4 requests; the
+# planner's mixed workload prices the same 64 lookups a tick
+F_REQUESTS, F_BATCH, F_TICK_EVERY, F_CHURN = 64, 16, 4, 0.01
+F_MIXED = dict(churn=F_CHURN, queries_per_tick=F_BATCH * F_TICK_EVERY)
+# F3: the drift set-up of tests/test_planner.py at collab 0.1
+F3_QUIET, F3_SPIKE, F3_MAX_SPIKES = 4, 0.9, 8
+PATH_F = ("fused_ideal_layer", "cam_search")
+# the kernel each backend the planner can pick launches (the default
+# candidate space offers ``fused`` only; ``jnp`` launches none)
+BACKEND_KERNEL = {"fused": "fused_ideal_layer", "pallas": "csr_aggregate"}
+
+
+def path_f1(g) -> None:
+    """F1: ``plan`` model-only on the paper's statistics under the three
+    objectives and a static and a mixed workload, each recommendation the
+    exhaustive argmin of ``score_candidate``; then the CLI's measured
+    phase on the concrete collab 1.0 graph."""
+    t0 = time.perf_counter()
+    n_plans = 0
+    for name, st in {"taxi": TAXI_STATS, **TABLE2_DATASETS}.items():
+        for wl_name, wl in (("static", WorkloadProfile()),
+                            ("mixed", WorkloadProfile(**F_MIXED))):
+            recs = []
+            for objective in OBJECTIVES:
+                r = plan(st, objective, wl, shortlist=0)
+                ctx = PlanContext(st, wl)
+                best = min((score_candidate(c, ctx, objective)
+                            for c in candidate_space(st, workload=wl)),
+                           key=lambda s: s.sort_key)
+                require(best.candidate == r.recommended.candidate
+                        and best.score == r.recommended.score,
+                        f"F1 {name} {wl_name} {objective}: the "
+                        f"recommendation is not the exhaustive argmin")
+                recs.append(f"{objective} {r.recommended.candidate.key}")
+                n_plans += 1
+                if (name, wl_name, objective) == ("taxi", "mixed",
+                                                  "throughput"):
+                    require(r.recommended.candidate.setting == "semi",
+                            "F1: the taxi mixed workload does not "
+                            "recommend semi")
+            print(f"[pathF] F1 {name} {wl_name}: {len(r.scored)} "
+                  f"candidates; " + "; ".join(recs), flush=True)
+    print(f"[pathF] F1 {n_plans} model-only plans, each the exhaustive "
+          f"argmin of score_candidate: {time.perf_counter() - t0:.2f} s "
+          f"(host)", flush=True)
+    wl = WorkloadProfile(**F_MIXED, sample=SAMPLE)
+    t0 = time.perf_counter()
+    model = plan(g, "throughput", wl, shortlist=0)
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    measured = plan(g, "throughput", wl, shortlist=2)
+    t_measured = time.perf_counter() - t0
+    rec = measured.recommended
+    require([s.candidate.key for s in model.scored]
+            == [s.candidate.key for s in measured.scored]
+            and "bytes_full_refresh" in rec.metrics,
+            "F1: the measured phase did not run or changed the ranking")
+    m = rec.metrics
+    print(f"[pathF] F1 collab 1.0 ({g.n_nodes} nodes), throughput, churn "
+          f"{F_CHURN}, {wl.queries_per_tick:.0f} lookups a tick: "
+          f"recommended {rec.candidate.key}, {len(measured.frontier)} of "
+          f"{len(measured.scored)} on the frontier; model phase "
+          f"{t_model:.2f} s, with the measured phase over a shortlist of 2 "
+          f"{t_measured:.2f} s (host); measured bytes a full refresh "
+          f"{m['bytes_full_refresh']:,.0f}, a tick "
+          f"{m.get('bytes_per_tick', 0.0):,.0f}, padding ratio "
+          f"{m['padding_ratio']:.3f}, peak device bytes (layout) "
+          f"{m['peak_device_bytes']:,.0f}", flush=True)
+
+
+def f_tick(srv, rng, frac: float = F_CHURN):
+    nodes, rows = churn_rows(rng, srv.engine.graph, frac)
+    return srv.ingest(nodes=nodes, rows=rows)
+
+
+def closed_loop(srv, rng, monitor=None) -> dict:
+    """One client, batches back to back: latency is service time."""
+    lats, served = [], 0
+    t0 = time.perf_counter()
+    for i in range(F_REQUESTS):
+        if i % F_TICK_EVERY == 0:
+            f_tick(srv, rng)
+        ids = rng.integers(0, srv.engine.graph.n_nodes, F_BATCH)
+        t = time.perf_counter()
+        served += len(srv.query(ids))
+        lats.append(time.perf_counter() - t)
+        if monitor is not None:
+            monitor.note_queries(F_BATCH)
+    wall = time.perf_counter() - t0
+    return dict(lats=lats, served=served, wall=wall, qps=served / wall)
+
+
+def open_loop(srv, rng, rate: float, monitor=None) -> dict:
+    """Poisson arrivals at ``rate`` batches a second on a virtual clock:
+    a request starts when it arrives or when the server is free, and its
+    latency includes the wait (commits block the serving thread)."""
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, F_REQUESTS))
+    free, lats, served = 0.0, [], 0
+    for i, arr in enumerate(arrivals):
+        if i % F_TICK_EVERY == 0:
+            t = time.perf_counter()
+            f_tick(srv, rng)
+            free = max(free, arr) + (time.perf_counter() - t)
+        ids = rng.integers(0, srv.engine.graph.n_nodes, F_BATCH)
+        start = max(arr, free)
+        t = time.perf_counter()
+        served += len(srv.query(ids))
+        free = start + (time.perf_counter() - t)
+        lats.append(free - arr)
+        if monitor is not None:
+            monitor.note_queries(F_BATCH)
+    return dict(lats=lats, served=served)
+
+
+def percentiles(lats) -> tuple:
+    return tuple(float(v) for v in np.percentile(
+        np.asarray(lats, np.float64) * 1e3, [50, 95, 99]))
+
+
+def fresh_jnp(srv, cfg, params, device) -> np.ndarray:
+    """A centralized ``jnp`` forward of the server's live graph."""
+    cent = plan_execution(srv.engine.graph, "centralized", backend="jnp",
+                          sample=SAMPLE)
+    return cent.scatter(cent.make_forward(cfg, device=device)(params))
+
+
+def f2_config(label, plan_, policy, cfg, params, device, f_totals,
+              result=None) -> None:
+    """One configuration under the closed and then the open loop on the
+    ``cam-pallas`` frontier; with ``result``, a ``ReplanMonitor`` of it
+    attached."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = {}
+
+    def serve():
+        srv = StreamingGNNServer(plan_, cfg, params=params, policy=policy,
+                                 frontier_mode="cam-pallas", device=device)
+        mon = (ReplanMonitor(result).attach(srv) if result is not None
+               else None)
+        box["cold"] = srv.refresh()
+        rng = np.random.default_rng(29)
+        box["closed"] = closed_loop(srv, rng, mon)
+        box["rate"] = 0.8 * F_REQUESTS / box["closed"]["wall"]
+        box["open"] = open_loop(srv, rng, box["rate"], mon)
+        box["loop_commits"] = srv.commits - 1
+        srv.flush()
+        return srv, mon
+    srv, mon = counted(f"F2 {label}", serve, {k: None for k in PATH_F},
+                       f_totals)
+    peak = torch.cuda.max_memory_allocated()
+    closed, opened = box["closed"], box["open"]
+    cp, op = percentiles(closed["lats"]), percentiles(opened["lats"])
+    ref = fresh_jnp(srv, cfg, params, device)
+    ok, err, tol = close(srv.embeddings, ref, 0.0)
+    ls = srv.plan.layout_stats()
+    served = closed["served"] + opened["served"]
+    print(f"[pathF] F2 {label}: cold refresh {box['cold'] * 1e3:.1f} ms; "
+          f"closed {closed['qps']:.0f} lookups/s, p50/p95/p99 "
+          + "/".join(f"{v:.3f}" for v in cp) + " ms; open at "
+          f"{box['rate']:.1f} requests/s p50/p95/p99 "
+          + "/".join(f"{v:.3f}" for v in op) + f" ms; {served} lookups, "
+          f"{srv.commits} commits ({box['loop_commits']} in the loops, "
+          f"{srv.full_refreshes} full), "
+          f"{len(mon.events) if mon is not None else 0} re-plans; padding "
+          f"ratio {ls['padding_ratio']:.3f}, peak device bytes "
+          f"{ls['peak_device_bytes']:,} (layout), "
+          f"{peak / 1e6:.1f} MB allocated at most on the card; vs jnp of "
+          f"the mutated graph max|err| {err:.3e} (tol {tol:.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(served == 2 * F_REQUESTS * F_BATCH,
+            f"F2 {label}: {served} lookups served")
+    require(cp[0] <= cp[1] <= cp[2] and op[0] <= op[1] <= op[2],
+            f"F2 {label}: percentiles not monotone")
+    require(box["loop_commits"] >= 1, f"F2 {label}: no commit in the loops")
+    require(ok, f"F2 {label}: embeddings differ from the fresh forward")
+
+
+def path_f2(g01, plan_d, plan_s, cfg, params, device, f_totals) -> None:
+    """F2: the load loops on ``fused`` for centralized, decentralized 8
+    and semi 4 x 4 at collab 0.1, then the planner's recommendation with
+    a ``ReplanMonitor`` attached."""
+    for label, base in (
+            ("centralized", plan_execution(g01, "centralized",
+                                           sample=SAMPLE)),
+            ("decentralized 8", plan_d), ("semi 4x4", plan_s)):
+        f2_config(f"{label} fused eager",
+                  own_feats(dataclasses.replace(base, backend="fused")),
+                  "eager", cfg, params, device, f_totals)
+    t0 = time.perf_counter()
+    result = plan(g01, "throughput", WorkloadProfile(**F_MIXED,
+                                                     sample=SAMPLE),
+                  shortlist=2)
+    rec = result.recommended.candidate
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_auto = own_feats(result.build_plan(g01))
+    print(f"[pathF] F2 planner at collab 0.1: {rec.key} (plan {t_plan:.2f} "
+          f"s, build {time.perf_counter() - t0:.2f} s, host)", flush=True)
+    f2_config(f"planner {rec.key}", plan_auto, rec.policy, cfg, params,
+              device, f_totals, result=result)
+
+
+def param_tensors(srv) -> list:
+    return [t for layer in srv.params for t in layer.values()]
+
+
+def check_swap(tag, srv, mon, params, tensors, cfg, device, f_totals,
+               backend_kernel: str) -> None:
+    """After a swap: the server's and the new engine's parameters are the
+    same tensors on the card; the first commit is a full refresh the
+    ledger skips; the new backend's kernel launches; lookups equal a
+    fresh ``jnp`` forward of the live graph."""
+    require(srv.params is params and srv.engine.params is params
+            and param_tensors(srv) == tensors
+            and all(t.device.type == device.type for t in tensors),
+            f"{tag}: the swap did not keep the parameter tensors")
+    skipped = mon.ledger.full_skipped
+
+    def after():
+        rng = np.random.default_rng(37)
+        for _ in range(2):
+            f_tick(srv, rng)
+        return srv.flush()
+    first = counted(f"{tag} after the swap", after, {backend_kernel: None},
+                    f_totals)
+    require(first is not None and first.full
+            and mon.ledger.full_skipped == skipped + 1,
+            f"{tag}: the first commit after the swap is not a skipped full "
+            f"refresh")
+    ids = np.arange(srv.engine.graph.n_nodes)
+    ok, err, tol = close(srv.query(ids), fresh_jnp(srv, cfg, params,
+                                                   device), 0.0)
+    print(f"[pathF] {tag}: serving {srv.plan.setting}/{srv.plan.backend} "
+          f"on {srv.plan.n_clusters} clusters"
+          + (f", bucketed ({srv.plan.bucketed.n_buckets} buckets)"
+             if srv.plan.bucketed is not None else "")
+          + f", policy {srv.policy}; parameters the same tensors on the "
+          f"card; first commit after the swap full, {first.seconds * 1e3:.1f}"
+          f" ms, skipped by the ledger; lookups vs jnp of the live graph "
+          f"max|err| {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    require(ok, f"{tag}: swapped embeddings differ from the fresh forward")
+
+
+def timed_swaps(srv) -> list:
+    """Record the host seconds of each ``srv.update_plan`` call."""
+    secs, update = [], srv.update_plan
+
+    def timed(plan_, cfg_=None):
+        t0 = time.perf_counter()
+        update(plan_, cfg_)
+        secs.append(time.perf_counter() - t0)
+    srv.update_plan = timed
+    return secs
+
+
+def path_f3(g01, cfg, params, device, f_totals) -> None:
+    """F3: a pinned decentralized ``pallas`` plan under ``eager``, a
+    ``ReplanMonitor(window=2, tol=2.0, cooldown=1, shortlist=0)``, quiet
+    ticks then churn spikes until drift re-plans and swaps the plan on the
+    card; then F3b, a drift fed through ``observe`` with samples of the
+    mixed workload, which swaps a pinned centralized server to the
+    planner's bucketed recommendation."""
+    wl = WorkloadProfile(churn=F_CHURN, queries_per_tick=0, sample=SAMPLE)
+    pinned = plan(g01.stats("collab 0.1"), "throughput", workload=wl,
+                  space=[Candidate("decentralized", "pallas", 8)])
+    srv = StreamingGNNServer(pinned.build_plan(g01), cfg, params=params,
+                             policy="eager", device=device)
+    tensors = param_tensors(srv)
+    mon = ReplanMonitor(pinned, window=2, tol=2.0, cooldown=1, shortlist=0)
+    swaps, observed = timed_swaps(srv), []
+
+    def observer(server, update):
+        t0 = time.perf_counter()
+        mon(server, update)
+        observed.append(time.perf_counter() - t0)
+    srv.add_observer(observer)
+    rng = np.random.default_rng(31)
+
+    def drive():
+        srv.refresh()
+        for _ in range(F3_QUIET):
+            f_tick(srv, rng)
+        require(not mon.events, "F3: drift during the quiet ticks")
+        spikes = 0
+        while not mon.events and spikes < F3_MAX_SPIKES:
+            f_tick(srv, rng, F3_SPIKE)
+            spikes += 1
+        return spikes
+    spikes = counted("F3 pinned decentralized 8 pallas", drive,
+                     {"csr_aggregate": None}, f_totals)
+    require(mon.events, f"F3: no drift after {spikes} ticks of "
+            f"{F3_SPIKE} churn")
+    ev = mon.events[0]
+    new = mon.result
+    print(f"[pathF] F3 event at commit {ev.tick} after {spikes} spike "
+          f"ticks: {ev.reason} measured {ev.measured:.6g} vs reference "
+          f"{ev.reference:.6g} (tol {mon.tol}); measured churn "
+          f"{ev.workload.churn:.4f}; {ev.old.key} -> {ev.new.key} "
+          f"(score {new.recommended.score:.3e} s modeled, best "
+          f"decentralized {new.best('decentralized').score:.3e} s), "
+          f"swapped {ev.swapped}; host seconds: observer "
+          f"{observed[-1]:.3f} (re-plan, the new plan's build, the swap), "
+          f"swap (update_plan) {swaps[-1] if swaps else 0.0:.3f}",
+          flush=True)
+    require(ev.measured > ev.reference * mon.tol, "F3: event in band")
+    require(ev.workload.churn > 4 * wl.churn,
+            "F3: the measured churn is not above 4x the assumed")
+    require((ev.new.setting, ev.new.n_clusters, ev.new.backend)
+            != (ev.old.setting, ev.old.n_clusters, ev.old.backend),
+            "F3: the re-plan kept the pinned configuration")
+    require(ev.swapped and srv.plan.setting == ev.new.setting,
+            "F3: the plan was not swapped")
+    check_swap("F3", srv, mon, params, tensors, cfg, device, f_totals,
+               BACKEND_KERNEL[ev.new.backend])
+    del srv
+
+    pinned = plan(g01.stats("collab 0.1"), "throughput",
+                  workload=WorkloadProfile(**F_MIXED, sample=SAMPLE),
+                  space=[Candidate("centralized", "fused", 1)])
+    srv = StreamingGNNServer(own_feats(pinned.build_plan(g01)), cfg,
+                             params=params, policy="eager", device=device)
+    tensors = param_tensors(srv)
+    swaps = timed_swaps(srv)
+    mon = ReplanMonitor(pinned, window=2, tol=2.0, cooldown=1, shortlist=0)
+    srv.refresh()
+    t0 = time.perf_counter()
+    for seconds in (0.01, 0.01, 0.05, 0.05):
+        ev = mon.observe(CommitSample(seconds, 0.0, F_CHURN, queries=64,
+                                      policy="eager"), server=srv)
+    t_obs = time.perf_counter() - t0
+    require(ev is not None and ev.swapped
+            and ev.new.layout == "bucketed" and srv.plan.bucketed is not None,
+            f"F3b: no swap to a bucketed plan ({ev})")
+    print(f"[pathF] F3b injected drift: {ev.reason} {ev.measured:.3g} vs "
+          f"{ev.reference:.3g}; {ev.old.key} -> {ev.new.key}; host seconds: "
+          f"observe {t_obs:.3f} (re-plan, build, swap), swap "
+          f"(update_plan) {swaps[-1]:.3f}", flush=True)
+    srv.add_observer(mon)
+    check_swap("F3b", srv, mon, params, tensors, cfg, device, f_totals,
+               BACKEND_KERNEL[ev.new.backend])
+
+
+def path_f4(g01) -> None:
+    """F4: ``python -m repro_torch.launch.gnn --plan auto`` on collab 0.1,
+    static and with ``--stream 8 --neighbor-mode cam-pallas`` (both at
+    once); each one's ``planner[...]`` summary equals ``summary()`` of the
+    same ``plan(...)`` call made here."""
+    t0 = time.perf_counter()
+    runs = {"static": ([], "latency", 0.0),
+            "stream": (["--stream", "8", "--neighbor-mode", "cam-pallas"],
+                       "throughput", 0.05)}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {}
+    try:
+        for k, (extra, _, _) in runs.items():
+            procs[k] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.gnn", "--plan",
+                 "auto", "--dataset", "collab", "--scale", "0.1", *extra],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=ROOT)
+        want = {k: plan(g01, objective, WorkloadProfile(
+                    churn=churn, queries_per_tick=16.0, sample=SAMPLE),
+                    shortlist=2).summary().splitlines()
+                for k, (_, objective, churn) in runs.items()}
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            require(p.returncode == 0, f"F4 {k}: the CLI failed:\n{err}")
+            lines = out.splitlines()
+            require(lines[:len(want[k])] == want[k],
+                    f"F4 {k}: the CLI's summary differs from the "
+                    f"in-process one:\n{out}")
+            served = [ln for ln in lines if ln.startswith(("served",
+                                                           "plan:"))]
+            print(f"[pathF] F4 CLI --plan auto {k}: exit 0; "
+                  f"{want[k][1].strip()}; summary ({len(want[k])} lines) equal in-process; "
+                  + "; ".join(served), flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"[pathF] F4 {time.perf_counter() - t0:.1f} s (both CLIs at once)",
+          flush=True)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1967,6 +2395,20 @@ def main() -> None:
     for k, v in e_totals.items():
         totals[k] += v
     path_e4(device)
+
+    # ---- path F: the planner, the load loops with its monitor, re-plans
+    t0 = time.perf_counter()
+    f_totals = {k: 0 for k in KERNELS}
+    path_f1(g)
+    path_f2(g01, plan_d, plan_s, cfg, params, device, f_totals)
+    path_f3(g01, cfg, params, device, f_totals)
+    path_f4(g01)
+    print(f"[pathF] launches over path F {json.dumps(f_totals)}; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    require(all(f_totals[k] > 0 for k in PATH_F),
+            "a kernel of path F never launched")
+    for k, v in f_totals.items():
+        totals[k] += v
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
     require(all(v > 0 for v in totals.values()),

@@ -52,8 +52,18 @@ the card.
   PYTHONPATH=src python -m repro_torch.launch.gnn --setting centralized \
       --tune --mapping --tech reram
 
+``--plan auto`` lets ``repro_torch.planner`` choose the setting, backend,
+cluster count and refresh policy for the workload the flags describe
+(``--churn`` under ``--stream``, ``--batch`` lookups a tick, ``--sample``;
+objective ``throughput`` under ``--stream``, ``latency`` otherwise;
+within ``--tech`` when given) and prints its summary before serving; it
+follows the recommendation's neighbor mode unless ``cam-pallas`` was
+asked for:
+
+  PYTHONPATH=src python -m repro_torch.launch.gnn --plan auto --stream 8
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-host (``--tune`` needs the card). Not ported yet: ``--plan auto``.
+host (``--tune`` needs the card).
 """
 from __future__ import annotations
 
@@ -253,6 +263,10 @@ def main(argv=None) -> None:
     ap.add_argument("--policy", default="eager",
                     choices=("eager", "interval", "bounded-staleness"),
                     help="stream mode: refresh policy")
+    ap.add_argument("--plan", default="manual", dest="plan_mode",
+                    choices=("manual", "auto"),
+                    help="auto: let repro_torch.planner pick setting/"
+                         "backend/clusters/policy for this workload")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="enable telemetry; dump the metrics registry "
                          "(counters/gauges/histograms + audit events) as "
@@ -287,6 +301,23 @@ def main(argv=None) -> None:
     else:
         g = dataset_like(args.dataset, scale=args.scale,
                          seed=0).gcn_normalize()
+    if args.plan_mode == "auto":
+        from ..planner import WorkloadProfile, plan as plan_search
+        wl = WorkloadProfile(
+            churn=args.churn if args.stream else 0.0,
+            queries_per_tick=float(args.batch),
+            sample=args.sample)
+        objective = "throughput" if args.stream else "latency"
+        result = plan_search(g, objective, workload=wl, shortlist=2,
+                             **(dict(technologies=(tech,)) if tech else {}))
+        print(result.summary())
+        rec = result.recommended.candidate
+        args.setting, args.backend = rec.setting, rec.backend
+        args.clusters, args.policy = rec.n_clusters, rec.policy
+        if args.neighbor_mode != "cam-pallas":
+            # keep an explicit kernel request; otherwise follow the
+            # planner's priced neighbor_mode axis
+            args.neighbor_mode = rec.neighbor_mode
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     k = args.clusters or (n_dev if args.setting == "decentralized" else 4)
     buckets = args.buckets if args.buckets in ("auto", "off") \
