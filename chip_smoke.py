@@ -172,6 +172,32 @@ Phases, each printing its lines, each failing the run on any error:
          once), each one's summary equal to the same ``plan(...)`` made in
          this process. Over path F ``fused_ideal_layer`` and
          ``cam_search`` must launch.
+       * path G, training (``gnn.grad_fn``, ``repro_torch.optim``,
+         ``repro_torch.checkpoint``) and the paper's §4.2 taxi case study
+         (``core.taxi``), on the plain PyTorch ops, as the reference trains
+         on its ``jnp`` backend: G1, 8 AdamW steps of the GNN at collab
+         1.0 (F 496 -> 64 -> 16, ideal numerics) on labels a linear map of
+         the features predicts (argmax X·R), the loss finite and falling;
+         ``grad_fn`` on the card against the host at collab 0.1 at the
+         initial weights (every leaf within rtol 1e-4, atol 1e-4 *
+         max|g_host|), and at the trained weights, which vary from run to
+         run, printed with the count of layer-1 ReLU masks that flip
+         between card and host; one bit-accurate
+         ``grad_fn`` at collab 1.0 with finite, non-zero gradients; the
+         trained weights saved by ``save_checkpoint``, restored onto the
+         card equal (``torch.equal``) and served by ``GNNServer`` on
+         ``fused`` and ``pallas`` within 1e-4 * max|ref| of ``jnp``. G2,
+         the forecaster at the paper's size (``TaxiConfig()``, 10,000
+         nodes, the example's three random edge types): 150 AdamW steps
+         (lr 3e-3, warm-up 10), the loss finite and lower at the end,
+         whether it halved (the example's LEARNED) printed; ``taxi.grad_fn``
+         on the card against the host (loss rtol 1e-5, every leaf atol
+         1e-4 * max|g_host|). Then the ms of a training step of G1 and G2
+         (host clock between device syncs, median after the first) beside
+         the card line. G3 runs ``python -m
+         repro_torch.examples.taxi_forecast --nodes 10000 --steps 150``,
+         its Table-1 lines equal to the cost model's in this process. Over
+         path G ``fused_ideal_layer`` and ``csr_aggregate`` must launch.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -242,6 +268,13 @@ from repro_torch.planner import (OBJECTIVES, Candidate,  # noqa: E402
 from repro_torch.streaming import (StreamingGNNServer,  # noqa: E402
                                    expand_frontier)
 from repro_torch import tuning  # noqa: E402
+from repro_torch import _tree  # noqa: E402
+from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
+                                    save_checkpoint)
+from repro_torch.core import taxi  # noqa: E402
+from repro_torch.examples import taxi_forecast  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
+                               adamw_update)
 from repro_torch.tuning import (AggregateGeometry, CamGeometry,  # noqa: E402
                                 CrossbarGeometry, FusedGeometry, TuneCache,
                                 candidates, default_config, plan_geometries,
@@ -2009,6 +2042,284 @@ def path_f4(g01) -> None:
           flush=True)
 
 
+# ------------------------------------------------------------------ path G
+
+# G1: AdamW steps of GNN training at collab 1.0 (jnp backend, ideal)
+G1_STEPS = 8
+G1_OPT = AdamWConfig(lr=1e-2, weight_decay=0.0, warmup=1)
+# G2: the example's training of the taxi forecaster at the paper's size
+G2_STEPS = 150
+G2_OPT = AdamWConfig(lr=3e-3, weight_decay=0.0, warmup=10)
+PATH_G = ("fused_ideal_layer", "csr_aggregate")
+
+
+def learnable_labels(x: torch.Tensor, n_classes: int, seed: int):
+    """[N] int32 classes a linear map of the features predicts: the argmax
+    of X·R for a seeded R [F, n_classes]."""
+    gen = torch.Generator().manual_seed(seed)
+    r = torch.randn((x.shape[1], n_classes), generator=gen).to(x.device)
+    return torch.argmax(x @ r, dim=-1).to(torch.int32)
+
+
+def train(grad, params, opt_cfg: AdamWConfig, steps: int) -> tuple:
+    """(params, losses, ms per step): ``steps`` AdamW steps of
+    ``grad(params, step) -> (loss, grads)``, each on the host clock
+    between two device syncs."""
+    opt = adamw_init(params)
+    losses, times = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = grad(params, step)
+        params, opt, _ = adamw_update(params, grads, opt, opt_cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    require(all(np.isfinite(losses)), f"a training loss is not finite: "
+            f"{losses}")
+    require(losses[-1] < losses[0], f"training did not lower the loss: "
+            f"{losses[0]} -> {losses[-1]}")
+    require(not any(t.requires_grad for t in _tree.leaves(params)),
+            "trained parameters hold a graph")
+    return params, losses, times
+
+
+def leaf_errors(got, ref, rtol: float) -> tuple:
+    """(every leaf of ``got`` (card) within rtol and atol 1e-4 * max|ref
+    leaf| of ``ref`` (host), the largest error over its leaf's max|ref|)."""
+    ok, worst = True, 0.0
+    for a, b in zip(_tree.leaves(got), _tree.leaves(ref)):
+        scale = float(b.abs().max()) or 1.0
+        diff = (a.cpu() - b).abs()
+        ok = ok and bool((diff <= 1e-4 * scale + rtol * b.abs()).all())
+        worst = max(worst, float(diff.max()) / scale)
+    return ok, worst
+
+
+def g1_card_vs_host(tag: str, params, host: tuple, device, cfg) -> bool:
+    """``gnn.grad_fn`` on the card against the host on the same weights
+    and graph: prints the losses, the largest leaf error and how many
+    layer-1 pre-activations have another sign on the card than on the
+    host (there the ReLU's mask flips, and layer 1's gradients differ by
+    that element's whole contribution). Returns whether the losses agree
+    within rtol 1e-4 and every leaf within rtol 1e-4, atol 1e-4 *
+    max|g_host|."""
+    p_host = _tree.tree_map(lambda t: t.cpu(), params)
+    on_card = tuple(t.to(device) for t in host)
+    loss_d, g_d = gnn.grad_fn(params, *on_card, cfg)
+    loss_h, g_h = gnn.grad_fn(p_host, *host, cfg)
+    with torch.no_grad():
+        pre_d = gnn.layer_step(*on_card[:3], params[0], cfg, act=False)
+        pre_h = gnn.layer_step(*host[:3], p_host[0], cfg, act=False)
+    flips = int(((pre_d > 0).cpu() != (pre_h > 0)).sum())
+    ok, worst = leaf_errors(g_d, g_h, rtol=1e-4)
+    ok = ok and abs(float(loss_d) - float(loss_h)) <= 1e-4 * abs(
+        float(loss_h))
+    print(f"[pathG] G1 grad_fn at collab 0.1 ({host[0].shape[0]} nodes), "
+          f"{tag}, card vs host: loss {float(loss_d):.6f} / "
+          f"{float(loss_h):.6f}, largest leaf error {worst:.3e} of max|g| "
+          f"(tol 1e-4), {flips} of {pre_h.numel()} layer-1 ReLU masks "
+          f"flipped", flush=True)
+    return ok
+
+
+def median_ms(times: list) -> float:
+    return float(np.median(times[1:]))
+
+
+def kernel_name(name: str) -> str:
+    """A kernel's name without its return type, template and arguments."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
+
+
+def step_profile(tag: str, fn) -> None:
+    """One call of ``fn`` (a training step) under ``torch.profiler``: its
+    host ms (profiler on), the kernels' summed device ms over it (the
+    device-busy share) and the three kernels that take most, from its
+    chrome trace (``chiprun_out/train_step_<tag>.json``)."""
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(ROOT, "chiprun_out", f"train_step_{tag}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            kernels = [e for e in json.load(fh)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    else:
+        print(f"[pathG] {tag}: the step's kernel time not measured (the "
+              f"profiler's trace held no kernel, 3 tries)", flush=True)
+        return
+    by_name: dict = {}
+    for e in kernels:
+        k = kernel_name(e["name"])
+        by_name[k] = by_name.get(k, 0.0) + float(e["dur"]) / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[pathG] {tag} one training step under torch.profiler: "
+          f"{wall_ms:.3f} ms on the host clock, {len(kernels)} kernels, "
+          f"{busy:.3f} ms of kernel time (device-busy share "
+          f"{busy / wall_ms:.3f}); most: "
+          + "; ".join(f"{k} {ms:.3f} ms ({ms / busy:.2f})" for k, ms in top)
+          + f"; trace chiprun_out/{os.path.basename(path)}", flush=True)
+
+
+def path_g1(plan_c, x1, nbr, wts, g01, device) -> float:
+    """GNN training at full width: AdamW steps at collab 1.0, the card's
+    gradients against the host's at collab 0.1, one bit-accurate gradient,
+    a checkpoint round trip of the trained weights and their serving on
+    the hand-written kernels. Returns ms per training step."""
+    cfg = gnn.GNNConfig(in_dim=x1.shape[1], hidden_dims=(HIDDEN,),
+                        out_dim=OUT, sample=SAMPLE)
+    labels = learnable_labels(x1, OUT, seed=0)
+    initial = gnn.init_params(cfg, seed=1, device=device)
+    params, losses, times = train(
+        lambda p, _: gnn.grad_fn(p, x1, nbr, wts, labels, cfg), initial,
+        G1_OPT, G1_STEPS)
+    print(f"[pathG] G1 collab 1.0 ({x1.shape[0]} nodes, {cfg.dims}): "
+          f"{G1_STEPS} AdamW steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    step_profile("G1", lambda: adamw_update(
+        params, gnn.grad_fn(params, x1, nbr, wts, labels, cfg)[1],
+        adamw_init(params), G1_OPT))
+
+    # the card's gradients against the host's at collab 0.1: held at the
+    # initial weights, the same in every run; the trained ones differ from
+    # run to run (index_add_ sums the gather gradients with atomics), and
+    # where a layer-1 pre-activation of theirs lies within rounding of 0
+    # its ReLU mask flips between card and host: reported
+    nb01, wt01 = g01.neighbor_sample(SAMPLE)
+    host = (torch.from_numpy(g01.features), torch.from_numpy(nb01),
+            torch.from_numpy(wt01))
+    host = (*host, learnable_labels(host[0], OUT, seed=0))
+    require(g1_card_vs_host("initial weights", initial, host, device, cfg),
+            "G1: the card's gradients at collab 0.1 are off the host's")
+    g1_card_vs_host("trained weights (reported)", params, host, device, cfg)
+
+    # the bit-accurate gradient flows through the DAC and weight scales
+    cfg_q = dataclasses.replace(cfg, numerics=CrossbarNumerics())
+    loss_q, g_q = gnn.grad_fn(params, x1, nbr, wts, labels, cfg_q)
+    peaks = [float(t.abs().max()) for t in _tree.leaves(g_q)]
+    require(np.isfinite(float(loss_q))
+            and all(bool(torch.isfinite(t).all()) for t in _tree.leaves(g_q))
+            and all(m > 0 for m in peaks),
+            f"G1: bit-accurate gradients not finite and non-zero: {peaks}")
+    print(f"[pathG] G1 bit-accurate grad_fn at collab 1.0: loss "
+          f"{float(loss_q):.4f}, max|g| per leaf "
+          f"{', '.join(f'{m:.3g}' for m in peaks)}", flush=True)
+
+    # a checkpoint round trip onto the card, then serving on the kernels
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, G1_STEPS, params)
+        restored, step = restore_checkpoint(
+            d, _tree.tree_map(torch.zeros_like, params))
+    require(step == G1_STEPS and all(
+        torch.equal(a, b) and b.device == a.device
+        for a, b in zip(_tree.leaves(params), _tree.leaves(restored))),
+        "G1: the restored checkpoint differs from the trained weights")
+    ref = GNNServer(dataclasses.replace(plan_c, backend="jnp"), cfg,
+                    params=restored, device=device)
+    ref.refresh()
+    scale = float(np.abs(ref.embeddings).max())
+    for backend in ("fused", "pallas"):
+        srv = GNNServer(dataclasses.replace(plan_c, backend=backend), cfg,
+                        params=restored, device=device)
+        t = srv.refresh()
+        diff = np.abs(srv.embeddings - ref.embeddings)
+        ok = bool((diff <= 1e-4 * scale
+                   + 1e-4 * np.abs(ref.embeddings)).all())
+        print(f"[pathG] G1 trained weights served on {backend}: refresh "
+              f"{t * 1e3:.1f} ms, max|err| {float(diff.max()):.3e} vs jnp "
+              f"(tol {1e-4 * scale:.3e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        require(ok, f"G1: the trained weights served on {backend} "
+                f"disagree with jnp")
+    return median_ms(times)
+
+
+def taxi_graphs(n: int, cfg, device) -> tuple:
+    """The example's three edge types, ``random_graph(n, 6 n, 1, seed=r)``,
+    as [R, n, S] neighbor and weight tables on ``device``."""
+    tables = [random_graph(n, n * 6, 1, seed=r).gcn_normalize()
+              .neighbor_sample(cfg.sample) for r in range(cfg.n_edge_types)]
+    return tuple(torch.from_numpy(np.stack(t)).to(device)
+                 for t in zip(*tables))
+
+
+def path_g2(device) -> float:
+    """The taxi forecaster at the paper's size: the example's AdamW
+    training on the card, then the card's gradients against the host's.
+    Returns ms per training step."""
+    cfg = taxi.TaxiConfig()
+    n = TAXI_STATS.n_nodes
+    nbr, wts = taxi_graphs(n, cfg, device)
+    stream = taxi.synthetic_stream(0, n, G2_STEPS + cfg.p_hist
+                                   + cfg.q_future, cfg, device=device)
+
+    def batch(step: int) -> tuple:
+        x_hist = stream[step:step + cfg.p_hist]
+        target = stream[step + cfg.p_hist:step + cfg.p_hist + cfg.q_future]
+        return x_hist, target.permute(1, 0, 2).reshape(
+            n, cfg.q_future, cfg.m, cfg.n)
+
+    def grad(p, step):
+        x_hist, target = batch(step)
+        return taxi.grad_fn(p, x_hist, nbr, wts, target, cfg)
+
+    params = taxi.init_params(cfg, seed=1, device=device)
+    params, losses, times = train(grad, params, G2_OPT, G2_STEPS)
+    step_profile("G2", lambda: adamw_update(
+        params, grad(params, 0)[1], adamw_init(params), G2_OPT))
+    learned = losses[-1] < 0.5 * losses[0]
+    print(f"[pathG] G2 taxi {n} nodes ({cfg}): {G2_STEPS} AdamW steps, mse "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({'LEARNED' if learned else 'no improvement'})", flush=True)
+
+    x_hist, target = batch(0)
+    loss_d, g_d = taxi.grad_fn(params, x_hist, nbr, wts, target, cfg)
+    loss_h, g_h = taxi.grad_fn(
+        _tree.tree_map(lambda t: t.cpu(), params), x_hist.cpu(), nbr.cpu(),
+        wts.cpu(), target.cpu(), cfg)
+    ok, worst = leaf_errors(g_d, g_h, rtol=0.0)
+    require(ok and abs(float(loss_d) - float(loss_h))
+            <= 1e-5 * abs(float(loss_h)),
+            f"G2: the card's loss or gradients are off the host's: mse "
+            f"{float(loss_d)} / {float(loss_h)}, leaf error {worst:.3e}")
+    print(f"[pathG] G2 grad_fn card vs host: mse {float(loss_d):.6f} / "
+          f"{float(loss_h):.6f}, largest leaf error {worst:.3e} of max|g| "
+          f"(tol 1e-4)", flush=True)
+    return median_ms(times)
+
+
+def path_g3() -> None:
+    """G3: ``python -m repro_torch.examples.taxi_forecast --nodes 10000
+    --steps 150``; its Table-1 lines equal the cost model's here."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.taxi_forecast",
+         "--nodes", str(TAXI_STATS.n_nodes), "--steps", str(G2_STEPS)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    require(out.returncode == 0, f"G3: the example failed:\n{out.stderr}")
+    lines = out.stdout.splitlines()
+    want = taxi_forecast.table1_lines()
+    require(lines[-len(want):] == want, f"G3: the example's Table-1 lines "
+            f"differ from the cost model's here:\n{out.stdout}")
+    said = [ln for ln in lines if ln.startswith(("trained", "device"))]
+    print(f"[pathG] G3 taxi_forecast example: exit 0; {'; '.join(said)}; "
+          f"Table-1 lines equal in-process; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -2408,6 +2719,23 @@ def main() -> None:
     require(all(f_totals[k] > 0 for k in PATH_F),
             "a kernel of path F never launched")
     for k, v in f_totals.items():
+        totals[k] += v
+
+    # ---- path G: training, checkpoints, the taxi case study
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    ms_g1 = path_g1(plan_c, x1, nbr, wts, g01, device)
+    ms_g2 = path_g2(device)
+    g_totals = launch_counts()
+    print(f"[pathG] ms per training step (host clock between device syncs, "
+          f"median after the first): G1 collab 1.0 {ms_g1:.3f}, G2 taxi "
+          f"{TAXI_STATS.n_nodes} nodes {ms_g2:.3f}; {card}", flush=True)
+    path_g3()
+    print(f"[pathG] launches over path G {json.dumps(g_totals)}; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    require(all(g_totals[k] > 0 for k in PATH_G),
+            "a kernel of path G never launched")
+    for k, v in g_totals.items():
         totals[k] += v
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)

@@ -1,4 +1,5 @@
-"""IMA-GNN core in PyTorch: graphs, partitions, execution plans, the GNN."""
+"""IMA-GNN core in PyTorch: graphs, partitions, execution plans, the GNN,
+the taxi case study."""
 from .graph import (Graph, GraphStats, TABLE2_DATASETS, TAXI_STATS,
                     dataset_like, random_graph)
 from .costmodel import (HardwareParams, DEFAULT_HW, NetMetrics, CoreLatency,
@@ -6,7 +7,7 @@ from .costmodel import (HardwareParams, DEFAULT_HW, NetMetrics, CoreLatency,
                         headline_averages, table1, pick_setting)
 from .partition import (ExecutionPlan, HierPartition, hier_partition,
                         plan_execution)
-from . import costmodel, gnn, partition
+from . import costmodel, gnn, partition, taxi
 
 __all__ = [
     "ExecutionPlan", "HierPartition", "hier_partition", "plan_execution",
@@ -14,5 +15,5 @@ __all__ = [
     "dataset_like", "HardwareParams", "DEFAULT_HW", "NetMetrics",
     "CoreLatency", "predict", "compute_latency", "communicate_latency",
     "power", "headline_averages", "table1", "pick_setting",
-    "costmodel", "gnn", "partition",
+    "costmodel", "gnn", "partition", "taxi",
 ]

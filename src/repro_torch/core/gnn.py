@@ -1,4 +1,4 @@
-"""GNN inference in PyTorch on the IMA-GNN dataflow.
+"""GNN inference and training in PyTorch on the IMA-GNN dataflow.
 
 The counterpart of ``repro.core.gnn``. Per layer,
   aggregation         Z = A_hat @ X       (traversal + aggregation cores)
@@ -14,8 +14,15 @@ Backends (``GNNConfig.backend``; the names are the reference's):
   * ``fused``  — both stages in the hand-written fused kernels, Z kept out
     of device memory.
 On a CPU tensor the kernels run their plain versions. Parameters are a
-list of ``{"w": [F, H], "b": [H]}`` float32 tensors; the forward keeps no
-gradient (training is not ported yet).
+list of ``{"w": [F, H], "b": [H]}`` float32 tensors.
+
+``forward`` serves and keeps no gradient. ``loss_fn`` (the mean NLL of the
+labels) runs the same layers with autograd on, on every backend;
+``grad_fn`` returns the loss and its gradients on ``jnp`` only, as the
+reference trains only there: the hand-written kernels are forward-only
+(a Pallas call has no VJP), so ``pallas`` and ``fused`` raise
+``NotImplementedError`` on every device. The ReLU's gradient at 0 is 0,
+as ``jax.nn.relu``'s.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import _tree
 from .._device import resolve_device
 from ..kernels.crossbar_mvm import CrossbarNumerics, crossbar_matmul_signed_ref
 from ..kernels.csr_aggregate import aggregate
@@ -93,7 +101,16 @@ def layer_step(h: torch.Tensor, neighbors: torch.Tensor,
     z = aggregate(h, neighbors, weights, backend=cfg.backend,
                   tuned=cfg.tuned)
     h = _transform(z, layer["w"], cfg) + layer["b"]
-    return torch.clamp_min(h, 0.0) if act else h
+    return torch.relu(h) if act else h
+
+
+def _forward(params: list, x, neighbors, weights, cfg: GNNConfig):
+    h = x
+    n_layers = len(params)
+    for i, layer in enumerate(params):
+        act = i < n_layers - 1 or cfg.final_activation
+        h = layer_step(h, neighbors, weights, layer, cfg, act)
+    return h
 
 
 @torch.no_grad()
@@ -103,9 +120,25 @@ def forward(params: list, x: torch.Tensor, neighbors: torch.Tensor,
 
     x: [N, F_in] float32; neighbors (int32) / weights (float32): [N, S]
     padded sample with self loops. Returns [N, out_dim] float32."""
-    h = x
-    n_layers = len(params)
-    for i, layer in enumerate(params):
-        act = i < n_layers - 1 or cfg.final_activation
-        h = layer_step(h, neighbors, weights, layer, cfg, act)
-    return h
+    return _forward(params, x, neighbors, weights, cfg)
+
+
+def loss_fn(params: list, x, neighbors, weights, labels,
+            cfg: GNNConfig) -> torch.Tensor:
+    """Cross-entropy node-classification loss (mean over the labeled
+    nodes); ``labels``: [N] integer classes."""
+    logits = _forward(params, x, neighbors, weights, cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[:, None]).squeeze(-1)
+    return torch.mean(nll)
+
+
+def grad_fn(params: list, x, neighbors, weights, labels, cfg: GNNConfig):
+    """(loss, gradients in the structure of ``params``), both detached.
+    Only the ``jnp`` backend is differentiable."""
+    if cfg.backend != "jnp":
+        raise NotImplementedError(
+            f"backend {cfg.backend!r} runs forward-only kernels; train on "
+            f"backend 'jnp'")
+    return _tree.value_and_grad(loss_fn, params, x, neighbors, weights,
+                                labels, cfg)

@@ -22,6 +22,12 @@ rounding tie. The ADC step ``lsb`` is a constant, and XLA rewrites the
 reference's ``p / lsb`` as ``p * (1 / lsb)`` with the float32 reciprocal;
 the ADC here multiplies by that same reciprocal (``inv_lsb``), so noisy
 partial sums (multiples of 1/8) land on the reference's codes.
+
+Gradients follow the reference's: ``round`` has none, so the codes are
+constants of the backward pass and only the scales ``xs * ws`` carry it
+(through the abs-max of the inputs and of the weights). The floors at
+1e-8 and the split of signed inputs are ``torch.maximum``, which splits
+the gradient of a tie in halves as ``jnp.maximum`` does.
 """
 from __future__ import annotations
 
@@ -78,9 +84,10 @@ def quantize_inputs(x: torch.Tensor, cfg: CrossbarNumerics):
     inputs clip to code 0; signed activations go through
     ``crossbar_matmul_signed_ref``."""
     x = x.float()
-    x_max = torch.clamp_min(x.abs().max(), 1e-8)
+    x_max = torch.maximum(x.abs().max(), _const(1e-8, x))
     scale = x_max / _const(cfg.in_levels, x)
-    codes = torch.clamp(torch.round(x / scale), 0, cfg.in_levels)
+    codes = torch.clamp(torch.round(x.detach() / scale.detach()), 0,
+                        cfg.in_levels)
     return codes.to(torch.int32), scale
 
 
@@ -88,9 +95,10 @@ def quantize_weights(w: torch.Tensor, cfg: CrossbarNumerics):
     """Symmetric weight quantization to signed conductance codes
     (float32, integer-valued) and their float32 0-dim scale."""
     w = w.float()
-    w_max = torch.clamp_min(w.abs().max(), 1e-8)
+    w_max = torch.maximum(w.abs().max(), _const(1e-8, w))
     scale = w_max / _const(cfg.w_levels, w)
-    codes = torch.clamp(torch.round(w / scale), -cfg.w_levels, cfg.w_levels)
+    codes = torch.clamp(torch.round(w.detach() / scale.detach()),
+                        -cfg.w_levels, cfg.w_levels)
     return codes, scale
 
 
@@ -166,6 +174,7 @@ def crossbar_matmul_signed_ref(x: torch.Tensor, w: torch.Tensor,
     passes and recombined digitally; one ``w_noise`` draw serves both."""
     if cfg.ideal:
         return x.float() @ w.float()
-    pos = crossbar_matmul_ref(torch.clamp_min(x, 0.0), w, cfg, w_noise)
-    neg = crossbar_matmul_ref(torch.clamp_min(-x, 0.0), w, cfg, w_noise)
+    zero = _const(0.0, x)
+    pos = crossbar_matmul_ref(torch.maximum(x, zero), w, cfg, w_noise)
+    neg = crossbar_matmul_ref(torch.maximum(-x, zero), w, cfg, w_noise)
     return pos - neg

@@ -8,6 +8,11 @@ node, ``sample`` slots of (source index, edge weight), weight 0 on padding.
 The sum runs over ``s`` in slot order, one rounded multiply and one rounded
 add per slot, which is what the CUDA kernel does; on the card the two agree
 bit for bit.
+
+The rows are gathered by ``index_select``, whose gradient (training's
+``jnp`` backend) is an ``index_add_``: the gradient of ``x[idx]`` is an
+``index_put_`` with accumulation, which on CUDA adds the rows of a
+repeated index one after another, and every padding slot repeats row 0.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ def csr_aggregate_ref(x: torch.Tensor, neighbors: torch.Tensor,
     z = torch.zeros((nbr.shape[0], x.shape[1]), dtype=torch.float32,
                     device=x.device)
     for s in range(nbr.shape[1]):
-        z = z + wts[:, s, None] * x[nbr[:, s]]
+        z = z + wts[:, s, None] * x.index_select(0, nbr[:, s])
     return z
 
 
