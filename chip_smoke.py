@@ -198,6 +198,23 @@ Phases, each printing its lines, each failing the run on any error:
          repro_torch.examples.taxi_forecast --nodes 10000 --steps 150``,
          its Table-1 lines equal to the cost model's in this process. Over
          path G ``fused_ideal_layer`` and ``csr_aggregate`` must launch.
+       * path H, the SPMD runtime (``launch.mesh``, the SPMD forwards of
+         ``distributed.halo``), on the collab 0.1 plans before path D
+         mutates them: H1 a world of one rank on NCCL, a decentralized
+         plan of one cluster through ``make_forward(mesh=...)`` on
+         ``fused`` and ``pallas``, ideal and bit-accurate, both modes,
+         equal to the emulated forward (``torch.equal``), and
+         ``compressed_psum`` of a 64 x 496 gradient; H2 8 (decentralized
+         8) and 4 (semi 4 x 4) gloo ranks sharing cuda:0 (NCCL refuses two
+         ranks on one card), spawned with their own plan rows, each
+         serving every case through ``GNNServer(mesh=...)`` (a refresh
+         and 16 batches of 16 lookups): every rank's embeddings equal the
+         emulated forward's on the card, every rank launched its
+         backend's serving kernels; refresh ms (median of 3 after one
+         warm-up), the collectives' share of a traced refresh, and the
+         bytes a rank sent a layer beside ``measured_traffic``'s tier-1
+         bytes; H3 the CLI under ``torch.distributed.run`` on 8 gloo
+         ranks, its refresh line printed once, by rank 0.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -241,6 +258,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import devices, neighbors  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
@@ -274,7 +292,9 @@ from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
 from repro_torch.core import taxi  # noqa: E402
 from repro_torch.examples import taxi_forecast  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
-                               adamw_update)
+                               adamw_update, compressed_psum, int8_compress,
+                               int8_decompress)
+from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
 from repro_torch.tuning import (AggregateGeometry, CamGeometry,  # noqa: E402
                                 CrossbarGeometry, FusedGeometry, TuneCache,
                                 candidates, default_config, plan_geometries,
@@ -2320,6 +2340,312 @@ def path_g3() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------------ path H
+
+# the SPMD runtime (launch.mesh, distributed.halo's SPMD forwards): H1 a
+# world of one rank on NCCL; H2 K ranks sharing cuda:0 over gloo (NCCL
+# refuses two ranks on one card), decentralized 8 and semi 4 x 4 at collab
+# 0.1 as D2 and F2 serve them; H3 the CLI under torch.distributed.run
+PATH_H = ("fused_ideal_layer", "fused_zmax", "fused_quant_layer",
+          "csr_aggregate")
+H_MODES = ("allgather", "alltoall")
+H_BATCHES, H_BATCH = 16, 16
+H_TIMEOUT = 120.0          # every collective's timeout, s
+H_RANK_DEVICE = "cuda:0"   # every rank's device
+H1_BACKEND = "nccl"
+H_DEADLINE = 300.0         # a spawn's or the CLI's deadline, s
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def h_cases():
+    for mode in H_MODES:
+        for backend in ("fused", "pallas"):
+            for ideal in (True, False):
+                yield mode, backend, ideal
+
+
+def h_label(mode, backend, ideal) -> str:
+    return f"{mode:9s} {backend:6s} {'ideal' if ideal else 'bit-accurate'}"
+
+
+def path_h1(g01, cfg, params, device, h_totals: dict) -> None:
+    """H1: a world of one rank on NCCL. A decentralized plan of one
+    cluster at collab 0.1 through ``make_forward(mesh=...)`` on every
+    case, equal to the emulated forward with ``torch.equal``;
+    ``compressed_psum`` of a 64 x 496 gradient equal to int8 compress
+    then decompress (one rank: the sum is its own codes, the max its own
+    scale)."""
+    t0 = time.perf_counter()
+    plan1 = plan_execution(g01, "decentralized", sample=SAMPLE,
+                           n_clusters=1)
+    mesh = make_mesh((1,), ("data",), backend=H1_BACKEND,
+                     device=H_RANK_DEVICE,
+                     init_method=f"tcp://localhost:{free_port()}", rank=0,
+                     timeout=H_TIMEOUT)
+    try:
+        for mode, backend, ideal in h_cases():
+            c = dataclasses.replace(cfg, numerics=CrossbarNumerics(
+                ideal=ideal))
+            p = dataclasses.replace(plan1, backend=backend)
+            emu = p.make_forward(c, mode=mode, device=device)(params)
+            reset_launch_counts()
+            got = p.make_forward(c, mesh=mesh, mode=mode,
+                                 device=device)(params)
+            if got.is_cuda:
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            label = h_label(mode, backend, ideal)
+            require(got.shape == emu.shape and torch.equal(got, emu),
+                    f"H1 {label}: the SPMD forward differs from the "
+                    f"emulated one")
+            for k in EXPECTED[(backend, ideal)]:
+                require(counts[k] > 0, f"H1 {label}: {k} never launched")
+            for k, v in counts.items():
+                h_totals[k] += v
+        gen = torch.Generator().manual_seed(0)
+        grad = torch.randn(64, 496, generator=gen).to(device)
+        zero = torch.zeros_like(grad)
+        mean, resid = compressed_psum(grad, zero, mesh)
+        q, scale, resid1 = int8_compress(grad, zero)
+        require(torch.equal(mean, int8_decompress(q, scale))
+                and torch.equal(resid, resid1),
+                "H1: compressed_psum on one rank differs from int8 "
+                "compress / decompress")
+    finally:
+        dist.destroy_process_group()
+    print(f"[pathH] H1 {H1_BACKEND} world of 1: decentralized 1-cluster "
+          f"plan at "
+          f"collab 0.1 ({plan1.part.n_max} rows), 8 cases equal to the "
+          f"emulated forward (torch.equal); compressed_psum 64x496 equal; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def write_shards(plan, d: str) -> None:
+    """The plan's skeleton (without its feature and neighbor tables or the
+    graph's edges and features) and each rank's own rows of those tables,
+    as files under ``d``. The ranks read them there: a spawned process
+    reads its pickled arguments only after importing the main module, so
+    large arguments would start the ranks one after another."""
+    import pickle
+    g = plan.graph
+    light = dataclasses.replace(g, indices=g.indices[:0], edge_weight=None,
+                                features=g.features[:0], self_loop=None)
+    with open(os.path.join(d, "skeleton.pkl"), "wb") as f:
+        pickle.dump(dataclasses.replace(plan, graph=light, sub=None,
+                                        feats=None, neighbors=None,
+                                        weights=None), f)
+    for r in range(plan.n_clusters):
+        np.savez(os.path.join(d, f"shard{r}.npz"), feats=plan.feats[r],
+                 nbr=plan.neighbors[r], wts=plan.weights[r])
+
+
+def read_shard(d: str, rank: int):
+    """The rank's plan: its own rows in place, the others zero (pages
+    never touched, so never allocated)."""
+    import pickle
+    with open(os.path.join(d, "skeleton.pkl"), "rb") as f:
+        skeleton = pickle.load(f)
+
+    def rows(a):
+        full = np.zeros((skeleton.n_clusters,) + a.shape, a.dtype)
+        full[rank] = a
+        return full
+    with np.load(os.path.join(d, f"shard{rank}.npz")) as z:
+        return dataclasses.replace(skeleton, feats=rows(z["feats"]),
+                                   neighbors=rows(z["nbr"]),
+                                   weights=rows(z["wts"]))
+
+
+def h2_rank(rank, world, d, cfg, dev) -> dict:
+    """One rank of H2: a ``GNNServer`` on the mesh per case, a refresh and
+    16 lookup batches of 16 ids with the launch counters at 0 before,
+    then the refresh's time (median of 3 after one warm-up) and one
+    traced refresh for the collectives' share and bytes."""
+    import hashlib
+    stamps = [time.time()]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((world,), ("data",), backend="gloo", device=dev,
+                     init_method=f"file://{os.path.join(d, 'rendezvous')}",
+                     rank=rank, timeout=H_TIMEOUT)
+    torch.zeros(1, device=mesh.device)      # the context, made here
+    stamps.append(time.time())
+    plan = read_shard(d, rank)
+    params = gnn.init_params(cfg, seed=0, device=mesh.device)
+    n = plan.graph.n_nodes
+    out = {}
+    for mode, backend, ideal in h_cases():
+        c = dataclasses.replace(cfg, numerics=CrossbarNumerics(ideal=ideal))
+        srv = GNNServer(dataclasses.replace(plan, backend=backend), c,
+                        params=params, mesh=mesh, mode=mode,
+                        device=mesh.device)
+        reset_launch_counts()
+        rng = np.random.default_rng(0)
+        for _ in range(H_BATCHES):
+            got = srv.query(rng.integers(0, n, H_BATCH))
+            require(got.shape == (H_BATCH, cfg.out_dim)
+                    and np.isfinite(got).all(),
+                    "H2: a lookup has a wrong shape or non-finite values")
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        emb = srv.embeddings
+        srv.refresh()
+        secs = sorted(srv.refresh() for _ in range(3))
+        require(np.array_equal(srv.embeddings, emb),
+                "H2: a warm refresh changed the embeddings")
+        tel.reset()
+        tel.enable()
+        traced = srv.refresh()
+        coll, gather, shipped = 0.0, 0.0, {}
+        for root in tel.get_tracer().roots:
+            for sp in root.walk():
+                if sp.name == "halo.collective":
+                    coll += sp.duration_s
+                    layer = sp.attrs["layer"]
+                    shipped[layer] = shipped.get(layer, 0) \
+                        + sp.attrs["bytes"]
+                elif sp.name == "halo.output_gather":
+                    gather += sp.duration_s
+                    shipped["out"] = shipped.get("out", 0) \
+                        + sp.attrs["bytes"]
+        tel.disable()
+        tel.reset()
+        out[(mode, backend, ideal)] = dict(
+            digest=hashlib.sha256(emb.tobytes()).hexdigest(),
+            emb=emb if rank == 0 else None, counts=counts,
+            ms=secs[1] * 1e3, traced_ms=traced * 1e3,
+            coll_ms=coll * 1e3, gather_ms=gather * 1e3, shipped=shipped)
+        del srv
+    stamps.append(time.time())
+    dist.destroy_process_group()
+    stamps.append(time.time())
+    out["stamps"] = stamps
+    return out
+
+
+def path_h2(label: str, plan, cfg, params, device, h_totals: dict,
+            card: str) -> None:
+    """H2: ``plan.n_clusters`` gloo ranks sharing cuda:0 serve ``plan``
+    through ``GNNServer(mesh=...)`` on every case; every rank's gathered
+    embeddings equal the emulated forward's on the card, and every rank
+    launched its backend's serving kernels."""
+    import hashlib
+    t0 = time.perf_counter()
+    refs, emu_ms = {}, {}
+    for key in h_cases():
+        mode, backend, ideal = key
+        c = dataclasses.replace(cfg, numerics=CrossbarNumerics(ideal=ideal))
+        srv = GNNServer(dataclasses.replace(plan, backend=backend), c,
+                        params=params, mode=mode, device=device)
+        srv.refresh()
+        refs[key] = srv.embeddings
+        emu_ms[key] = sorted(srv.refresh() for _ in range(3))[1] * 1e3
+        del srv
+    traffic = {m: plan.measured_traffic(cfg, mode=m).tier1_bytes()
+               for m in H_MODES}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        write_shards(plan, d)
+        t1 = time.perf_counter()
+        w1 = time.time()
+        res = spawn(h2_rank, plan.n_clusters, (d, cfg, H_RANK_DEVICE),
+                    deadline=H_DEADLINE)
+        t_ranks = time.perf_counter() - t1
+    # where the ranks' time went (wall clock, latest rank): started,
+    # mesh and CUDA context made, cases served, group destroyed, exited
+    st = np.array([r["stamps"] for r in res]) - w1
+    phases = (f"ranks in their function {st[:, 0].min():.1f}-"
+              f"{st[:, 0].max():.1f} s after the spawn, mesh and context "
+              f"{(st[:, 1] - st[:, 0]).max():.1f} "
+              f"s, cases {(st[:, 2] - st[:, 1]).max():.1f} s, group "
+              f"destroyed {(st[:, 3] - st[:, 2]).max():.1f} s, exit "
+              f"{t_ranks - st[:, 3].max():.1f} s")
+    for key in h_cases():
+        mode, backend, ideal = key
+        tag = f"H2 {label} {h_label(*key)}"
+        ref = refs[key]
+        want = hashlib.sha256(ref.tobytes()).hexdigest()
+        equal = all(r[key]["digest"] == want for r in res)
+        if equal:
+            verdict = "every rank equal to the emulated forward (bit for bit)"
+        else:
+            # not bit-equal: the serving gate, 1e-4 max|ref| of jnp
+            err = float(np.abs(res[0][key]["emb"] - ref).max())
+            tol = 1e-4 * (float(np.abs(ref).max()) or 1.0)
+            require(len({r[key]["digest"] for r in res}) == 1
+                    and err <= tol, f"{tag}: the SPMD embeddings differ "
+                    f"from the emulated forward: max|err| {err:.3e} "
+                    f"(tol {tol:.3e})")
+            verdict = (f"NOT bit-equal to the emulated forward: max|err| "
+                       f"{err:.3e} within the gate {tol:.3e}")
+        for rank, r in enumerate(res):
+            for k in EXPECTED[(backend, ideal)]:
+                require(r[key]["counts"][k] > 0,
+                        f"{tag}: {k} never launched on rank {rank}")
+            for k, v in r[key]["counts"].items():
+                h_totals[k] += v
+        ms = [r[key]["ms"] for r in res]
+        r0 = res[0][key]
+        share = (r0["coll_ms"] + r0["gather_ms"]) / r0["traced_ms"]
+        shipped = ", ".join(
+            f"layer {l} {r0['shipped'][l] / 1e6:.2f} MB (measured_traffic "
+            f"tier-1 {traffic[mode][l].max() / 1e6:.2f} MB)"
+            for l in range(len(cfg.dims) - 1))
+        print(f"[pathH] {tag}: refresh {r0['ms']:.1f} ms (rank 0; ranks "
+              f"{min(ms):.1f}-{max(ms):.1f}; median of 3 after a warm-up, "
+              f"host clock, device synced; the emulated forward in one "
+              f"process {emu_ms[key]:.1f} ms); traced refresh "
+              f"{r0['traced_ms']:.1f} ms, "
+              f"collectives {r0['coll_ms']:.1f} ms + output gather "
+              f"{r0['gather_ms']:.1f} ms = {share:.3f} of it; sent a rank "
+              f"a layer: {shipped}; output gather "
+              f"{r0['shipped']['out'] / 1e6:.2f} MB; {verdict}; launches "
+              f"rank 0 {json.dumps(r0['counts'])}; {card}", flush=True)
+    print(f"[pathH] H2 {label}: {plan.n_clusters} gloo ranks on "
+          f"{H_RANK_DEVICE}, spawn to exit {t_ranks:.1f} s ({phases}); "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+
+
+def path_h(g01, plan_d, plan_s, cfg, params, device, h_totals: dict,
+           card: str) -> None:
+    path_h1(g01, cfg, params, device, h_totals)
+    path_h2("decentralized 8", plan_d, cfg, params, device, h_totals, card)
+    path_h2("semi 4x4", plan_s, cfg, params, device, h_totals, card)
+    path_h3()
+
+
+def path_h3() -> None:
+    """H3: ``python -m torch.distributed.run --standalone --nproc-per-node
+    8 -m repro_torch.launch.gnn --setting decentralized --clusters 8
+    --dist-backend gloo --requests 8``: exit 0, the refresh line printed
+    once, by rank 0, on 8 gloo ranks."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "8", "-m", "repro_torch.launch.gnn",
+         "--setting", "decentralized", "--clusters", "8",
+         "--dist-backend", "gloo", "--requests", "8"],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=H_DEADLINE)
+    require(out.returncode == 0, f"H3: the CLI under torch.distributed.run "
+            f"failed (exit {out.returncode}):\n{out.stdout}\n{out.stderr}")
+    lines = [ln for ln in out.stdout.splitlines()
+             if "embedding refresh" in ln]
+    require(len(lines) == 1 and "8 clusters on 8 gloo ranks" in lines[0],
+            f"H3: want one refresh line from rank 0 on 8 gloo ranks, "
+            f"got:\n{out.stdout}")
+    print(f"[pathH] H3 torch.distributed.run, 8 gloo ranks: exit 0; "
+          f"{lines[0].strip()}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -2672,6 +2998,18 @@ def main() -> None:
     path_b(device, g01, totals)
     path_c1(g01, device, totals)
     path_c2(device, totals)
+
+    # ---- path H: the SPMD runtime, on the pristine collab 0.1 plans
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    h_totals = {k: 0 for k in KERNELS}
+    path_h(g01, plan_d, plan_s, cfg, params, device, h_totals, card)
+    print(f"[pathH] launches over path H {json.dumps(h_totals)}; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    require(all(h_totals[k] > 0 for k in PATH_H),
+            "a kernel of path H never launched")
+    for k, v in h_totals.items():
+        totals[k] += v
 
     # ---- path D: streaming serving, then the traced refresh
     t0 = time.perf_counter()

@@ -9,7 +9,8 @@ here and one written here restores there. Leaves move to the host for
 saving; bf16 and float8 leaves are stored as float32 (lossless), as the
 reference stores them. Restore verifies the checksum, falls back to the
 previous step on corruption, and places each leaf on the device and dtype
-of the matching leaf of ``like``.
+of the matching leaf of ``like``; ``CheckpointManager.restore`` can also
+place shards on a mesh.
 """
 from __future__ import annotations
 
@@ -153,11 +154,37 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def restore(self, like, mesh=None, shardings=None):
-        """Restore the latest checkpoint onto ``like``'s devices. Placing
-        shards on a mesh (the reference's elastic restore) comes with the
-        multi-card runtime."""
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh needs the multi-card runtime, which "
-                "is not ported yet")
-        return restore_checkpoint(self.dir, like)
+        """Restore the latest checkpoint onto ``like``'s devices; with both
+        ``mesh`` (a ``launch.mesh.Mesh``) and ``shardings`` (a tree like
+        ``like`` of ``launch.mesh.PartitionSpec``), place each leaf on
+        ``mesh.device`` and keep this rank's block of every dimension its
+        spec splits over the mesh's axis: what ``jax.device_put`` onto a
+        ``NamedSharding`` leaves addressable on the rank (the reference's
+        elastic restore). Either alone restores plainly, as there."""
+        tree, step = restore_checkpoint(self.dir, like)
+        if tree is None or mesh is None or shardings is None:
+            return tree, step
+        leaves, treedef = _tree.flatten(tree)
+        specs = treedef.flatten_up_to(shardings)
+        return treedef.unflatten(_place(x, s, mesh)
+                                 for x, s in zip(leaves, specs)), step
+
+
+def _place(x, spec, mesh):
+    """Leaf ``x`` on ``mesh.device``, cut to this rank's block along each
+    dimension ``spec`` names the mesh's axis on."""
+    x = torch.as_tensor(x).to(mesh.device)
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} has more entries than the leaf's "
+                         f"{x.dim()} dimensions")
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        if axis != mesh.axis:
+            raise ValueError(f"spec {spec} names {axis!r}; the mesh's one "
+                             f"axis is {mesh.axis!r}")
+        if x.shape[dim] % mesh.size:
+            raise ValueError(f"dimension {dim} of size {x.shape[dim]} does "
+                             f"not split over {mesh.size} ranks")
+        x = x.chunk(mesh.size, dim)[mesh.rank].contiguous()
+    return x

@@ -533,7 +533,8 @@ class ExecutionPlan:
 
       * ``centralized``   — one device owns the full graph (paper Fig. 4a).
       * ``decentralized`` — one cluster per device, halo exchange per layer
-        (Fig. 4b), emulated over a leading cluster axis on one card.
+        (Fig. 4b): one process a cluster on a mesh (SPMD), or emulated
+        over a leading cluster axis on one device.
       * ``semi``          — the two-tier hierarchy (paper §5): cluster heads
         each centralized over a region; spokes upload features to their
         head (tier 0), heads exchange boundary halos per layer (tier 1).
@@ -585,15 +586,21 @@ class ExecutionPlan:
                                device=device, **tune_kw)
         return self.tuned
 
-    def make_forward(self, cfg, mode: str = "alltoall",
+    def make_forward(self, cfg, mesh=None, mode: str = "alltoall",
                      overlap: str = "overlap", device="cuda"):
         """Runnable forward for this plan on ``device``:
         ``fn(params) -> [K, n_max, out]`` (a tensor on ``device``).
 
         The plan's host tables are copied to the device once, here.
-        ``mode`` picks the halo-exchange strategy (``allgather`` or
-        ``alltoall``) of the decentralized exchange and of semi's tier-1
-        head<->head exchange; centralized has none.
+        ``mesh`` (a ``launch.mesh.Mesh``) of exactly ``n_clusters`` ranks
+        selects the SPMD runtime for a dense decentralized or semi plan:
+        this process copies only its own cluster's (region's) rows to
+        ``mesh.device``, exchanges halos by collectives and returns the
+        full output on every rank; ``device`` must name the mesh's.
+        Otherwise the emulated exchange runs the same dataflow on
+        ``device``. ``mode`` picks the halo-exchange strategy
+        (``allgather`` or ``alltoall``) of the decentralized exchange and
+        of semi's tier-1 head<->head exchange; centralized has none.
 
         Bucketed plans return a *tuple* of per-bucket ``[K_b, n_cap, out]``
         tensors (``scatter`` accepts it) and run the double-buffered
@@ -608,19 +615,41 @@ class ExecutionPlan:
         accounting from ``measured_traffic``); with telemetry disabled (the
         default) the wrapper is a single flag check."""
         from ..telemetry import instrument_forward
-        fwd = self._build_forward(cfg, mode=mode, overlap=overlap,
-                                  device=device)
+        fwd = self._build_forward(cfg, mesh=mesh, mode=mode,
+                                  overlap=overlap, device=device)
         return instrument_forward(self, self.gnn_config(cfg), mode, fwd)
 
-    def _build_forward(self, cfg, mode: str = "alltoall",
+    def _spmd(self, mesh) -> bool:
+        """Whether ``make_forward`` takes the SPMD runtime on ``mesh``: a
+        mesh of ``n_clusters`` ranks and a dense decentralized or semi
+        plan, as the reference decides."""
+        return (mesh is not None and mesh.size == self.n_clusters
+                and self.setting != "centralized" and self.bucketed is None)
+
+    def _build_forward(self, cfg, mesh=None, mode: str = "alltoall",
                        overlap: str = "overlap", device="cuda"):
         import torch
 
         from ..distributed import halo
         from .._device import resolve_device
         from .gnn import forward as gnn_forward
-        dev = resolve_device(device)
         cfg = self.gnn_config(cfg)
+        if self._spmd(mesh):
+            from ..launch.mesh import mesh_device
+            dev, r = mesh_device(mesh, device), mesh.rank
+            feats = torch.from_numpy(self.feats[r]).to(dev)
+            nbr = torch.from_numpy(self.neighbors[r]).to(dev)
+            wts = torch.from_numpy(self.weights[r]).to(dev)
+            if self.setting == "semi":
+                fn = halo.make_semi_forward(
+                    mesh, cfg, halo.build_two_tier_plan(self.hier),
+                    mode=mode, axis=mesh.axis)
+            else:
+                fn = halo.make_decentralized_forward(
+                    mesh, cfg, halo.build_halo_plan(self.part),
+                    self.part.n_max, mode=mode, axis=mesh.axis)
+            return lambda params: fn(params, feats, nbr, wts)
+        dev = resolve_device(device)
         if self.bucketed is not None:
             bplan = halo.build_bucketed_halo_plan(self.bucketed)
             nbrs = tuple(torch.from_numpy(a).to(dev) for a in self.neighbors)

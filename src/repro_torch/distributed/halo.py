@@ -1,21 +1,31 @@
-"""Decentralized and two-tier semi-decentralized GNN runtimes, emulated.
+"""Decentralized and two-tier semi-decentralized GNN runtimes.
 
-The counterpart of the mesh-free runtimes of ``repro.distributed.halo``.
-One cluster per edge device; each layer needs the remote neighbor rows of
-its cluster (the paper's e_ij). The clusters lie along a leading axis of
-one tensor on one device, and the halo exchange is done as gathers over
-that axis, in either strategy:
+The counterpart of ``repro.distributed.halo``. One cluster per edge
+device; each layer needs the remote neighbor rows of its cluster (the
+paper's e_ij), exchanged in either strategy:
 
-  * ``allgather`` — each halo row is picked straight out of the stacked
-    owned tables.
-  * ``alltoall``  — each cluster packs the rows its peers need (send
-    lists), the cluster axis is transposed, and the received rows are
-    scattered into the halo table: the same tables the wire traffic is
-    billed on.
+  * ``allgather`` — every device gathers all owned tables and picks its
+    halo rows out of them.
+  * ``alltoall``  — each device sends only the rows its peers need (send
+    lists); the received rows are scattered into the halo table: the
+    same tables the wire traffic is billed on.
 
-Both give identical halos. The **semi** setting adds tier 0, the
-spoke->head gather that assembles each region's table from its spokes, and
-runs tier 1 as the decentralized exchange over the region partition.
+Both give identical halos, on both runtimes:
+
+  * the SPMD runtime (``make_decentralized_forward``,
+    ``make_semi_forward``): one process per cluster on a
+    ``launch.mesh.Mesh``, each holding only its own cluster's tables; the
+    exchange is ``torch.distributed`` collectives (``all_gather``,
+    ``all_to_all_single``) and the output is all-gathered to the full
+    ``[K, n_max, out]`` on every rank, as JAX assembles its global array.
+  * the emulated runtime: the clusters lie along a leading axis of one
+    tensor on one device and the exchange is gathers over that axis; the
+    single-process oracle, and the runtime when no mesh of ``K`` ranks
+    is given.
+
+The **semi** setting adds tier 0, the spoke->head gather that assembles
+each region's table from its spokes (local to a head's process in SPMD),
+and runs tier 1 as the decentralized exchange over the region partition.
 
 The capacity-bucketed layout (``core.partition.BucketedPartition``) runs
 one layer step per bucket over ``[K_b, n_cap + h_cap]`` tables; its halo
@@ -24,9 +34,6 @@ bucket's owned rows (``BucketedHaloPlan``). ``overlap="overlap"`` issues
 every bucket's gather of a layer on a side CUDA stream before any bucket's
 step, so the gathers run under the steps; ``"serial"`` interleaves them on
 the current stream. Both give the same values.
-
-The SPMD runtime over several cards (``torch.distributed``) is not ported
-yet.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import telemetry as tel
 from .._device import resolve_device
@@ -90,19 +98,133 @@ def build_halo_plan(part: Partition) -> HaloPlan:
                     recv_to_halo, recv_mask)
 
 
-def _plan_consts(plan: HaloPlan, device) -> dict:
+def _plan_consts(plan: HaloPlan, device, rank: int | None = None) -> dict:
     """The plan's tables on ``device``: indices as int64, masks as
-    float32 multipliers."""
-    def idx(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=device)
+    float32 multipliers. With ``rank``, only that cluster's rows
+    (shard_map's local block with its leading axis stripped)."""
+    def pick(a, dtype):
+        a = a if rank is None else np.ascontiguousarray(a[rank])
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    idx, msk = torch.int64, torch.float32
+    return dict(src_c=pick(plan.src_cluster, idx),
+                src_s=pick(plan.src_slot, idx),
+                hmask=pick(plan.halo_mask, msk),
+                send_slot=pick(plan.send_slot, idx),
+                send_mask=pick(plan.send_mask, msk),
+                recv_to_halo=pick(plan.recv_to_halo, idx),
+                recv_mask=pick(plan.recv_mask, msk))
 
-    def msk(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
-    return dict(src_c=idx(plan.src_cluster), src_s=idx(plan.src_slot),
-                hmask=msk(plan.halo_mask), send_slot=idx(plan.send_slot),
-                send_mask=msk(plan.send_mask),
-                recv_to_halo=idx(plan.recv_to_halo),
-                recv_mask=msk(plan.recv_mask))
+
+def _all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``[K, *x.shape]``: every rank's ``x`` in rank order (the list form
+    of ``all_gather``, which gloo takes for CPU and CUDA tensors)."""
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    return torch.stack(parts)
+
+
+def _exchange_allgather(x_own, src_c, src_s, mask, mesh) -> torch.Tensor:
+    full = _all_gather(x_own, mesh)                   # [K, n_max, F]
+    return full[src_c, src_s] * mask[:, None]
+
+
+def _exchange_alltoall(x_own, send_slot, send_mask, recv_to_halo, recv_mask,
+                       h_max: int, mesh) -> torch.Tensor:
+    """``all_to_all_single`` on the contiguous ``[K, s_max, F]`` send
+    block gives ``recv[j] = peer j's send[me]``, JAX's ``all_to_all``
+    with ``split_axis=concat_axis=0``. The received rows are added into
+    the halo as ``_emulated_exchange`` adds them: padding slots add exact
+    zeros to row 0, so the result does not depend on the order."""
+    send = (x_own[send_slot] * send_mask[..., None]).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group)
+    f = x_own.shape[-1]
+    halo = torch.zeros((h_max, f), dtype=x_own.dtype, device=x_own.device)
+    halo.index_put_((recv_to_halo.reshape(-1),),
+                    (recv * recv_mask[..., None]).reshape(-1, f),
+                    accumulate=True)
+    return halo
+
+
+def _spmd_layers(params, x, nbr, wts, cfg, t, mode, h_max, mesh,
+                 levels: list | None = None) -> torch.Tensor:
+    """Per-rank layer loop shared by the decentralized and semi SPMD
+    forwards (and the streaming engine's full refresh). ``t``: this rank's
+    exchange tables. With ``levels``, each layer's output is also
+    all-gathered into it as ``[K, n_max, F_l]``.
+
+    With telemetry on, each layer's exchange is a ``halo.collective`` span
+    (closed by a device sync) carrying the bytes this rank sent to its
+    peers, and its layer step a ``halo.mvm`` span."""
+    tracer = tel.get_tracer()
+    n_layers = len(params)
+    for i, layer in enumerate(params):
+        with tracer.span("halo.collective", layer=i, mode=mode) as sp:
+            if mode == "allgather":
+                halo = _exchange_allgather(x, t["src_c"], t["src_s"],
+                                           t["hmask"], mesh)
+                rows = x.shape[0]
+            else:
+                halo = _exchange_alltoall(x, t["send_slot"], t["send_mask"],
+                                          t["recv_to_halo"], t["recv_mask"],
+                                          h_max, mesh)
+                rows = t["send_slot"].shape[-1]
+            sp.add_bytes((mesh.size - 1) * rows * x.shape[-1]
+                         * x.element_size())
+            tracer.device_sync(halo, name="halo.collective.sync")
+        table = torch.cat([x, halo], dim=0)              # [n_max+h_max, F]
+        act = i < n_layers - 1 or cfg.final_activation
+        with tracer.span("halo.mvm", layer=i):
+            x = _layer_step(table, nbr, wts, layer, cfg, act)
+            tracer.device_sync(x, name="halo.mvm.sync")
+        if levels is not None:
+            levels.append(_all_gather(x, mesh))
+    return x
+
+
+def _gather_output(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The full ``[K, n_max, out]`` on every rank from each rank's
+    ``[n_max, out]``."""
+    tracer = tel.get_tracer()
+    with tracer.span("halo.output_gather") as sp:
+        out = _all_gather(x, mesh)
+        sp.add_bytes((mesh.size - 1) * x.numel() * x.element_size())
+        tracer.device_sync(out, name="halo.output_gather.sync")
+    return out
+
+
+def _check_mesh(mesh, axis: str, k: int) -> None:
+    if axis != mesh.axis:
+        raise ValueError(f"axis {axis!r} is not the mesh's {mesh.axis!r}")
+    if mesh.size != k:
+        raise ValueError(f"{k} clusters on a mesh of {mesh.size} ranks: the "
+                         f"SPMD runtime runs one cluster a rank")
+
+
+def make_decentralized_forward(mesh, cfg, plan: HaloPlan, n_max: int,
+                               mode: str = "alltoall", axis: str = "data"):
+    """The SPMD decentralized GNN forward on ``mesh`` (one cluster a
+    rank, this process's cluster being ``mesh.rank``).
+
+    Inputs, this rank's shard on ``mesh.device``:
+      feats   [n_max, F_in]   owned node features
+      nbr/wts [n_max, S]      the cluster's padded subgraph
+    Returns the full [K, n_max, out_dim] on every rank."""
+    if mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    _check_mesh(mesh, axis, plan.src_cluster.shape[0])
+    h_max = plan.src_cluster.shape[1]
+    t = _plan_consts(plan, mesh.device, mesh.rank)
+
+    @torch.no_grad()
+    def forward(params, feats, nbr, wts):
+        if feats.shape[0] != n_max:
+            raise ValueError(f"feats hold {feats.shape[0]} rows, the plan "
+                             f"{n_max}")
+        x = _spmd_layers(params, feats, nbr, wts, cfg, t, mode, h_max, mesh)
+        return _gather_output(x, mesh)
+
+    return forward
 
 
 def _emulated_exchange(x: torch.Tensor, t: dict, mode: str,
@@ -185,6 +307,18 @@ def build_two_tier_plan(hier: HierPartition) -> TwoTierPlan:
                        hier.region.n_max)
 
 
+def _tier0_consts(plan: TwoTierPlan, device,
+                  rank: int | None = None) -> dict:
+    """The tier-0 spoke->head gather tables on ``device`` (with ``rank``,
+    only that region's row)."""
+    def pick(a, dtype):
+        a = a if rank is None else np.ascontiguousarray(a[rank])
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    return dict(gspoke=pick(plan.gather_spoke, torch.int64),
+                gslot=pick(plan.gather_slot, torch.int64),
+                gmask=pick(plan.gather_mask, torch.float32))
+
+
 def make_emulated_semi_forward(cfg, plan: TwoTierPlan,
                                mode: str = "allgather", device="cuda"):
     """Two-tier semi forward on one device: the tier-0 gather, then the
@@ -195,22 +329,47 @@ def make_emulated_semi_forward(cfg, plan: TwoTierPlan,
     if mode not in EXCHANGE_MODES:
         raise ValueError(f"unknown exchange mode {mode!r}")
     h_max = plan.h_max
-    gspoke = torch.as_tensor(plan.gather_spoke, dtype=torch.int64,
-                             device=device)
-    gslot = torch.as_tensor(plan.gather_slot, dtype=torch.int64,
-                            device=device)
-    gmask = torch.as_tensor(plan.gather_mask, dtype=torch.float32,
-                            device=device)
+    t0 = _tier0_consts(plan, device)
     consts = _plan_consts(plan.region, device)
 
     @torch.no_grad()
     def forward(params, spoke_feats, nbr, wts):
         r = spoke_feats.shape[0]
         heads = torch.arange(r, device=spoke_feats.device)[:, None]
-        x = (spoke_feats[heads, gspoke, gslot]
-             * gmask[..., None])                       # tier 0: [R, n_max, F]
+        x = (spoke_feats[heads, t0["gspoke"], t0["gslot"]]
+             * t0["gmask"][..., None])                 # tier 0: [R, n_max, F]
         return _emulated_layers(params, x, nbr, wts, cfg, consts, mode,
                                 h_max)
+
+    return forward
+
+
+def make_semi_forward(mesh, cfg, plan: TwoTierPlan,
+                      mode: str = "alltoall", axis: str = "data"):
+    """The SPMD two-tier semi-decentralized forward on ``mesh`` (one
+    region head a rank).
+
+    Inputs, this rank's shard on ``mesh.device``:
+      spoke_feats [P, m_max, F_in]  the region's spoke tables
+      nbr/wts     [n_max, S]        the region's padded subgraph
+    Tier 0 assembles the head's region table from its spokes in the
+    head's own process (the access-link upload is billed by the traffic
+    accountant, not moved over the mesh); tier 1 runs the per-layer
+    head<->head exchange. Returns the full [R, n_max, out_dim] on every
+    rank."""
+    if mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    _check_mesh(mesh, axis, plan.region.src_cluster.shape[0])
+    h_max = plan.h_max
+    t0 = _tier0_consts(plan, mesh.device, mesh.rank)
+    t = _plan_consts(plan.region, mesh.device, mesh.rank)
+
+    @torch.no_grad()
+    def forward(params, spoke_feats, nbr, wts):
+        x = (spoke_feats[t0["gspoke"], t0["gslot"]]
+             * t0["gmask"][:, None])                    # tier 0: [n_max, F]
+        x = _spmd_layers(params, x, nbr, wts, cfg, t, mode, h_max, mesh)
+        return _gather_output(x, mesh)
 
     return forward
 

@@ -309,3 +309,38 @@ def fused_gnn_layer(x: torch.Tensor, neighbors: torch.Tensor,
     codes, scales = quant_operands(zmax, w, cfg, w_noise)
     return fused_quant_layer(x, neighbors, weights, codes, b, scales, cfg,
                              relu=relu, config=config)
+
+
+def fused_gnn_forward(params: list, x: torch.Tensor, neighbors: torch.Tensor,
+                      weights: torch.Tensor,
+                      cfg: CrossbarNumerics = CrossbarNumerics(ideal=True),
+                      *, final_activation: bool = False,
+                      bf: int | None = None) -> torch.Tensor:
+    """Multi-layer fused driver: the full-graph GNN forward, one fused
+    kernel launch per layer (plus the zmax pass on the bit-accurate path).
+
+    params: [{'w': [F_i, F_i+1], 'b': [F_i+1]}, ...]; x: [N, F_0];
+    neighbors/weights: [N, S]. Semantics match ``core.gnn.forward``."""
+    h = x
+    n_layers = len(params)
+    for i, layer in enumerate(params):
+        relu = i < n_layers - 1 or final_activation
+        h = fused_gnn_layer(h, neighbors, weights, layer["w"], layer["b"],
+                            cfg, relu=relu, bf=bf)
+    return h
+
+
+def fused_gnn_forward_batched(params: list, x: torch.Tensor,
+                              neighbors: torch.Tensor, weights: torch.Tensor,
+                              cfg: CrossbarNumerics = CrossbarNumerics(
+                                  ideal=True),
+                              *, final_activation: bool = False,
+                              bf: int | None = None) -> torch.Tensor:
+    """Batched multi-layer driver over a leading cluster axis.
+
+    x: [K, N, F]; neighbors/weights: [K, N, S]. Each cluster runs the fused
+    multi-layer forward on its own subgraph. Returns [K, N, out_dim]."""
+    return torch.stack([
+        fused_gnn_forward(params, x[k], neighbors[k], weights[k], cfg,
+                          final_activation=final_activation, bf=bf)
+        for k in range(x.shape[0])])

@@ -64,10 +64,23 @@ asked for:
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
 host (``--tune`` needs the card).
+
+Under ``torchrun`` (``WORLD_SIZE`` set) every rank runs this driver; when
+the world equals the plan's cluster count on a dense decentralized or
+semi plan, the ranks form a mesh (``launch.mesh.make_mesh``, collective
+backend ``--dist-backend``) and serve on the SPMD runtime, one cluster a
+rank, each rank on card ``rank % device_count`` (``--device cpu``: the
+host). Only rank 0 prints:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 8 \
+      -m repro_torch.launch.gnn --setting decentralized --clusters 8 \
+      --dist-backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -78,6 +91,7 @@ from .._device import resolve_device
 from ..core import costmodel, dataset_like, gnn
 from ..core.partition import ExecutionPlan, plan_execution
 from ..neighbors import SCENARIOS, scenario_graph
+from .mesh import make_mesh, mesh_device
 
 
 class GNNServer:
@@ -90,9 +104,13 @@ class GNNServer:
     """
 
     def __init__(self, plan: ExecutionPlan, cfg: gnn.GNNConfig,
-                 params=None, seed: int = 0, mode: str = "alltoall",
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 params=None, mesh=None, seed: int = 0,
+                 mode: str = "alltoall", device="cuda"):
+        # with a mesh, every rank serves on the mesh's device; the plan's
+        # forward runs SPMD where it qualifies (ExecutionPlan.make_forward)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh_device(mesh, device))
+        self._mesh = mesh
         self.plan = plan
         self.cfg = plan.gnn_config(cfg)
         self.params = params if params is not None else gnn.init_params(
@@ -129,7 +147,8 @@ class GNNServer:
         with tel.span("server.refresh", setting=self.plan.setting):
             if self._forward is None:
                 self._forward = self.plan.make_forward(
-                    self.cfg, mode=self.mode, device=self.device)
+                    self.cfg, mesh=self._mesh, mode=self.mode,
+                    device=self.device)
             self.embeddings = self.plan.scatter(self._forward(self.params))
         self.refreshes += 1
         self._served_version = self.version
@@ -155,14 +174,15 @@ class GNNServer:
         return out
 
 
-def stream_main(args, g, plan, cfg, device) -> None:
+def stream_main(args, g, plan, cfg, device, mesh=None) -> None:
     """--stream driver: ingest a synthetic tick stream, serve batched
     lookups between commits, report incremental refresh statistics."""
     from ..streaming import StreamingGNNServer
     frontier = {"topk": "numpy", "cam": "cam",
                 "cam-pallas": "cam-pallas"}[args.neighbor_mode]
-    srv = StreamingGNNServer(plan, cfg, mode=args.mode, policy=args.policy,
-                             frontier_mode=frontier, device=device)
+    srv = StreamingGNNServer(plan, cfg, mesh=mesh, mode=args.mode,
+                             policy=args.policy, frontier_mode=frontier,
+                             device=device)
     t_cold = srv.refresh()
     print(f"plan: {args.setting}/{args.backend}, {g.n_nodes} nodes, "
           f"{plan.n_clusters} clusters on {device}; policy {args.policy}; "
@@ -276,7 +296,22 @@ def main(argv=None) -> None:
                          "as JSONL to PATH on exit")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
+    ap.add_argument("--dist-backend", default="nccl", dest="dist_backend",
+                    choices=("nccl", "gloo"),
+                    help="under torchrun: the mesh's collective backend "
+                         "(nccl: a card a rank; gloo: ranks may share a "
+                         "card, or run on the host)")
     args = ap.parse_args(argv)
+    world = (int(os.environ["WORLD_SIZE"]) if "WORLD_SIZE" in os.environ
+             else None)
+    if world is not None and int(os.environ.get("RANK", "0")) != 0:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _serve(args, world)
+    _serve(args, world)
+
+
+def _serve(args, world: int | None) -> None:
+    """The driver after parsing, in each rank under torchrun."""
     device = resolve_device(args.device)
     if args.metrics or args.trace:
         tel.enable()
@@ -318,7 +353,8 @@ def main(argv=None) -> None:
             # keep an explicit kernel request; otherwise follow the
             # planner's priced neighbor_mode axis
             args.neighbor_mode = rec.neighbor_mode
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_dev = world or (torch.cuda.device_count() if device.type == "cuda"
+                      else 1)
     k = args.clusters or (n_dev if args.setting == "decentralized" else 4)
     buckets = args.buckets if args.buckets in ("auto", "off") \
         else int(args.buckets)
@@ -344,14 +380,29 @@ def main(argv=None) -> None:
         tuned = plan.tune_kernels(cfg, cache=cache, device=device)
         print(f"tuned {len(tuned)} kernel geometries "
               f"(cache: {cache.path}, {len(cache)} entries)")
+    mesh, owned = None, not torch.distributed.is_initialized()
+    if (world == plan.n_clusters and args.setting != "centralized"
+            and plan.bucketed is None):
+        mesh = make_mesh((world,), ("data",), backend=args.dist_backend,
+                         device=None if args.device == "cuda" else device)
+    try:
+        _run(args, g, plan, cfg, tech, device, mesh)
+    finally:
+        if mesh is not None and owned:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, g, plan, cfg, tech, device, mesh) -> None:
     if args.stream:
-        stream_main(args, g, plan, cfg, device)
+        stream_main(args, g, plan, cfg, device, mesh)
         return _dump_telemetry(args)
-    srv = GNNServer(plan, cfg, mode=args.mode, device=device)
+    srv = GNNServer(plan, cfg, mesh=mesh, mode=args.mode, device=device)
 
     dt = srv.refresh()
+    where = (f"{mesh.size} {mesh.backend} ranks" if mesh is not None
+             else str(device))
     print(f"plan: {args.setting}/{args.backend}, {g.n_nodes} nodes, "
-          f"{plan.n_clusters} clusters on {device}; "
+          f"{plan.n_clusters} clusters on {where}; "
           f"embedding refresh {dt * 1e3:.1f} ms")
     if args.setting != "centralized":
         print("measured traffic —",

@@ -1,11 +1,7 @@
-"""Optimizer and gradient compression, the counterpart of ``repro.optim``.
-
-``compressed_psum`` (the reference's int8 all-reduce over a mesh axis) is
-not exported yet: it needs a process group and lands with the multi-card
-runtime.
-"""
+"""Optimizer and gradient compression, the counterpart of ``repro.optim``."""
 from .adamw import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm
-from .compress import int8_compress, int8_decompress
+from .compress import compressed_psum, int8_compress, int8_decompress
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "int8_compress", "int8_decompress"]
+           "clip_by_global_norm", "compressed_psum", "int8_compress",
+           "int8_decompress"]

@@ -3,13 +3,14 @@
 The counterpart of ``repro.optim.compress``: quantize (grad + residual) to
 int8 with a per-tensor scale and keep the quantization error as the
 residual for the next step. ``torch.round`` rounds half to even, as
-``jnp.round`` does. The reference's ``compressed_psum`` all-reduces the
-payload over a mesh axis; its port needs a process group and comes with
-the multi-card runtime.
+``jnp.round`` does. ``compressed_psum`` all-reduces the int8 payload
+over a ``launch.mesh.Mesh`` (the reference's over a mesh axis inside
+shard_map).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def int8_compress(g: torch.Tensor, residual: torch.Tensor):
@@ -26,3 +27,19 @@ def int8_compress(g: torch.Tensor, residual: torch.Tensor):
 
 def int8_decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def compressed_psum(g: torch.Tensor, residual: torch.Tensor, mesh):
+    """All-reduce a gradient tensor in int8 with error feedback over the
+    ranks of ``mesh``. Returns (mean_grad, new_residual), as the
+    reference's: the codes are summed as int32 (the sum must widen), the
+    scales reduced by max, and the decompressed sum divided by the world
+    size, a tensor on ``g``'s device."""
+    q, scale, new_residual = int8_compress(g, residual)
+    summed = q.to(torch.int32)
+    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=mesh.group)
+    scale_max = scale.clone()
+    dist.all_reduce(scale_max, op=dist.ReduceOp.MAX, group=mesh.group)
+    n = torch.full((), float(mesh.size), dtype=torch.float32,
+                   device=g.device)
+    return summed.float() * scale_max / n, new_residual

@@ -25,6 +25,13 @@ would ship for that gather — only rows whose value changed, plus send
 slots structural churn newly created — is billed by
 ``distributed.traffic.measure_incremental``.
 
+With a ``launch.mesh.Mesh`` of ``n_clusters`` ranks on a dense
+decentralized or semi plan, a full refresh runs on the SPMD runtime: each
+rank computes its own cluster's rows of every level, exchanging halos by
+collectives, and each level is all-gathered, so every rank holds the full
+caches the dirty-row steps read; those steps stay as they are, the same
+on every rank.
+
 Degradation to full refresh: bit-accurate crossbar numerics
 (``cfg.numerics.ideal=False``) quantize against a *global* DAC scale
 ``max|Z|``, so a subset recompute would see a different scale than a full
@@ -53,8 +60,9 @@ from ..core.partition import (ExecutionPlan, _from_assignment,
                               build_local_subgraphs, gather_bucketed_features,
                               gather_features, gather_spoke_features)
 from ..distributed.halo import (HaloPlan, _bucket_layer, _flat_rows,
-                                _gather_halo, _layer_step,
-                                build_bucketed_halo_plan, build_halo_plan)
+                                _gather_halo, _layer_step, _plan_consts,
+                                _spmd_layers, build_bucketed_halo_plan,
+                                build_halo_plan)
 from ..distributed.traffic import StreamingTrafficReport, measure_incremental
 from .delta import DeltaResult, GraphDelta, apply_deltas
 from .frontier import FRONTIER_MODES, FrontierMasks, expand_frontier
@@ -97,15 +105,21 @@ class IncrementalEngine:
 
     ``params`` are the port's ``[{"w", "b"}, ...]`` tensors on ``device``,
     which defaults to CUDA and raises without it unless ``device="cpu"``.
+    ``mesh``: full refreshes on the SPMD runtime where the plan takes it
+    (``device`` must then name the mesh's).
     """
 
     def __init__(self, plan: ExecutionPlan, cfg, params,
                  mode: str = "alltoall", frontier_mode: str = "numpy",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if frontier_mode not in FRONTIER_MODES:
             raise ValueError(f"unknown frontier mode {frontier_mode!r}; "
                              f"one of {FRONTIER_MODES}")
+        if mesh is not None:
+            from ..launch.mesh import mesh_device
+            device = mesh_device(mesh, device)
         self.device = resolve_device(device)
+        self._mesh = mesh
         self.plan = plan
         self.cfg = plan.gnn_config(cfg)
         self.params = params
@@ -223,6 +237,10 @@ class IncrementalEngine:
             self._acts = acts
             return time.perf_counter() - t0
         acts = [self._tensor(self._owned_features())]
+        if self.plan._spmd(self._mesh):
+            self._acts = self._spmd_levels(acts, nbr, wts)
+            self._sync_device()
+            return time.perf_counter() - t0
         nbr_t, wts_t = self._tensor(nbr), self._tensor(wts)
         for l in range(self.n_layers):
             act = l < self.n_layers - 1 or self.cfg.final_activation
@@ -237,6 +255,17 @@ class IncrementalEngine:
         self._sync_device()
         self._acts = acts
         return time.perf_counter() - t0
+
+    def _spmd_levels(self, acts: list, nbr, wts) -> list:
+        """Levels 1..L appended to ``acts`` by the SPMD layer loop: this
+        rank's cluster rows, every level all-gathered to [K, n_max, F_l]."""
+        r = self._mesh.rank
+        _spmd_layers(self.params, acts[0][r], self._tensor(nbr[r]),
+                     self._tensor(wts[r]), self.cfg,
+                     _plan_consts(self._halo_plan, self.device, r),
+                     self.mode, self._halo_plan.src_cluster.shape[1],
+                     self._mesh, levels=acts)
+        return acts
 
     def _sync_plan_feats(self, dirty0_local: np.ndarray | None = None
                          ) -> None:

@@ -42,9 +42,11 @@ _LOG = logging.getLogger(__name__)
 
 class StreamingGNNServer(GNNServer):
     """GNNServer over an IncrementalEngine with buffered ingest, on
-    ``device`` (CUDA by default; raises without it unless ``"cpu"``)."""
+    ``device`` (CUDA by default; raises without it unless ``"cpu"``).
+    ``mesh`` goes to ``GNNServer`` and the engine: full refreshes run on
+    the SPMD runtime where the plan takes it."""
 
-    def __init__(self, plan: ExecutionPlan, cfg, params=None,
+    def __init__(self, plan: ExecutionPlan, cfg, params=None, mesh=None,
                  seed: int = 0, mode: str = "alltoall",
                  policy: str = "eager", interval: int = 4,
                  max_staleness: int = 8, max_dirty_frac: float = 0.25,
@@ -52,8 +54,8 @@ class StreamingGNNServer(GNNServer):
         if policy not in POLICIES:
             raise ValueError(f"unknown refresh policy {policy!r}; one of "
                              f"{POLICIES}")
-        super().__init__(plan, cfg, params=params, seed=seed, mode=mode,
-                         device=device)
+        super().__init__(plan, cfg, params=params, mesh=mesh, seed=seed,
+                         mode=mode, device=device)
         self.policy = policy
         self.interval = interval
         self.max_staleness = max_staleness
@@ -61,7 +63,7 @@ class StreamingGNNServer(GNNServer):
         self.frontier_mode = frontier_mode
         self.engine = IncrementalEngine(plan, cfg, self.params, mode=mode,
                                         frontier_mode=frontier_mode,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
         self.updates: list[StreamingUpdate] = []
         self.commits = 0
         self.full_refreshes = 0
@@ -208,5 +210,5 @@ class StreamingGNNServer(GNNServer):
         self.engine = IncrementalEngine(plan, self.cfg, self.params,
                                         mode=self.mode,
                                         frontier_mode=self.frontier_mode,
-                                        device=self.device)
+                                        device=self.device, mesh=self._mesh)
         self._reset_buffers()

@@ -189,3 +189,56 @@ def test_bit_accurate_fused_equals_composed_exactly(setting, numerics):
                            n_clusters=3).make_forward(cfg, device="cpu")(
                                params) for b in ("jnp", "fused")]
     assert torch.equal(outs[0], outs[1])
+
+
+def test_multilayer_fused_drivers_match_reference():
+    """``fused_gnn_forward`` / ``fused_gnn_forward_batched`` on the case
+    of ``tests/test_kernels_fused_layer.py``'s multi-layer driver test,
+    against the reference's drivers and ``core.gnn.forward``, rtol/atol
+    1e-5."""
+    import jax.numpy as jnp
+    from repro.kernels.fused_layer import (
+        fused_gnn_forward as jx_forward,
+        fused_gnn_forward_batched as jx_batched)
+    from repro_torch.kernels.fused_layer import (fused_gnn_forward,
+                                                 fused_gnn_forward_batched)
+    g = random_graph(40, 200, 24, seed=5).gcn_normalize()
+    cfg = gnn.GNNConfig(in_dim=24, hidden_dims=(32, 16), out_dim=6,
+                        sample=8)
+    jparams = jx_gnn.init_params(jax.random.key(0), jx_gnn.GNNConfig(
+        in_dim=24, hidden_dims=(32, 16), out_dim=6, sample=8))
+    params = gnn.params_from_numpy(
+        [{k: np.asarray(v) for k, v in l.items()} for l in jparams],
+        device="cpu")
+    nbr, wts = g.neighbor_sample(8)
+    args = (torch.from_numpy(g.features), torch.from_numpy(nbr),
+            torch.from_numpy(wts))
+    jargs = tuple(jnp.asarray(a.numpy()) for a in args)
+    for kw in NUMERICS.values():
+        numerics, jnum = CrossbarNumerics(**kw), JxNumerics(**kw)
+        ref = np.asarray(jx_forward(jparams, *jargs, jnum))
+        out = fused_gnn_forward(params, *args, numerics)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal(out, gnn.forward(params, *args, dataclasses.replace(
+            cfg, numerics=numerics, backend="fused")))
+        jb = np.asarray(jx_batched(jparams, *(jnp.stack([a, a])
+                                              for a in jargs), jnum))
+        batched = fused_gnn_forward_batched(
+            params, *(torch.stack([a, a]) for a in args), numerics)
+        for k in range(2):
+            np.testing.assert_allclose(batched[k].numpy(), jb[k],
+                                       rtol=1e-5, atol=1e-5)
+            assert torch.equal(batched[k], out)
+
+
+def test_quickstart_runs_on_cpu_and_matches_reference_guideline(capsys):
+    """``repro_torch.examples.quickstart --device cpu``: its lines, and
+    the same guideline pick as the reference's cost model."""
+    from repro.core import costmodel as jx_costmodel
+    from repro_torch.examples import quickstart
+    res = quickstart.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "argmax agreement" in out and "guideline picks:" in out
+    assert 0.0 <= res["agree"] <= 1.0 and np.isfinite(res["err"])
+    g = jx_dataset_like("cora", scale=0.25, seed=0).gcn_normalize()
+    assert res["best"] == jx_costmodel.pick_setting(g.stats("cora-like"))[0]

@@ -252,7 +252,12 @@ def test_manager_keeps_and_saves_async(tmp_path):
     got, step = mgr.restore(_zeros_like(t))
     assert step == 4 and torch.equal(got["a"], t["a"])
     assert not CheckpointManager(str(tmp_path), every=3).maybe_save(4, t)
-    with pytest.raises(NotImplementedError):
+    # either alone restores plainly, as the reference's; both place
+    # shards, which needs shardings shaped like the tree
+    for kw in (dict(mesh=object()), dict(shardings=object())):
+        got, step = mgr.restore(_zeros_like(t), **kw)
+        assert step == 4 and torch.equal(got["a"], t["a"])
+    with pytest.raises(ValueError, match="tree structure"):
         mgr.restore(_zeros_like(t), mesh=object(), shardings=object())
 
 

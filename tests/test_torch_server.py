@@ -20,6 +20,7 @@ from repro_torch.core.graph import random_graph
 from repro_torch.core.partition import plan_execution
 from repro_torch.distributed import halo
 from repro_torch.launch.gnn import GNNServer, main
+from repro_torch.launch.mesh import make_mesh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -225,7 +226,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "init_params", "params_from_numpy", "server", "make_forward", "cli",
     "knn_graph", "scenario_graph", "mvm_error_bounds", "accuracy_bounds",
     "bucketed_make_forward", "bucketed_cli", "bucketed_halo_forward",
-    "plan_auto_cli"])
+    "plan_auto_cli", "make_mesh"])
 def test_entry_points_raise_without_cuda(call, monkeypatch):
     """Asked for the default device on a host without CUDA, an entry point
     raises; it never falls back to the CPU on its own."""
@@ -252,6 +253,7 @@ def test_entry_points_raise_without_cuda(call, monkeypatch):
                                       "--buckets", "auto"]),
         "plan_auto_cli": lambda: main(["--scale", "0.0002",
                                        "--plan", "auto"]),
+        "make_mesh": lambda: make_mesh((1,), ("data",), backend="gloo"),
         "bucketed_halo_forward": lambda: halo.make_emulated_bucketed_forward(
             cfg, halo.build_bucketed_halo_plan(plan_execution(
                 g, "decentralized", sample=4, n_clusters=3,
