@@ -215,6 +215,33 @@ Phases, each printing its lines, each failing the run on any error:
          bytes a rank sent a layer beside ``measured_traffic``'s tier-1
          bytes; H3 the CLI under ``torch.distributed.run`` on 8 gloo
          ranks, its refresh line printed once, by rank 0.
+       * path I, the LM stack (``repro_torch.models``, ``launch.train``,
+         ``launch.serve``), which launches none of the six kernels (its
+         counts must stay 0): I1 ``train()`` on internlm2-1.8b at its full
+         published size (24 layers, d_model 2,048, 1.89 B parameters,
+         bf16), batch 4 x seq 512, 6 AdamW steps, the loss finite and
+         lower at the end; ms a step (host clock between device syncs,
+         median after the first), tokens/s, model FLOPs over the bf16
+         peak, peak device memory, and one step under ``torch.profiler``
+         (busy share, top kernels); I2 ``Server`` at the same size, 4
+         slots, capacity 128, the CLI's 8 requests of 16 new tokens: ms a
+         batched decode step, tokens/s, every request's greedy tokens
+         against a direct one-sequence decode chain teacher-forced on
+         them (equal where every step's gap to the chain's top logit is 0;
+         any gap within 0.05 * max|logit|), ``prefill`` against the
+         teacher-forced chain (rtol, atol 0.15), a 4 x 128 prefill's ms,
+         and ``python -m repro_torch.launch.serve --full`` as a
+         subprocess; I3 the ten architectures' smoke configs, weights
+         drawn on the host and carried to the card: at float32 the loss
+         (rtol 1e-5), every gradient leaf (atol 1e-4 * max|g_host|) and
+         three decode steps' logits (1e-4 * max|ref|), at bf16 the loss
+         and logits within 0.05; and ``python -m
+         repro_torch.examples.lm_train --steps 20`` (its fault and resume
+         line); I4 one ``moe_ffn`` layer at grok-1's widths (d_model
+         6,144, 8 experts of d_ff 32,768, top-2; 4.83 B parameters) on a
+         [2, 128, 6144] batch against a dense f32 oracle on the card at
+         capacity factor 8 (no drops; 0.05 * max|ref| + 1e-3), and at
+         1.25 its dropped fraction and ms.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -238,6 +265,12 @@ Phases, each printing its lines, each failing the run on any error:
 The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
+
+``python3 chip_smoke.py --f6-loop ROUNDS`` runs none of that: it loops
+path H1's eight cases ROUNDS times with CUDA_LAUNCH_BLOCKING=1 and a
+device sync after every kernel launch, naming the launch before a fault,
+then (unless ``--no-sanitizer``) one round under compute-sanitizer's
+memcheck where the toolkit has it.
 """
 from __future__ import annotations
 
@@ -247,6 +280,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -299,7 +333,15 @@ from repro_torch.tuning import (AggregateGeometry, CamGeometry,  # noqa: E402
                                 CrossbarGeometry, FusedGeometry, TuneCache,
                                 candidates, default_config, plan_geometries,
                                 registry)
-from repro_torch.analysis.roofline import H100  # noqa: E402
+from repro_torch.analysis.roofline import H100, model_flops  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch import models as lm_models  # noqa: E402
+from repro_torch.data import TokenStream  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.tuning.autotune import plan_tables  # noqa: E402
 from repro_torch.tuning.measure import measurer, time_callable  # noqa: E402
 
@@ -2153,13 +2195,50 @@ def kernel_name(name: str) -> str:
     return name.split("<")[0].split("(")[0]
 
 
-def step_profile(tag: str, fn) -> None:
-    """One call of ``fn`` (a training step) under ``torch.profiler``: its
-    host ms (profiler on), the kernels' summed device ms over it (the
-    device-busy share) and the three kernels that take most, from its
-    chrome trace (``chiprun_out/train_step_<tag>.json``)."""
+GEMM_KERNELS = ("nvjet", "gemm", "xmma", "cutlass")
+
+
+def phase_ms(events: list) -> str:
+    """The kernel ms of a profiled step by what launched them: the main
+    thread before the autograd thread's first launch (the forward), the
+    autograd thread (the backward), the main thread after its last launch
+    (for a training step the optimizer); and the GEMMs' ms. Kernels are
+    matched to their launch by the trace's correlation ids."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    by_tid: dict = {}
+    for e in kernels:
+        src = launch.get(e["args"].get("correlation"))
+        if src is not None:
+            by_tid.setdefault(src["tid"], []).append((src["ts"], e))
+    gemm = sum(e["dur"] for e in kernels
+               if any(g in e["name"] for g in GEMM_KERNELS)) / 1e3
+    text = f"GEMMs {gemm:.3f} ms"
+    if len(by_tid) < 2:
+        return text
+    main = min(by_tid, key=lambda t: min(ts for ts, _ in by_tid[t]))
+    auto = [(ts, e) for t, pairs in by_tid.items() if t != main
+            for ts, e in pairs]
+    lo, hi = min(ts for ts, _ in auto), max(ts for ts, _ in auto)
+    ms = lambda pairs: sum(e["dur"] for _, e in pairs) / 1e3
+    fwd = [(ts, e) for ts, e in by_tid[main] if ts < lo]
+    after = [(ts, e) for ts, e in by_tid[main] if ts > hi]
+    return (f"forward {ms(fwd):.3f} ms ({len(fwd)} kernels), backward "
+            f"{ms(auto):.3f} ms ({len(auto)}), after the backward "
+            f"{ms(after):.3f} ms ({len(after)}); {text}")
+
+
+def step_profile(tag: str, fn, prefix: str = "[pathG]",
+                 card: str = "") -> None:
+    """One call of ``fn`` (a training or decode step) under
+    ``torch.profiler``: its host ms (profiler on), the kernels' summed
+    device ms over it (the device-busy share), the three kernels that
+    take most and the split of ``phase_ms``, from its chrome trace
+    (``chiprun_out/step_<tag>.json``)."""
     from torch.profiler import ProfilerActivity, profile
-    path = os.path.join(ROOT, "chiprun_out", f"train_step_{tag}.json")
+    path = os.path.join(ROOT, "chiprun_out", f"step_{tag}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2171,12 +2250,12 @@ def step_profile(tag: str, fn) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
         prof.export_chrome_trace(path)
         with open(path) as fh:
-            kernels = [e for e in json.load(fh)["traceEvents"]
-                       if e.get("cat") == "kernel"]
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
         if kernels:
             break
     else:
-        print(f"[pathG] {tag}: the step's kernel time not measured (the "
+        print(f"{prefix} {tag}: the step's kernel time not measured (the "
               f"profiler's trace held no kernel, 3 tries)", flush=True)
         return
     by_name: dict = {}
@@ -2185,12 +2264,14 @@ def step_profile(tag: str, fn) -> None:
         by_name[k] = by_name.get(k, 0.0) + float(e["dur"]) / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    print(f"[pathG] {tag} one training step under torch.profiler: "
+    print(f"{prefix} {tag} one step under torch.profiler: "
           f"{wall_ms:.3f} ms on the host clock, {len(kernels)} kernels, "
           f"{busy:.3f} ms of kernel time (device-busy share "
           f"{busy / wall_ms:.3f}); most: "
           + "; ".join(f"{k} {ms:.3f} ms ({ms / busy:.2f})" for k, ms in top)
-          + f"; trace chiprun_out/{os.path.basename(path)}", flush=True)
+          + f"; {phase_ms(events)}; trace chiprun_out/"
+          f"{os.path.basename(path)}" + (f"; {card}" if card else ""),
+          flush=True)
 
 
 def path_g1(plan_c, x1, nbr, wts, g01, device) -> float:
@@ -2646,6 +2727,361 @@ def path_h3() -> None:
           flush=True)
 
 
+# ------------------------------------------------------------------ path I
+
+# the LM stack (repro_torch.models; launch.train, launch.serve): I1 training
+# and I2 serving at internlm2-1.8b's full size, I3 the ten architectures'
+# smoke configs on the card against the host, I4 one MoE layer at grok-1's
+# widths. No kernel of the six runs on it.
+I_ARCH = "internlm2-1.8b"
+I1_BATCH, I1_SEQ, I1_STEPS, I1_LR = 4, 512, 6, 1e-2
+I2_SLOTS, I2_CAPACITY, I2_REQUESTS, I2_NEW = 4, 128, 8, 16
+I3_B, I3_S, I3_DECODE = 2, 16, 3
+I4_ARCH, I4_B, I4_S = "grok-1-314b", 2, 128
+
+
+def path_i1(device, card: str) -> None:
+    """I1: ``launch.train.train`` at internlm2-1.8b's full size: AdamW
+    steps (host clock between device syncs, median after the first), peak
+    device memory, model FLOPs over the bf16 peak; then one step profiled
+    as path G profiles its steps."""
+    mcfg = lm_configs.get_config(I_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+
+    t0 = time.perf_counter()
+    out = lm_train.train(lm_train.TrainConfig(
+        arch=I_ARCH, smoke=False, steps=I1_STEPS, batch=I1_BATCH,
+        seq=I1_SEQ, lr=I1_LR, log_every=I1_STEPS, device=str(device)),
+        hooks={"on_step": on_step})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(out["last_step"] == I1_STEPS - 1 and all(np.isfinite(losses)),
+            f"I1: training did not run its steps with finite losses: "
+            f"{losses}")
+    require(losses[-1] < losses[0], f"I1: the loss did not fall: {losses}")
+    ms = float(np.median(np.diff(stamps) * 1e3))
+    tokens = I1_BATCH * I1_SEQ
+    share = model_flops(mcfg, tokens, "train") / (ms / 1e3) \
+        / H100.peak("bf16")
+    print(f"[pathI] I1 train {I_ARCH} full size ({mcfg.param_count():,} "
+          f"params, batch {I1_BATCH} x seq {I1_SEQ}, bf16): "
+          f"{I1_STEPS} AdamW steps, loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; {ms:.3f} ms a step (host clock between syncs, median after "
+          f"the first), {tokens / (ms / 1e3):,.0f} tokens/s, model FLOPs "
+          f"{model_flops(mcfg, tokens, 'train') / 1e12:.2f} TFLOP a step = "
+          f"{share:.4f} of the bf16 peak; peak memory {peak:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+    model = lm_models.build(mcfg)
+    params = model.init(1, device=device)
+    opt = adamw_init(params)
+    step = lm_steps.make_train_step(model, AdamWConfig(lr=I1_LR))
+    batch = _tree.tree_map(lambda x: x.to(device), TokenStream(
+        mcfg.vocab, I1_BATCH, I1_SEQ).batch_at(0))
+    step(params, opt, batch)
+    step_profile("I1", lambda: step(params, opt, batch), prefix="[pathI]",
+                 card=card)
+
+
+def direct_chain(model, params, req, forced: list, device):
+    """The reference's direct one-sequence decode of ``req`` (batch 1),
+    teacher-forced on ``forced`` (the server's new tokens). Returns (its
+    greedy tokens, the largest gap between its top logit and the forced
+    token's, max|logits|); a zero gap everywhere means its free-running
+    greedy chain is ``forced``."""
+    caches = model.init_caches(1, I2_CAPACITY, device=device)
+    with torch.no_grad():
+        for p, t in enumerate(req.prompt):
+            logits, caches = model.decode_step(
+                params, torch.tensor([[t]], device=device), caches, p)
+        greedy, gap, peak = [], 0.0, 0.0
+        for n, t in enumerate(forced):
+            row = logits[0, 0].float()
+            greedy.append(int(torch.argmax(row)))
+            gap = max(gap, float(row.max() - row[t]))
+            peak = max(peak, float(row.abs().max()))
+            if n < len(forced) - 1:
+                logits, caches = model.decode_step(
+                    params, torch.tensor([[t]], device=device), caches,
+                    len(req.prompt) + n)
+    return greedy, gap, peak
+
+
+def path_i2(device, card: str) -> None:
+    """I2: ``launch.serve.Server`` at internlm2-1.8b's full size on the
+    CLI's request mix; every request's greedy output against a direct
+    one-sequence decode chain, ``prefill`` against the teacher-forced
+    chain; then the CLI ``--full`` as a subprocess."""
+    t0 = time.perf_counter()
+    srv = lm_serve.Server(I_ARCH, smoke=False, slots=I2_SLOTS,
+                          capacity=I2_CAPACITY, device=device)
+    warm = lm_serve.requests(srv.cfg.vocab, 2, 2, seed=1)
+    for r in warm:
+        srv.submit(r)
+    srv.run()
+    reqs = lm_serve.requests(srv.cfg.vocab, I2_REQUESTS, I2_NEW)
+    for r in reqs:
+        srv.submit(r)
+    srv.steps_run = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total = srv.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    step_ms = secs * 1e3 / srv.steps_run
+    require(total == I2_REQUESTS * I2_NEW and all(r.done for r in reqs),
+            f"I2: served {total} tokens, want {I2_REQUESTS * I2_NEW}")
+
+    equal, worst = 0, 0.0
+    for r in reqs:
+        greedy, gap, peak = direct_chain(srv.model, srv.params, r, r.out,
+                                         device)
+        equal += greedy == r.out
+        worst = max(worst, gap / peak)
+        require(gap <= 0.05 * peak, f"I2: request {r.rid}'s server tokens "
+                f"{r.out} leave the direct chain's greedy {greedy} by a "
+                f"logit gap {gap:.4f} (tol 0.05 * {peak:.3f})")
+        if greedy != r.out:
+            print(f"[pathI] I2 request {r.rid}: server {r.out} vs direct "
+                  f"chain {greedy}, a near-tie (largest gap {gap:.4f} of "
+                  f"max|logit| {peak:.3f})", flush=True)
+
+    # one batched decode step, profiled
+    caches = srv.model.init_caches(I2_SLOTS, I2_CAPACITY, device=device)
+    tok = torch.zeros((I2_SLOTS, 1), dtype=torch.long, device=device)
+    srv._step(srv.params, caches, tok, 0)
+    step_profile("I2", lambda: srv._step(srv.params, caches, tok, 1),
+                 prefix="[pathI]", card=card)
+
+    # prefill's last logits against the teacher-forced decode chain
+    prompt = torch.tensor(reqs[0].prompt * 4, device=device)[None]
+    pf = lm_steps.make_prefill_step(srv.model)
+    ref = pf(srv.params, {"tokens": prompt})
+    caches = srv.model.init_caches(1, I2_CAPACITY, device=device)
+    with torch.no_grad():
+        for i in range(prompt.shape[1]):
+            logits, caches = srv.model.decode_step(
+                srv.params, prompt[:, i:i + 1], caches, i)
+    diff = (logits.float() - ref.float()).abs()
+    require(bool((diff <= 0.15 + 0.15 * ref.float().abs()).all()),
+            f"I2: prefill vs the decode chain off by {float(diff.max())}")
+    batch = {"tokens": torch.randint(0, srv.cfg.vocab, (I2_SLOTS,
+                                                         I2_CAPACITY),
+                                     device=device)}
+    prefill = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        pf(srv.params, batch)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - tp) * 1e3)
+    print(f"[pathI] I2 serve {I_ARCH} full size: {I2_REQUESTS} requests "
+          f"(prompts {sorted({len(r.prompt) for r in reqs})}, {I2_NEW} new "
+          f"tokens each) on {I2_SLOTS} slots, {srv.steps_run} batched "
+          f"decode steps in {secs * 1e3:.1f} ms: {step_ms:.3f} ms a step, "
+          f"{total / secs:.1f} tokens/s; greedy outputs equal to the direct "
+          f"one-sequence chain for {equal} of {len(reqs)} (largest logit "
+          f"gap {worst:.2e} of max|logit|, tol 0.05); prefill vs the decode "
+          f"chain max|diff| {float(diff.max()):.4f} (tol 0.15 + 0.15 |ref|); "
+          f"prefill of {I2_SLOTS} x {I2_CAPACITY} tokens "
+          f"{median_ms(prefill):.3f} ms (median of 3 after one); "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    del srv
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", I_ARCH,
+         "--full"], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=600)
+    require(out.returncode == 0 and "served 8 requests, 128 tokens"
+            in out.stdout, f"I2: the serve CLI failed:\n{out.stdout}\n"
+            f"{out.stderr}")
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("served")]
+    print(f"[pathI] I2 python -m repro_torch.launch.serve --arch {I_ARCH} "
+          f"--full: exit 0; {line[0]}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}", flush=True)
+
+
+def i3_batch(cfg, device) -> dict:
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (I3_B, I3_S)),
+             "labels": rng.integers(0, cfg.vocab, (I3_B, I3_S))}
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(size=(I3_B, cfg.encoder.n_frames,
+                                           cfg.d_model))
+    out = {k: torch.from_numpy(v).to(device, torch.int32 if v.dtype.kind
+                                     == "i" else lm_common.dtype_of(
+                                         cfg.dtype))
+           for k, v in batch.items()}
+    if cfg.mrope_sections:
+        out["mrope_pos"] = torch.arange(I3_S, dtype=torch.int32, device=
+                                        device)[None, None].expand(
+                                            3, I3_B, I3_S)
+    return out
+
+
+def i3_decode(model, params, batch) -> list:
+    """Three decode steps' logits from empty caches."""
+    device = batch["tokens"].device
+    caches = model.init_caches(I3_B, 8, device=device)
+    enc = None
+    out = []
+    with torch.no_grad():
+        if model.cfg.is_encdec:
+            enc = model._cross_kvs(params, model.encode(params,
+                                                        batch["frames"]))
+        for i in range(I3_DECODE):
+            logits, caches = model.decode_step(
+                params, batch["tokens"][:, i:i + 1], caches, i, enc_kvs=enc)
+            out.append(logits.float().cpu())
+    return out
+
+
+def path_i3(device, card: str) -> None:
+    """I3: every architecture's smoke config, one weight set drawn on the
+    host and carried to the card: at float32 the loss (rtol 1e-5), every
+    gradient leaf (atol 1e-4 * max|g_host|) and three decode steps' logits
+    (1e-4 * max|ref|) on the card against the host; at the configs' bf16
+    the loss and logits finite and within 0.05 * max|ref|. Then the
+    ``lm_train`` example as a subprocess, its resume line printed."""
+    t0 = time.perf_counter()
+    for arch in lm_configs.ARCHS:
+        line = []
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 0.05)):
+            cfg = dataclasses.replace(lm_configs.get_config(arch, smoke=True),
+                                      dtype=dtype)
+            model = lm_models.build(cfg)
+            host = model.init(0, device="cpu")
+            card = _tree.tree_map(lambda t: t.to(device), host)
+            hb, cb = i3_batch(cfg, "cpu"), i3_batch(cfg, device)
+            if dtype == "float32":
+                (lh, _), gh = _tree.value_and_grad(model.loss, host, hb,
+                                                   has_aux=True)
+                (lc, _), gc = _tree.value_and_grad(model.loss, card, cb,
+                                                   has_aux=True)
+                ok, g_err = leaf_errors(gc, gh, rtol=0.0)
+                rel = abs(float(lc) - float(lh)) / abs(float(lh))
+                require(ok and rel <= 1e-5, f"I3 {arch} f32: loss "
+                        f"{float(lc)} / {float(lh)}, leaf error {g_err:.3e}")
+            else:
+                with torch.no_grad():
+                    lh, _ = model.loss(host, hb)
+                    lc, _ = model.loss(card, cb)
+                rel = abs(float(lc) - float(lh)) / abs(float(lh))
+                g_err = None
+                require(np.isfinite(float(lc)) and rel <= tol,
+                        f"I3 {arch} bf16: loss {float(lc)} / {float(lh)}")
+            worst = 0.0
+            for got, ref in zip(i3_decode(model, card, cb),
+                                i3_decode(model, host, hb)):
+                scale = float(ref.abs().max()) or 1.0
+                require(bool(torch.isfinite(got).all()), f"I3 {arch} "
+                        f"{dtype}: decode logits not finite")
+                worst = max(worst, float((got - ref).abs().max()) / scale)
+            require(worst <= tol, f"I3 {arch} {dtype}: decode logits off by "
+                    f"{worst:.3e} of max|ref| (tol {tol})")
+            line.append(f"{dtype} loss rel {rel:.2e}"
+                        + (f", grads {g_err:.2e}" if g_err is not None
+                           else "") + f", logits {worst:.2e}")
+        print(f"[pathI] I3 {arch} smoke, card vs host: " + "; ".join(line)
+              + " (tol f32 1e-5 loss, 1e-4 grads and logits; bf16 0.05)",
+              flush=True)
+    print(f"[pathI] I3 ten architectures within tolerance; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.lm_train", "--steps",
+         "20"], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=600)
+    said = [ln for ln in out.stdout.splitlines()
+            if ln.startswith(("final", "fault injected"))]
+    require(out.returncode == 0 and len(said) == 2 and "resumed" in said[1],
+            f"I3: the lm_train example failed or printed no resume line:\n"
+            f"{out.stdout}\n{out.stderr}")
+    print(f"[pathI] I3 python -m repro_torch.examples.lm_train --steps 20: "
+          f"exit 0; {'; '.join(said)}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}", flush=True)
+
+
+def moe_oracle(params, x2d, ids, gates, cfg) -> torch.Tensor:
+    """Every token's swiglu through each expert it routes to, in f32,
+    combined by its gates."""
+    f = cfg.moe.d_ff_expert
+    xf = x2d.float()
+    out = torch.zeros_like(xf)
+    for e in range(cfg.moe.n_experts):
+        w = torch.where(ids == e, gates, 0.0).sum(-1)       # [T]
+        h = xf @ params["wi"][e].float()
+        h = torch.nn.functional.silu(h[:, :f]) * h[:, f:]
+        out += w[:, None] * (h @ params["wo"][e].float())
+    return out
+
+
+def path_i4(device, card: str) -> None:
+    """I4: one ``moe_ffn`` layer at grok-1's widths on a [2, 128, 6144]
+    batch against the dense oracle on the card: at capacity factor 8 (no
+    drops) within 0.05 * max|ref| + 1e-3 (the reference's tolerance); at
+    the config's 1.25 the dropped fraction and the layer's ms."""
+    t0 = time.perf_counter()
+    cfg = lm_configs.get_config(I4_ARCH)
+    params = lm_moe.init_moe(lm_common.InitKey.from_seed(0, device), cfg)
+    n = sum(t.numel() for t in _tree.leaves(params))
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((I4_B, I4_S, cfg.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    with torch.no_grad():
+        out, aux = lm_moe.moe_ffn(params, x, wide)
+        x2d = x.reshape(-1, cfg.d_model)
+        ids, gates = lm_moe._route(params, x2d, cfg)
+        ref = moe_oracle(params, x2d, ids, gates, cfg)
+    err = float((out.reshape(-1, cfg.d_model).float() - ref).abs().max())
+    tol = 0.05 * float(ref.abs().max()) + 1e-3
+    require(float(aux["dropped_frac"]) == 0.0 and err <= tol,
+            f"I4: moe_ffn off the dense oracle by {err} (tol {tol}), "
+            f"dropped {float(aux['dropped_frac'])}")
+    with torch.no_grad():
+        _, aux125 = lm_moe.moe_ffn(params, x, cfg)
+        ms = cuda_ms(lambda: lm_moe.moe_ffn(params, x, cfg), 10)
+    print(f"[pathI] I4 moe_ffn at {I4_ARCH}'s widths (d_model "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts of d_ff "
+          f"{cfg.moe.d_ff_expert}, top-{cfg.moe.top_k}, {cfg.moe.router} "
+          f"router; {n:,} parameters, bf16) on [{I4_B}, {I4_S}, "
+          f"{cfg.d_model}]: capacity factor 8 no drops, max|err| {err:.4e} "
+          f"vs the dense f32 oracle (tol {tol:.4e}); capacity factor "
+          f"{cfg.moe.capacity_factor}: dropped_frac "
+          f"{float(aux125['dropped_frac']):.4f}, {ms:.3f} ms a layer (CUDA "
+          f"events, mean of 10 after 2); {time.perf_counter() - t0:.1f} s; "
+          f"{card}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def path_i(device, card: str) -> None:
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    path_i1(device, card)
+    path_i2(device, card)
+    path_i3(device, card)
+    path_i4(device, card)
+    counts = launch_counts()
+    print(f"[pathI] launches over path I {json.dumps(counts)}; "
+          f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
+    require(not any(counts.values()), "path I launched a GNN kernel")
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -2927,12 +3363,109 @@ def new_timings(z1, w1, z2, w2, device, builds: dict) -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ F6 loop
+
+# ``--f6-loop ROUNDS``, not part of the normal run: ROUNDS rounds of path
+# H1's eight cases (the one-cluster collab 0.1 plan, an NCCL world of one,
+# the emulated and the SPMD forward of each case) with CUDA_LAUNCH_BLOCKING=1
+# and a device sync after every kernel launch, hunting the one illegal
+# memory access of PR 21's call 25; then, where the toolkit has
+# compute-sanitizer, one round under its memcheck tool.
+F6_SANITIZER_TIMEOUT = 600.0
+
+
+def f6_loop(rounds: int, sanitize: bool) -> None:
+    last = {"launch": None}
+    check = _build.check
+
+    def synced_check(code: int, what: str) -> None:
+        last["launch"] = what
+        check(code, what)
+        torch.cuda.synchronize()
+
+    _build.check = synced_check
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.build_all()
+    g01 = dataset_like("collab", scale=0.1, seed=0).gcn_normalize()
+    plan1 = plan_execution(g01, "decentralized", sample=SAMPLE, n_clusters=1)
+    cfg = gnn.GNNConfig(in_dim=g01.feature_len, hidden_dims=(HIDDEN,),
+                        out_dim=OUT, sample=SAMPLE)
+    params = gnn.init_params(cfg, seed=0, device=device)
+    print(f"[f6] CUDA_LAUNCH_BLOCKING={os.environ.get('CUDA_LAUNCH_BLOCKING')}"
+          f", a sync after every launch; one-cluster plan {plan1.part.n_max} "
+          f"rows, h_max {plan1.part.h_max}, halo_src "
+          f"{plan1.part.halo_src.tolist()}; set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    mesh = make_mesh((1,), ("data",), backend=H1_BACKEND,
+                     device=H_RANK_DEVICE,
+                     init_method=f"tcp://localhost:{free_port()}", rank=0,
+                     timeout=H_TIMEOUT)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for r in range(rounds):
+            for mode, backend, ideal in h_cases():
+                c = dataclasses.replace(cfg, numerics=CrossbarNumerics(
+                    ideal=ideal))
+                p = dataclasses.replace(plan1, backend=backend)
+                emu = p.make_forward(c, mode=mode, device=device)(params)
+                got = p.make_forward(c, mesh=mesh, mode=mode,
+                                     device=device)(params)
+                torch.cuda.synchronize()
+                require(torch.equal(got, emu), f"F6 round {r} "
+                        f"{h_label(mode, backend, ideal)}: SPMD != emulated")
+    except RuntimeError as e:
+        print(f"[f6] FAULT after launch {last['launch']!r}: {e}", flush=True)
+        raise
+    finally:
+        dist.destroy_process_group()
+    print(f"[f6] {rounds} rounds x 8 cases (emulated + SPMD forward each), "
+          f"no fault; launches {json.dumps(launch_counts())}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not sanitize:
+        return
+    tool = shutil.which("compute-sanitizer") or os.path.join(
+        os.path.dirname(_build.find_nvcc()), "compute-sanitizer")
+    if not os.path.exists(tool):
+        print(f"[f6] compute-sanitizer: not in the toolkit ({tool})",
+              flush=True)
+        return
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [tool, "--tool", "memcheck", sys.executable,
+             os.path.abspath(__file__), "--f6-loop", "1", "--no-sanitizer"],
+            capture_output=True, text=True, cwd=ROOT,
+            timeout=F6_SANITIZER_TIMEOUT)
+        tail = (out.stdout + out.stderr).strip().splitlines()[-6:]
+        print(f"[f6] compute-sanitizer memcheck, 1 round: exit "
+              f"{out.returncode}; {time.perf_counter() - t0:.1f} s; last "
+              f"lines: " + " | ".join(tail), flush=True)
+    except subprocess.TimeoutExpired:
+        print(f"[f6] compute-sanitizer memcheck, 1 round: cut at "
+              f"{F6_SANITIZER_TIMEOUT:.0f} s", flush=True)
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--f6-loop", type=int, default=0, metavar="ROUNDS",
+                    help="only loop path H1's cases ROUNDS times with "
+                         "CUDA_LAUNCH_BLOCKING=1 and a sync after every "
+                         "launch (no result line)")
+    ap.add_argument("--no-sanitizer", action="store_true",
+                    help="with --f6-loop: skip the compute-sanitizer round")
+    args = ap.parse_args()
+    if args.f6_loop:
+        os.environ["CUDA_LAUNCH_BLOCKING"] = "1"   # before CUDA starts
     require(torch.cuda.is_available(),
             "no CUDA device: nothing to check, no result")
+    if args.f6_loop:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f6_loop(args.f6_loop, sanitize=not args.no_sanitizer)
+        return
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3079,6 +3612,10 @@ def main() -> None:
           flush=True)
     require(all(v > 0 for v in totals.values()),
             "a kernel of the paths never launched")
+
+    # ---- path I: the LM stack, which launches none of the six kernels
+    torch.cuda.empty_cache()
+    path_i(device, card)
 
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)

@@ -9,7 +9,7 @@ restores here leaf for leaf. (``torch.utils._pytree`` is private and walks
 dicts in insertion order, which would swap leaves.)
 
 ``value_and_grad`` is the counterpart of ``jax.value_and_grad`` over such a
-tree of parameters.
+tree of parameters (``has_aux`` as there).
 """
 from __future__ import annotations
 
@@ -105,12 +105,18 @@ def tree_map(fn, tree):
     return tdef.unflatten(fn(x) for x in flat)
 
 
-def value_and_grad(fn, params, *args):
+def value_and_grad(fn, params, *args, has_aux: bool = False):
     """(``fn(params, *args)``, its gradient with respect to every leaf of
-    ``params`` in the structure of ``params``), both detached."""
+    ``params`` in the structure of ``params``), both detached. With
+    ``has_aux``, ``fn`` returns (loss, aux) and the value is (loss, aux)."""
     flat, tdef = flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
-        loss = fn(tdef.unflatten(leaves), *args)
+        out = fn(tdef.unflatten(leaves), *args)
+        loss = out[0] if has_aux else out
         grads = torch.autograd.grad(loss, leaves)
+    if has_aux:
+        aux = tree_map(lambda t: t.detach() if isinstance(
+            t, torch.Tensor) else t, out[1])
+        return (loss.detach(), aux), tdef.unflatten(grads)
     return loss.detach(), tdef.unflatten(grads)

@@ -1,9 +1,8 @@
-"""Roofline terms of one kernel launch on an NVIDIA H100.
+"""Roofline terms of one kernel launch or step on an NVIDIA H100.
 
-The counterpart of ``repro.analysis.roofline`` for what the tuner needs
-(``HW``, ``RooflineTerms``, ``roofline_terms``); the reference's
-``model_flops`` belongs to the LM stack and is not carried. All three
-terms are seconds on one card:
+The counterpart of ``repro.analysis.roofline``: ``HW``, ``RooflineTerms``,
+``roofline_terms`` and the LM stack's ``model_flops``. All three terms are
+seconds on one card:
 
   compute_s    = operations / the card's peak rate for their type
   memory_s     = device-memory bytes / the memory rate
@@ -13,17 +12,21 @@ The dominant term lower-bounds the launch; ``bound_s`` is the largest.
 ``H100`` is NVIDIA's H100 SXM data sheet (dense rates, no sparsity) at
 its full 700 W power limit: 3.35 TB/s HBM3, 80 GB, 232,448 bytes of
 shared memory a block, NVLink 450 GB/s each way, 67 TFLOP/s f32 on the
-CUDA cores, 495 TFLOP/s TF32 and 1,979 TOP/s int8 on the tensor cores.
+CUDA cores, 495 TFLOP/s TF32, 989.4 TFLOP/s bf16 and 1,979 TOP/s int8 on
+the tensor cores.
 """
 from __future__ import annotations
 
 import dataclasses
+
+from ..models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class HW:
     peak_flops: float = 67e12       # f32 on the CUDA cores, flop/s
     tf32_flops: float = 495e12      # TF32 tensor cores, dense
+    bf16_flops: float = 989.4e12    # bf16 tensor cores, dense
     int8_ops: float = 1979e12       # int8 tensor cores, dense
     hbm_bw: float = 3.35e12         # bytes/s
     link_bw: float = 450e9          # NVLink, bytes/s each way
@@ -35,9 +38,9 @@ class HW:
 
     def peak(self, precision: str) -> float:
         """Peak rate for operations of ``precision``: ``f32`` (CUDA
-        cores), ``tf32`` or ``int8`` (tensor cores)."""
+        cores), ``tf32``, ``bf16`` or ``int8`` (tensor cores)."""
         return {"f32": self.peak_flops, "tf32": self.tf32_flops,
-                "int8": self.int8_ops}[precision]
+                "bf16": self.bf16_flops, "int8": self.int8_ops}[precision]
 
 
 H100 = HW()
@@ -51,6 +54,7 @@ class RooflineTerms:
     flops: float
     hbm_bytes: float
     collective_bytes: float
+    model_flops: float = 0.0
 
     @property
     def dominant(self) -> str:
@@ -62,14 +66,23 @@ class RooflineTerms:
     def bound_s(self) -> float:
         return max(self.compute_s, self.memory_s, self.collective_s)
 
+    @property
+    def useful_ratio(self) -> float:
+        """MODEL_FLOPS / counted FLOPs (remat / redundancy waste
+        detector)."""
+        return self.model_flops / self.flops if self.flops else 0.0
+
     def as_dict(self) -> dict:
         return {"compute_s": self.compute_s, "memory_s": self.memory_s,
                 "collective_s": self.collective_s, "dominant": self.dominant,
                 "flops": self.flops, "hbm_bytes": self.hbm_bytes,
-                "collective_bytes": self.collective_bytes}
+                "collective_bytes": self.collective_bytes,
+                "model_flops": self.model_flops,
+                "useful_ratio": self.useful_ratio}
 
 
-def roofline_terms(cost, hw: HW = H100) -> RooflineTerms:
+def roofline_terms(cost, hw: HW = H100, model_flops: float = 0.0
+                   ) -> RooflineTerms:
     """cost: anything with ``flops``, ``hbm_bytes`` and
     ``collective_bytes`` (a ``tuning.prune.LaunchCost``); its
     ``precision`` (default ``f32``) picks the peak the operations run
@@ -82,4 +95,13 @@ def roofline_terms(cost, hw: HW = H100) -> RooflineTerms:
         flops=cost.flops,
         hbm_bytes=cost.hbm_bytes,
         collective_bytes=cost.collective_bytes,
+        model_flops=model_flops,
     )
+
+
+def model_flops(cfg: ModelConfig, n_tokens: int, kind: str) -> float:
+    """MODEL_FLOPS = 6*N*D (train) or 2*N*D (fwd-only) with N = active
+    params (MoE top-k counts only routed-active experts)."""
+    n = cfg.active_param_count()
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n * n_tokens

@@ -1,9 +1,6 @@
-"""Data pipelines, the counterpart of ``repro.data``.
-
-The reference's token streams (``TokenStream``, ``synthetic_batch``) draw
-from ``jax.random`` and feed its language models; they come with the port
-of that stack.
-"""
+"""Data pipelines, the counterpart of ``repro.data``: the LM token stream
+(``TokenStream``, ``synthetic_batch``) and graph batches."""
+from .tokens import TokenStream, synthetic_batch
 from .graphs import graph_batches
 
-__all__ = ["graph_batches"]
+__all__ = ["TokenStream", "synthetic_batch", "graph_batches"]

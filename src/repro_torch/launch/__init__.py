@@ -1,1 +1,3 @@
-"""Serving entry points of the port."""
+"""Entry points of the port: GNN serving (``gnn``), the SPMD mesh
+(``mesh``), and the LM stack's trainer (``train``), server (``serve``)
+and their step builders (``steps``)."""

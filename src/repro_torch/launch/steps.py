@@ -1,0 +1,118 @@
+"""Step-function builders shared by the trainer and the server.
+
+The counterpart of ``repro.launch.steps``. ``make_train_step`` closes over
+(model, optimizer config, activation rules) and returns a (params,
+opt_state, batch) -> (params, opt_state, metrics) function: the loss's
+value and gradients (``_tree.value_and_grad``), then AdamW.
+``make_serve_step`` returns the single-token decode step. The steps run
+eagerly: ``jax.jit`` has no counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _tree
+from ..models import Transformer, activation_sharding
+from ..models.common import dtype_of
+from ..models.config import ModelConfig
+from ..optim import AdamWConfig, adamw_update
+
+
+def make_train_step(model: Transformer, opt_cfg: AdamWConfig,
+                    act_rules: dict | None = None, accum_steps: int = 1):
+    """``accum_steps`` > 1: microbatched gradient accumulation -- the
+    global batch is split on the leading dim; one optimizer update per
+    outer step."""
+    rules = act_rules or {}
+
+    def grad_fn(params, batch):
+        with activation_sharding(rules):
+            return _tree.value_and_grad(model.loss, params, batch,
+                                        has_aux=True)
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            (loss, aux), grads = grad_fn(params, batch)
+        else:
+            micro = _tree.tree_map(
+                lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps)
+                                    + tuple(x.shape[1:])), batch)
+            dev = _tree.leaves(params)[0].device
+            g_sum = _tree.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            l_sum = torch.zeros((), device=dev)
+            lb_sum = torch.zeros((), device=dev)
+            for i in range(accum_steps):
+                (l, aux), g = grad_fn(params, _tree.tree_map(
+                    lambda x: x[i], micro))
+                g_sum = _add_trees(g_sum, g)
+                l_sum = l_sum + l
+                lb_sum = lb_sum + aux.get("load_balance", 0.0)
+            grads = _tree.tree_map(lambda g: g / accum_steps, g_sum)
+            loss = l_sum / accum_steps
+            aux = {"ce": loss, "load_balance": lb_sum / accum_steps}
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state,
+                                                opt_cfg)
+        metrics = {"loss": loss, "gnorm": gnorm,
+                   "ce": aux.get("ce", loss),
+                   "load_balance": aux.get("load_balance",
+                                           torch.zeros((), device=loss.device))}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _add_trees(a, b):
+    flat, tdef = _tree.flatten(a)
+    return tdef.unflatten(x + y for x, y in zip(flat, tdef.flatten_up_to(b)))
+
+
+def make_prefill_step(model: Transformer, act_rules: dict | None = None):
+    rules = act_rules or {}
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        with activation_sharding(rules):
+            logits, _ = model.prefill(params, batch["tokens"],
+                                      frames=batch.get("frames"),
+                                      mrope_pos=batch.get("mrope_pos"))
+        return logits
+
+    return prefill_step
+
+
+def make_serve_step(model: Transformer, act_rules: dict | None = None,
+                    with_enc: bool = False):
+    rules = act_rules or {}
+
+    if with_enc:
+        @torch.no_grad()
+        def serve_step(params, caches, token, pos_idx, enc_kvs):
+            with activation_sharding(rules):
+                logits, caches = model.decode_step(params, token, caches,
+                                                   pos_idx, enc_kvs=enc_kvs)
+            return logits, caches
+    else:
+        @torch.no_grad()
+        def serve_step(params, caches, token, pos_idx):
+            with activation_sharding(rules):
+                logits, caches = model.decode_step(params, token, caches,
+                                                   pos_idx)
+            return logits, caches
+
+    return serve_step
+
+
+def batch_struct(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """The train/prefill batch's (shape, dtype) per entry, no
+    allocation (the reference's ShapeDtypeStructs)."""
+    i32 = torch.int32
+    out = {"tokens": ((batch, seq), i32),
+           "labels": ((batch, seq), i32)}
+    if cfg.is_encdec:
+        out["frames"] = ((batch, cfg.encoder.n_frames, cfg.d_model),
+                         dtype_of(cfg.dtype))
+    if cfg.mrope_sections:
+        out["mrope_pos"] = ((3, batch, seq), i32)
+    return out

@@ -38,26 +38,35 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled so their global L2 norm is at most ``max_norm``, the
-    norm before scaling). Leaves come back in their dtype promoted with
-    float32, as the reference's product with its float32 scale."""
+def _clip_scale(grads, max_norm: float):
+    """(the global-norm clipping scale, the norm before scaling)."""
     flat = _tree.leaves(grads)
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat))
     # a true division by a tensor: PyTorch computes a Python number over
     # a tensor as the number times the tensor's reciprocal
     scale = torch.clamp_max(
         torch.full_like(gn, max_norm) / torch.clamp_min(gn, 1e-9), 1.0)
-    clipped = _tree.tree_map(
-        lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
-        grads)
-    return clipped, gn
+    return scale, gn
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled so their global L2 norm is at most ``max_norm``, the
+    norm before scaling). Leaves come back in their dtype promoted with
+    float32, as the reference's product with its float32 scale."""
+    scale, gn = _clip_scale(grads, max_norm)
+    return _tree.tree_map(lambda g: _clipped(g, scale), grads), gn
 
 
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     """One AdamW step with linear warm-up. Returns (new params, new state,
-    the gradients' global norm before clipping)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    the gradients' global norm before clipping). Each leaf is clipped as
+    it is updated (``clip_by_global_norm``'s values), so no clipped copy of
+    the whole gradient tree is held at once."""
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
     step = state["step"] + 1
     warmup = torch.full((), float(max(cfg.warmup, 1)), device=step.device)
     lr = cfg.lr * torch.clamp_max(step.float() / warmup, 1.0)
@@ -65,7 +74,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     b2c = 1.0 - cfg.b2 ** step.float()
 
     def upd(p, g, m, v):
-        g = g.float()
+        g = _clipped(g, scale).float()
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
