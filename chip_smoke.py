@@ -242,6 +242,25 @@ Phases, each printing its lines, each failing the run on any error:
          [2, 128, 6144] batch against a dense f32 oracle on the card at
          capacity factor 8 (no drops; 0.05 * max|ref| + 1e-3), and at
          1.25 its dropped fraction and ms.
+       * path J, the LM stack on a mesh (``distributed.sharding``,
+         ``launch.train --mesh``, ``launch.elastic``, ``launch.dryrun``),
+         which launches none of the six kernels: J1 ``train(mesh="1x1")``
+         on a world of one NCCL rank at I1's size, seed and batches (the
+         DTensor path), its losses within 1e-5 relative and every
+         parameter within 1e-4 of its leaf's max|ref| of I1's, ms a step
+         beside I1's and peak memory; J2 the DTensor redistributions on
+         two gloo ranks sharing cuda:0 (all-reduce, reduce-scatter and
+         all-to-all must run; the all-gather's failure is reported, and
+         training on such ranks is left out while it fails), then the
+         smoke configs of internlm2, grok-1 (3 experts: expert-inner TP)
+         and deepseek-v3 (EP) on 1x2, 2x1 and 2x2 meshes of gloo CPU ranks
+         on the host against one rank (1e-5 / 1e-4); J3 the elastic
+         reshard of a 2x1 train() checkpoint onto 1x2 and one rank,
+         continuing on the uninterrupted losses; J4 the dry run's six
+         cells at full published size, each in its own process, all
+         started together (per device bytes, FLOPs, collectives, the
+         roofline modeled from the H100 data sheet, each within a
+         deadline), and J1's own cell beside J1's measured peak.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -2740,15 +2759,16 @@ I3_B, I3_S, I3_DECODE = 2, 16, 3
 I4_ARCH, I4_B, I4_S = "grok-1-314b", 2, 128
 
 
-def path_i1(device, card: str) -> None:
+def path_i1(device, card: str) -> dict:
     """I1: ``launch.train.train`` at internlm2-1.8b's full size: AdamW
     steps (host clock between device syncs, median after the first), peak
     device memory, model FLOPs over the bf16 peak; then one step profiled
-    as path G profiles its steps."""
+    as path G profiles its steps. Returns the run (losses, final
+    parameters, ms a step, peak GiB) for J1."""
     mcfg = lm_configs.get_config(I_ARCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    stamps, losses = [], []
+    stamps, losses, final = [], [], {}
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
@@ -2759,7 +2779,8 @@ def path_i1(device, card: str) -> None:
     out = lm_train.train(lm_train.TrainConfig(
         arch=I_ARCH, smoke=False, steps=I1_STEPS, batch=I1_BATCH,
         seq=I1_SEQ, lr=I1_LR, log_every=I1_STEPS, device=str(device)),
-        hooks={"on_step": on_step})
+        hooks={"on_step": on_step,
+               "on_end": lambda p, o: final.update(params=p)})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(out["last_step"] == I1_STEPS - 1 and all(np.isfinite(losses)),
             f"I1: training did not run its steps with finite losses: "
@@ -2788,6 +2809,8 @@ def path_i1(device, card: str) -> None:
     step(params, opt, batch)
     step_profile("I1", lambda: step(params, opt, batch), prefix="[pathI]",
                  card=card)
+    return {"losses": losses, "params": _tree.leaves(final["params"]),
+            "ms": ms, "peak": peak}
 
 
 def direct_chain(model, params, req, forced: list, device):
@@ -3069,10 +3092,10 @@ def path_i4(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def path_i(device, card: str) -> None:
+def path_i(device, card: str) -> dict:
     t0 = time.perf_counter()
     reset_launch_counts()
-    path_i1(device, card)
+    i1 = path_i1(device, card)
     path_i2(device, card)
     path_i3(device, card)
     path_i4(device, card)
@@ -3080,6 +3103,431 @@ def path_i(device, card: str) -> None:
     print(f"[pathI] launches over path I {json.dumps(counts)}; "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
     require(not any(counts.values()), "path I launched a GNN kernel")
+    return i1
+
+
+# ------------------------------------------------------------------ path J
+
+# the LM stack on a (data, model) mesh (distributed.sharding, launch.train
+# --mesh, launch.elastic) and the dry run (launch.dryrun, analysis.opcount).
+# No kernel of the six runs on it.
+J2_STEPS, J2_CKPT = 6, 3
+# eps 1e-3 keeps AdamW's first steps a smooth function of the gradient
+# (the tests' setting): at 1e-8 an element within rounding of 0 moves by
+# up to 2 * lr between two summation orders
+J_OPT = dict(lr=1e-2, warmup=1, eps=1e-3)
+J2_SMOKE = ("internlm2-1.8b", "grok-1-314b", "deepseek-v3-671b")
+J2_SMOKE_B, J2_SMOKE_S, J2_SMOKE_STEPS = 4, 16, 3
+J_DEADLINE = 900.0         # a spawn's deadline, s
+J_TIMEOUT = 300.0          # every collective's timeout, s
+J4_CELLS = (("internlm2-1.8b", "train_4k", False),
+            ("internlm2-1.8b", "prefill_32k", False),
+            ("internlm2-1.8b", "decode_32k", False),
+            ("grok-1-314b", "train_4k", False),
+            ("rwkv6-3b", "long_500k", False),
+            ("deepseek-v3-671b", "decode_32k", True))
+J4_DEADLINE = 420.0        # a dry-run cell's deadline, s
+
+
+def leaf_errs(got: list, want: list) -> float:
+    """The largest max|got - want| / max|want| over the leaves."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float().to(g.device)
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def j_check(tag: str, losses, ref_losses, err: float) -> str:
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    require(len(losses) == len(ref_losses) and rel <= 1e-5,
+            f"{tag}: losses {losses} against {ref_losses} (rel {rel:.3e})")
+    require(err <= 1e-4, f"{tag}: parameters off by {err:.3e} of a leaf's "
+            f"max|ref|")
+    return (f"losses within {rel:.2e} relative, parameters within "
+            f"{err:.2e} of each leaf's max|ref|")
+
+
+def path_j1(device, card: str, i1: dict) -> float:
+    """J1: ``train()`` with ``mesh="1x1"`` on a world of one NCCL rank (the
+    DTensor path) at I1's size, seed and batches, against I1's run."""
+    from repro_torch.distributed.sharding import full
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stamps, losses, final = [], [], {}
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            losses.append(float(metrics["loss"]))
+
+        t0 = time.perf_counter()
+        lm_train.train(lm_train.TrainConfig(
+            arch=I_ARCH, smoke=False, steps=I1_STEPS, batch=I1_BATCH,
+            seq=I1_SEQ, lr=I1_LR, log_every=I1_STEPS, device=str(device),
+            mesh="1x1", dist_backend="nccl"),
+            hooks={"on_step": on_step,
+                   "on_end": lambda p, o: final.update(params=p)})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = [full(x) for x in _tree.leaves(final.pop("params"))]
+        verdict = j_check("J1", losses, i1["losses"],
+                          leaf_errs(got, i1["params"]))
+        del got
+        ms = float(np.median(np.diff(stamps) * 1e3))
+        print(f"[pathJ] J1 train(mesh='1x1') {I_ARCH} full size, a world of "
+              f"one NCCL rank, DTensor parameters: loss "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; against I1 (same seed and batches): {verdict}; "
+              f"{ms:.3f} ms a step (I1 {i1['ms']:.3f} ms; ratio "
+              f"{ms / i1['ms']:.3f}; host clock between syncs, median "
+              f"after the first), peak memory {peak:.2f} GiB (I1 "
+              f"{i1['peak']:.2f}); {time.perf_counter() - t0:.1f} s; {card}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return peak
+
+
+def j_smoke_config(arch: str):
+    """The smoke config at f32; grok-1's MoE with 3 experts, which a model
+    axis of 2 does not divide (its expert-inner TP; deepseek-v3: EP)."""
+    cfg = dataclasses.replace(lm_configs.get_config(arch, smoke=True),
+                              dtype="float32")
+    if arch == "grok-1-314b":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=3))
+    return cfg
+
+
+J2_REDISTRIBUTIONS = ("all_reduce", "reduce_scatter", "all_to_all",
+                      "all_gather")
+
+
+def j2_collective(rank, world, d, kind: str):
+    """One rank of J2's check: a DTensor on a 1x2 mesh of gloo ranks
+    sharing cuda:0, redistributed as ``kind`` needs (Partial -> Replicate,
+    Partial -> Shard, Shard(0) -> Shard(1), Shard -> Replicate)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.launch.mesh import make_lm_mesh
+    mesh = make_lm_mesh((1, 2), ("data", "model"), backend="gloo",
+                        device="cuda:0", init_method=f"file://"
+                        f"{os.path.join(d, kind)}", rank=rank,
+                        timeout=J_TIMEOUT)
+    src, dst = {"all_reduce": (Partial(), Replicate()),
+                "reduce_scatter": (Partial(), Shard(0)),
+                "all_to_all": (Shard(0), Shard(1)),
+                "all_gather": (Shard(0), Replicate())}[kind]
+    x = torch.arange(16, dtype=torch.float32, device="cuda").reshape(4, 4) \
+        + 100 * rank
+    got = DTensor.from_local(x, mesh, [Replicate(), src],
+                             run_check=False).redistribute(
+        mesh, [Replicate(), dst]).to_local()
+    torch.cuda.synchronize()
+    out = got.cpu().tolist()    # by value: a tensor would travel by fd
+    dist.destroy_process_group()
+    return out
+
+
+def path_j2_collectives(card: str) -> None:
+    """J2 on the card: which DTensor redistributions gloo runs on CUDA
+    tensors (two ranks sharing cuda:0). Every training mesh of the rules
+    gathers (TP the activations, ZeRO-1 the parameters, a checkpoint the
+    whole tree), so while the gather fails the training cases of J2 and
+    J3 are left out on the card (ROADMAP §3); they run on the host's
+    gloo ranks below."""
+    x = [torch.arange(16, dtype=torch.float32).reshape(4, 4) + 100 * r
+         for r in range(2)]
+    whole = torch.cat(x, 0)                 # the Shard(0) tensor
+    want = {"all_reduce": [x[0] + x[1]] * 2,
+            "reduce_scatter": list(torch.chunk(x[0] + x[1], 2, 0)),
+            "all_to_all": list(torch.chunk(whole, 2, 1)),
+            "all_gather": [whole] * 2}
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        for kind in J2_REDISTRIBUTIONS:
+            try:
+                res = spawn(j2_collective, 2, (d, kind), deadline=120.0)
+            except RuntimeError as e:
+                require(kind == "all_gather", f"J2: gloo's {kind} on CUDA "
+                        f"tensors failed: {e}")
+                out.append(f"{kind} FAILS ({e})")
+                continue
+            require(all(torch.equal(torch.tensor(r), w)
+                        for r, w in zip(res, want[kind])),
+                    f"J2: gloo's {kind} on CUDA tensors gave {res}")
+            out.append(f"{kind} runs")
+    print(f"[pathJ] J2 DTensor redistributions on gloo ranks sharing cuda:0, "
+          f"torch {torch.__version__}: " + "; ".join(out) + f"; {card}",
+          flush=True)
+
+
+def j_steps(cfg, mesh, params, batches):
+    """AdamW steps (J_OPT) of ``cfg`` on DTensors placed by the rules over
+    ``mesh``, from the full ``params`` over ``batches``: (losses, final
+    parameters gathered)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import PartitionSpec, set_mesh
+    model = lm_models.build(cfg)
+    p_spec = S.param_shardings(params, cfg, mesh)
+    m_spec = S.optimizer_shardings(p_spec, params, mesh)
+    o_spec = {"m": m_spec, "v": m_spec, "step": PartitionSpec()}
+    b_spec = S.batch_shardings(mesh, "train", batches[0])
+    step = lm_steps.make_train_step(model, AdamWConfig(**J_OPT),
+                                    S.activation_rules(cfg, mesh),
+                                    shardings=(mesh, p_spec, m_spec))
+    opt = S.distribute(adamw_init(params), o_spec, mesh)
+    params = S.distribute(params, p_spec, mesh)
+    losses = []
+    with set_mesh(mesh):
+        for b in batches:
+            params, opt, m = step(params, opt, S.distribute(b, b_spec, mesh))
+            losses.append(float(m["loss"]))
+    return losses, [S.full(x) for x in _tree.leaves(params)]
+
+
+def j_plain_steps(cfg, params, batches):
+    """The same steps on one rank, no mesh: (losses, final params)."""
+    step = lm_steps.make_train_step(lm_models.build(cfg),
+                                    AdamWConfig(**J_OPT))
+    opt, losses = adamw_init(params), []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return losses, _tree.leaves(params)
+
+
+def j_batches(cfg) -> list:
+    stream = TokenStream(cfg.vocab, J2_SMOKE_B, J2_SMOKE_S)
+    return [stream.batch_at(i) for i in range(J2_SMOKE_STEPS)]
+
+
+def j2_host_rank(rank, world, d, shape) -> dict:
+    """One gloo CPU rank of J2's host cases: the three smoke configs on
+    ``shape``, rank 0 holding the final parameters against the one-rank
+    run's; on 2x1 also J3 (train() saved at step J2_CKPT, resharded onto
+    1x2 and onto one rank, continued to J2_STEPS)."""
+    from repro_torch.launch.mesh import make_lm_mesh
+    join = lambda sh: make_lm_mesh(
+        sh, ("data", "model"), backend="gloo", device="cpu",
+        init_method=f"file://{os.path.join(d, 'rendezvous')}", rank=rank,
+        timeout=J_TIMEOUT)
+    mesh = join(shape)
+    out = {}
+    for arch in J2_SMOKE:
+        cfg = j_smoke_config(arch)
+        params = lm_models.build(cfg).init(0, device="cpu")
+        t0 = time.perf_counter()
+        losses, got = j_steps(cfg, mesh, params, j_batches(cfg))
+        err = None
+        if rank == 0:
+            err = leaf_errs(got, torch.load(os.path.join(d, f"{arch}.pt")))
+        out[arch] = dict(losses=losses, err=err,
+                         s=time.perf_counter() - t0)
+    if shape == (2, 1):
+        out["j3"] = j3_runs(rank, d, join)
+    dist.destroy_process_group()
+    return out
+
+
+def j3_runs(rank, d, join) -> dict:
+    """J3: train() on 2x1 saving at step J2_CKPT; ``launch.elastic.
+    reshard`` of that checkpoint onto 1x2, and train() continuing from it
+    on 1x2 and on one rank without a mesh (rank 0) to step J2_STEPS; the
+    uninterrupted 2x1 run's losses."""
+    from repro_torch.launch.elastic import reshard
+    cfg = j_smoke_config(I_ARCH)
+    runs = {}
+
+    def run(name, **kw):
+        losses = runs.setdefault(name, [])
+        lm_train.train(lm_train.TrainConfig(**(dict(
+            arch=I_ARCH, batch=J2_SMOKE_B, seq=J2_SMOKE_S,
+            log_every=10 ** 6, dist_backend="gloo", device="cpu") | kw)),
+            model_cfg=cfg, hooks={"on_step": lambda s, m: losses.append(
+                (s, float(m["loss"])))})
+
+    ck = os.path.join(d, "ckpt")
+    run("first", mesh="2x1", steps=J2_CKPT + 1, ckpt_dir=ck,
+        ckpt_every=J2_CKPT)
+    run("full", mesh="2x1", steps=J2_STEPS)
+    dist.barrier()
+    if rank == 0:
+        shutil.copytree(ck, ck + "_one")
+    mesh = join((1, 2))
+    params, _, step = reshard(ck, I_ARCH, mesh, model_cfg=cfg)
+    tok = params["embed"]["tok"]
+    runs["resharded"] = (step, tuple(tok.to_local().shape),
+                         str(tok.placements))
+    run("grown", mesh="1x2", steps=J2_STEPS, ckpt_dir=ck, ckpt_every=10 ** 6)
+    if rank == 0:
+        run("single", mesh="", steps=J2_STEPS, ckpt_dir=ck + "_one",
+            ckpt_every=10 ** 6)
+    dist.barrier()
+    return runs
+
+
+def path_j2_host(card: str) -> None:
+    """J2 and J3 on gloo CPU ranks of the card's host (the card's torch):
+    the smoke configs of internlm2, grok-1 (expert-inner TP) and
+    deepseek-v3 (EP) on 1x2, 2x1 and 2x2 against one rank, and the
+    elastic reshard."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        refs = {}
+        for arch in J2_SMOKE:
+            cfg = j_smoke_config(arch)
+            refs[arch], ref_p = j_plain_steps(
+                cfg, lm_models.build(cfg).init(0, device="cpu"),
+                j_batches(cfg))
+            torch.save(ref_p, os.path.join(d, f"{arch}.pt"))
+        res = {}
+        for shape in ((1, 2), (2, 1), (2, 2)):
+            res[shape] = spawn(j2_host_rank, shape[0] * shape[1],
+                               (d, shape), deadline=J_DEADLINE)
+            os.remove(os.path.join(d, "rendezvous"))
+    kinds = {"internlm2-1.8b": "dense", "grok-1-314b":
+             "expert-inner TP, 3 experts", "deepseek-v3-671b": "EP"}
+    for shape, r in res.items():
+        for arch in J2_SMOKE:
+            r0 = r[0][arch]
+            verdict = j_check(f"J2 host {shape} {arch}", r0["losses"],
+                              refs[arch], r0["err"])
+            require(all(x[arch]["losses"] == r0["losses"] for x in r),
+                    f"J2 host {shape} {arch}: the ranks' losses differ")
+            print(f"[pathJ] J2 host mesh {shape[0]}x{shape[1]}, "
+                  f"{shape[0] * shape[1]} gloo CPU ranks, {arch} smoke f32 "
+                  f"({kinds[arch]}), {J2_SMOKE_STEPS} AdamW steps (eps "
+                  f"1e-3): against one rank: {verdict}; {r0['s']:.1f} s",
+                  flush=True)
+    j3 = res[(2, 1)][0]["j3"]
+    full = dict(j3["full"])
+    for name, where in (("grown", "1x2"), ("single", "one rank")):
+        got = dict(j3[name])
+        require(sorted(got) == list(range(J2_CKPT + 1, J2_STEPS)),
+                f"J3 {where}: resumed at steps {sorted(got)}")
+        rel = max(abs(got[s] - full[s]) / abs(full[s]) for s in got)
+        require(rel <= 1e-5, f"J3 {where}: losses {got} against the "
+                f"uninterrupted {full} (rel {rel:.3e})")
+        print(f"[pathJ] J3 host {I_ARCH} smoke f32: the 2x1 train() run's "
+              f"step-{J2_CKPT} checkpoint resharded onto {where} (tok "
+              f"{j3['resharded'][1]} {j3['resharded'][2]} a rank on 1x2) "
+              f"continues at steps {sorted(got)} with losses "
+              + " ".join(f"{got[s]:.6f}" for s in sorted(got))
+              + f", within {rel:.2e} relative of the uninterrupted run's",
+              flush=True)
+    print(f"[pathJ] J2 and J3 on the host's gloo CPU ranks "
+          f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
+
+
+_J4_OWN_CELL = r"""
+import json, sys, time
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch import dryrun
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+rec = dryrun.run_cell(sys.argv[1], "j1", multi_pod=False, mesh=mesh,
+                      spec=ShapeSpec("j1", int(sys.argv[3]),
+                                     int(sys.argv[2]), "train"))
+print(json.dumps(rec))
+"""
+
+
+def path_j4(card: str, j1_peak: float) -> None:
+    """J4: the dry run's cells at full published sizes (16 x 16, and
+    2 x 16 x 16 for deepseek-v3's decode), each in a process of its own
+    (a fake group is its process's default group), all started together;
+    then the dry run of J1's own cell on a fake 1 x 1 mesh beside J1's
+    measured peak. Needs no card."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as d:
+        procs = []
+        for i, (arch, shape, mp) in enumerate(J4_CELLS):
+            out = os.path.join(d, f"{i}.jsonl")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--multi-pod",
+                   "on" if mp else "off", "--out", out]
+            procs.append((arch, shape, out, time.perf_counter(),
+                          subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+        own = subprocess.Popen(
+            [sys.executable, "-c", _J4_OWN_CELL, I_ARCH, str(I1_BATCH),
+             str(I1_SEQ)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        for arch, shape, out, t_start, p in procs:
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(J4_DEADLINE - (time.perf_counter() - t_start),
+                                1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                require(False, f"J4 {arch} x {shape}: past its "
+                        f"{J4_DEADLINE:.0f} s deadline")
+            require(p.returncode == 0 and os.path.exists(out),
+                    f"J4 {arch} x {shape}: the dry run failed: "
+                    f"{stderr[-2000:]}")
+            with open(out) as f:
+                rec = json.loads(f.readlines()[-1])
+            require(rec.get("ok") and not rec.get("skipped"),
+                    f"J4 {arch} x {shape}: {rec}")
+            m, r = rec["memory"], rec["roofline"]
+            coll = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB" for k, v in
+                             sorted(rec["collective_bytes_by_kind"].items()))
+            print(f"[pathJ] J4 dry run {arch} x {shape} on {rec['mesh']} "
+                  f"({rec['n_devices']} fake ranks): per device arguments "
+                  f"{m['argument_bytes'] / 2 ** 30:.3f} GiB, live "
+                  f"{m['live_bytes'] / 2 ** 30:.3f} GiB, product FLOPs "
+                  f"{r['flops']:.4e} ({rec['precision']}), useful_ratio "
+                  f"{r['useful_ratio']:.4f} (model FLOPs "
+                  f"{r['model_flops']:.4e}), collective link bytes "
+                  f"{coll or 'none'}"
+                  f" ({json.dumps(rec['collective_counts'])}); roofline "
+                  f"modeled from the H100 SXM data sheet: compute "
+                  f"{r['compute_s'] * 1e3:.3f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.3f} ms, {r['dominant']}-bound;"
+                  f" the cell {rec['lower_s'] + rec['compile_s']:.1f} s in "
+                  f"its process on the host's CPU (deadline "
+                  f"{J4_DEADLINE:.0f} s)", flush=True)
+        stdout, stderr = own.communicate(timeout=J4_DEADLINE)
+        require(own.returncode == 0, f"J4 J1's cell: {stderr[-2000:]}")
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        m = rec["memory"]
+        print(f"[pathJ] J4 dry run of J1's cell ({I_ARCH}, batch {I1_BATCH} "
+              f"x {I1_SEQ}, 1x1): live {m['live_bytes'] / 2 ** 30:.2f} GiB "
+              f"estimated (arguments {m['argument_bytes'] / 2 ** 30:.2f}, "
+              f"temp {m['temp_bytes'] / 2 ** 30:.2f}, alias "
+              f"{m['alias_bytes'] / 2 ** 30:.2f}) against J1's measured peak "
+              f"{j1_peak:.2f} GiB (torch.cuda.max_memory_allocated; ratio "
+              f"{m['live_bytes'] / 2 ** 30 / j1_peak:.3f}); {card}",
+              flush=True)
+    print(f"[pathJ] J4 {time.perf_counter() - t0:.1f} s in all", flush=True)
+
+
+def path_j(device, card: str, i1: dict) -> None:
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    j1_peak = path_j1(device, card, i1)
+    i1.clear()
+    torch.cuda.empty_cache()
+    path_j2_collectives(card)
+    counts = launch_counts()
+    path_j2_host(card)
+    path_j4(card, j1_peak)
+    print(f"[pathJ] launches over path J {json.dumps(counts)} (PR 23 path "
+          f"J: 0 expected); {time.perf_counter() - t0:.1f} s in all; {card}",
+          flush=True)
+    require(not any(counts.values()), "path J launched a GNN kernel")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3615,7 +4063,11 @@ def main() -> None:
 
     # ---- path I: the LM stack, which launches none of the six kernels
     torch.cuda.empty_cache()
-    path_i(device, card)
+    i1 = path_i(device, card)
+
+    # ---- path J: the LM stack on a mesh, and the dry run; none of the six
+    path_j(device, card, i1)
+    del i1
 
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)

@@ -37,16 +37,22 @@ def _checksum(path: str) -> str:
     return h.hexdigest()
 
 
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
 def _to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if _is_dtensor(x):
+            x = x.full_tensor()       # a collective: every rank calls it
         if x.dtype in _WIDEN:
             x = x.float()
         return x.cpu().numpy()
     return np.asarray(x)
 
 
-def _like(a: np.ndarray, leaf):
+def _like(a: np.ndarray, i: int, leaf):
     """``a`` as a leaf of ``leaf``'s kind: a tensor on its device and of
     its dtype, else a numpy array of its dtype."""
     if isinstance(leaf, torch.Tensor):
@@ -56,9 +62,17 @@ def _like(a: np.ndarray, leaf):
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
     """Atomically persist a tree at a step. Returns the final directory,
-    or the writing thread when ``blocking`` is False."""
+    or the writing thread when ``blocking`` is False.
+
+    A tree of DTensors is saved whole (the device-agnostic layout, so a
+    checkpoint restores onto any mesh and in either package): every rank
+    of the mesh gathers each leaf, and rank 0 alone writes (the others
+    return None)."""
     leaves, treedef = _tree.flatten(tree)
     arrays = {f"a{i}": _to_np(x) for i, x in enumerate(leaves)}
+    if any(_is_dtensor(x) for x in leaves) and \
+            torch.distributed.get_rank() != 0:
+        return None
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + ".tmp"
 
@@ -99,6 +113,12 @@ def restore_checkpoint(ckpt_dir: str, like, step: int | None = None):
     """Restore into the structure of ``like``. Verifies integrity; on a
     corrupt checkpoint falls back to the previous step. Returns
     (tree, step) or (None, None)."""
+    return _restore(ckpt_dir, like, step, _like)
+
+
+def _restore(ckpt_dir: str, like, step, make):
+    """``restore_checkpoint`` with ``make(array, i, like_leaf)`` building
+    leaf ``i``."""
     leaves, treedef = _tree.flatten(like)
     step = step if step is not None else latest_step(ckpt_dir)
     while step is not None:
@@ -113,7 +133,7 @@ def restore_checkpoint(ckpt_dir: str, like, step: int | None = None):
                 if len(data.files) != len(leaves):
                     raise ValueError(f"leaf count mismatch: {len(data.files)}"
                                      f" stored, {len(leaves)} in like")
-                new_leaves = [_like(data[f"a{i}"], leaf)
+                new_leaves = [make(data[f"a{i}"], i, leaf)
                               for i, leaf in enumerate(leaves)]
             return treedef.unflatten(new_leaves), step
         except (OSError, ValueError, KeyError):
@@ -139,7 +159,8 @@ class CheckpointManager:
         self.finalize()
         self._pending = save_checkpoint(self.dir, step, tree,
                                         blocking=blocking)
-        self._gc()
+        if self._pending is not None:       # the rank that writes
+            self._gc()
         return True
 
     def finalize(self):
@@ -160,7 +181,13 @@ class CheckpointManager:
         ``mesh.device`` and keep this rank's block of every dimension its
         spec splits over the mesh's axis: what ``jax.device_put`` onto a
         ``NamedSharding`` leaves addressable on the rank (the reference's
-        elastic restore). Either alone restores plainly, as there."""
+        elastic restore). ``mesh`` may also be a ``DeviceMesh`` (the LM
+        stack's): each leaf becomes a DTensor of its spec holding this
+        rank's block, on the mesh's device, in ``like``'s dtype (``like``
+        may be meta tensors). Either alone restores plainly, as there."""
+        if mesh is not None and shardings is not None and \
+                hasattr(mesh, "mesh_dim_names"):
+            return self._restore_on(like, mesh, shardings)
         tree, step = restore_checkpoint(self.dir, like)
         if tree is None or mesh is None or shardings is None:
             return tree, step
@@ -168,6 +195,20 @@ class CheckpointManager:
         specs = treedef.flatten_up_to(shardings)
         return treedef.unflatten(_place(x, s, mesh)
                                  for x, s in zip(leaves, specs)), step
+
+
+    def _restore_on(self, like, mesh, shardings):
+        from ..distributed.sharding import place, spec_leaves
+
+        specs = spec_leaves(shardings)
+        dev = torch.device("cpu") if mesh.device_type == "cpu" else \
+            torch.device(mesh.device_type, torch.cuda.current_device())
+
+        def make(a, i, leaf):
+            x = torch.as_tensor(a).to(device=dev, dtype=leaf.dtype)
+            return place(x, specs[i], mesh)
+
+        return _restore(self.dir, like, None, make)
 
 
 def _place(x, spec, mesh):

@@ -19,13 +19,26 @@ the host).
 rank that raises, dies or overruns the deadline fails the call instead of
 hanging it.
 
-The LM stack's ``make_production_mesh``, ``preferred_tp`` and
-``preferred_mesh`` are not ported here.
+The LM stack's meshes are ``torch.distributed`` ``DeviceMesh``es with
+named dimensions (``data``, ``model``, and ``pod`` across pods), over
+which the sharding rules place DTensors:
+
+  * ``make_lm_mesh`` over the running group (started by ``torchrun`` or
+    ``spawn``), which must hold exactly ``prod(shape)`` ranks;
+  * ``make_production_mesh``, 16 x 16 or 2 x 16 x 16, over a fake
+    process group of 256 or 512 ranks in this one process: the
+    counterpart of ``--xla_force_host_platform_device_count=512``. The
+    fake group becomes this process's default group, so only a process
+    of its own starts it (the dry run's CLI, or one a test spawns);
+  * ``set_mesh``, the context that installs the ambient mesh
+    ``models.common.shard`` reads;
+  * ``preferred_tp`` / ``preferred_mesh``, copies of the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import queue
 import time
@@ -95,6 +108,19 @@ def make_mesh(shape, axes, *, backend: str = "nccl", device=None,
     dev = resolve_device("cuda" if device is None else device)
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"nccl moves CUDA tensors only, not {dev}")
+    _start_group(backend, size, init_method, rank, timeout)
+    rank = dist.get_rank()
+    if device is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return Mesh(dist.group.WORLD, axes[0], size, rank, dev, backend)
+
+
+def _start_group(backend: str, size: int, init_method, rank,
+                 timeout: float) -> None:
+    """Start the default group of ``size`` ranks, or check the running
+    one's size and backend."""
     if not dist.is_initialized():
         kw = {}
         if init_method is not None:
@@ -108,12 +134,92 @@ def make_mesh(shape, axes, *, backend: str = "nccl", device=None,
     if dist.get_backend() != backend:
         raise ValueError(f"the process group runs {dist.get_backend()!r}, "
                          f"not {backend!r}")
-    rank = dist.get_rank()
-    if device is None:
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def make_lm_mesh(shape, axes=("data", "model"), *, backend: str = "nccl",
+                 device=None, init_method: str | None = None,
+                 rank: int | None = None, timeout: float = 60.0):
+    """A ``DeviceMesh`` of ``shape`` with dimensions named ``axes`` over
+    the default process group, which is started as ``make_mesh`` starts
+    it when none runs and must hold exactly ``prod(shape)`` ranks. The
+    mesh's device type is ``device``'s (default ``cuda``, the card
+    ``rank % device_count``); ``nccl`` needs a card per rank."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(x) for x in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    size = math.prod(shape)
+    dev = resolve_device("cuda" if device is None else device)
+    if backend == "nccl":
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if size > cards:
+            raise ValueError(
+                f"nccl needs one card per rank: {size} ranks, {cards} "
+                f"cards; pass backend='gloo' to share cards or run on the "
+                f"host")
+    _start_group(backend, size, init_method, rank, timeout)
     if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    return Mesh(dist.group.WORLD, axes[0], size, rank, dev, backend)
+        torch.cuda.set_device(dev if dev.index is not None else
+                              dist.get_rank() % torch.cuda.device_count())
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh, 16 x 16 (``data``, ``model``) or 2 x 16 x 16
+    (``pod``, ``data``, ``model``), over a fake process group of 256 or
+    512 ranks in this process (this process is rank 0; collectives move
+    nothing). Starts the fake group as the default group, or reuses a
+    fake default group of the same size; raises over any other group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    size = math.prod(shape)
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=size)
+    elif dist.get_backend() != "fake" or dist.get_world_size() != size:
+        raise ValueError(
+            f"the production mesh needs a fake group of {size} ranks as "
+            f"its process's default group; this process runs "
+            f"{dist.get_backend()!r} over {dist.get_world_size()} ranks")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+def set_mesh(mesh):
+    """A context that installs ``mesh`` as the ambient mesh: inside it
+    ``models.common.shard`` places activations on it (the counterpart of
+    ``jax.set_mesh``)."""
+    from ..models.common import ambient_mesh
+    return ambient_mesh(mesh)
+
+
+def preferred_tp(cfg, n_chips: int, max_tp: int = 16) -> int:
+    """Divisibility-aware TP degree for an architecture: the largest TP
+    that divides the chip count, the head count, the FFN width and, for
+    MoE, the expert count (EP first)."""
+    tp = max_tp
+    while tp > 1:
+        ok = (n_chips % tp == 0 and cfg.n_heads % tp == 0
+              and cfg.d_ff % tp == 0)
+        if cfg.moe is not None:
+            ok = ok and cfg.moe.n_experts % tp == 0
+        if ok:
+            return tp
+        tp //= 2
+    return 1
+
+
+def preferred_mesh(cfg, n_chips: int = 256, **kw):
+    """(data, model) mesh with the arch-preferred TP degree over the
+    running group of ``n_chips`` ranks (``kw`` as ``make_lm_mesh``)."""
+    tp = preferred_tp(cfg, n_chips)
+    return make_lm_mesh((n_chips // tp, tp), ("data", "model"), **kw)
 
 
 def mesh_device(mesh: Mesh, device) -> torch.device:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import _tree
+from ..distributed import sharding
 from ..models import Transformer, activation_sharding
 from ..models.common import dtype_of
 from ..models.config import ModelConfig
@@ -19,10 +20,20 @@ from ..optim import AdamWConfig, adamw_update
 
 
 def make_train_step(model: Transformer, opt_cfg: AdamWConfig,
-                    act_rules: dict | None = None, accum_steps: int = 1):
+                    act_rules: dict | None = None, accum_steps: int = 1,
+                    shardings=None):
     """``accum_steps`` > 1: microbatched gradient accumulation -- the
     global batch is split on the leading dim; one optimizer update per
-    outer step."""
+    outer step.
+
+    ``shardings``: ``(mesh, param_specs, moment_specs)`` for DTensor
+    parameters and moments on a ``DeviceMesh``. The gradients are then
+    moved once to the moments' placements (ZeRO-1: a reduce-scatter over
+    the data axes where the moment is sharded and the parameter is not),
+    the norm and the update run on those blocks, and every new parameter
+    and moment is put back to its spec (the reference's ``out_shardings``;
+    an all-gather where the parameter is replicated). The metrics come
+    back as plain tensors."""
     rules = act_rules or {}
 
     def grad_fn(params, batch):
@@ -52,12 +63,23 @@ def make_train_step(model: Transformer, opt_cfg: AdamWConfig,
             grads = _tree.tree_map(lambda g: g / accum_steps, g_sum)
             loss = l_sum / accum_steps
             aux = {"ce": loss, "load_balance": lb_sum / accum_steps}
+        if shardings is not None:
+            mesh, p_spec, m_spec = shardings
+            grads = sharding.redistribute(grads, m_spec, mesh)
         params, opt_state, gnorm = adamw_update(params, grads, opt_state,
                                                 opt_cfg)
         metrics = {"loss": loss, "gnorm": gnorm,
                    "ce": aux.get("ce", loss),
                    "load_balance": aux.get("load_balance",
                                            torch.zeros((), device=loss.device))}
+        if shardings is not None:
+            params = sharding.redistribute(params, p_spec, mesh)
+            opt_state = dict(opt_state,
+                             m=sharding.redistribute(opt_state["m"], m_spec,
+                                                     mesh),
+                             v=sharding.redistribute(opt_state["v"], m_spec,
+                                                     mesh))
+            metrics = {k: sharding.full(v) for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step

@@ -12,11 +12,15 @@ place (``index_copy_`` at ``idx % capacity``, the reference's
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import (InitKey, apply_rope, dtype_of, einsum, einsum_f32,
-                     init_dense, init_full, rms_norm, shard)
+from .common import (InitKey, _block, _gather_dim, _is_dtensor, _rows_of,
+                     _sum_over, apply_rope, dtype_of, einsum, einsum_f32,
+                     init_dense, init_full, merge_heads, rms_norm, shard,
+                     split_heads)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -61,6 +65,10 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     nothing (its probabilities are 0 and its correction 1), and before it
     the next live chunk's correction, 0, erases it.
     """
+    if _is_dtensor(q):
+        return _local_heads(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, chunk=chunk, k_valid=k_valid,
+                            canonical=canonical)
     b, sq, h, dk = q.shape
     _, sk, kv, _ = k.shape
     dv = v.shape[-1]
@@ -136,6 +144,99 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     return out[:, :sq].to(q.dtype)
 
 
+def _local_heads(q, k, v, q_pos, k_pos, **kw):
+    """``chunked_attention`` of DTensor q, k, v on each rank's block: every
+    (batch row, head) attends on its own, so q, k and v are placed alike,
+    split over the batch and the heads as q is and whole elsewhere, and
+    each rank runs the attention on its local blocks (one op a step, not
+    a DTensor dispatch a step: DTensor cannot flatten the batch and head
+    splits einsum merges)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    pl = tuple(p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
+               for p in q.placements)
+    bpl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+    q_pos, k_pos = (_rows_of(t, mesh, bpl) for t in (q_pos, k_pos))
+    if kw.get("k_valid") is not None:
+        kw["k_valid"] = _rows_of(kw["k_valid"], mesh, bpl)
+    out = chunked_attention(q, k, v, q_pos, k_pos, **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def _cache_attention(local_fn, qs, caches, valid, q_heads=None,
+                     cache_heads=None):
+    """Decode attention against DTensor caches, on each rank's blocks:
+    flash-decoding over the slots a rank holds, then one combine across
+    the ranks that split the slots. ``qs`` are the query-side tensors
+    (batch on dim 0, heads on ``q_heads``), ``caches`` the cache tensors
+    (batch on dim 0, slots on dim 1, heads on ``cache_heads``), ``valid``
+    [B, C]. ``local_fn(qs, caches, valid)`` returns (max, sum of
+    exponentials, weighted values) over the local slots. Returns the
+    attention output as a DTensor placed as the queries."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    c0 = caches[0]
+    mesh = c0.device_mesh
+    cpl = tuple(c0.placements)
+    batch = [p.is_shard(0) for p in cpl]
+    slots = [p.is_shard(1) for p in cpl]
+    heads = [cache_heads is not None and p.is_shard(cache_heads)
+             for p in cpl]
+    qpl = tuple(Shard(0) if b else Shard(q_heads) if h else Replicate()
+                for b, h in zip(batch, heads))
+    kpl = tuple(Shard(0) if b else Shard(1) if s else Shard(cache_heads)
+                if h else Replicate() for b, s, h in zip(batch, slots, heads))
+    vpl = tuple(Shard(0) if b else Shard(1) if s else Replicate()
+                for b, s in zip(batch, slots))
+    m, l, acc = local_fn(
+        [t.redistribute(mesh, qpl).to_local() for t in qs],
+        [t.redistribute(mesh, kpl).to_local() for t in caches],
+        _rows_of(valid, mesh, vpl))
+    if not any(slots):
+        out = acc / l[..., None]
+        return DTensor.from_local(out, mesh, qpl, run_check=False)
+    # combine: the slot ranks' partial softmaxes rescaled to the global
+    # max, then summed (stacked on a leading dimension the slot ranks
+    # split)
+    over = [i for i, s in enumerate(slots) if s]
+    stk = tuple(Shard(0) if s else Shard(p.dim + 1) if p.is_shard()
+                else Replicate() for s, p in zip(slots, qpl))
+    gmax = DTensor.from_local(m[None], mesh, stk, run_check=False).amax(0)
+    gmax = gmax.redistribute(mesh, qpl).to_local()
+    w = torch.exp(m - gmax)
+    tot = _sum_over(l * w, mesh, over, qpl).redistribute(mesh, qpl)
+    val = _sum_over(acc * w[..., None], mesh, over, qpl).redistribute(
+        mesh, qpl)
+    return val / tot[..., None]
+
+
+def _kv_for_heads(q, k, v):
+    """Under tensor parallelism wider than the KV heads (a DTensor ``q``
+    whose heads are split over more shards than divide ``k``'s), every
+    rank needs the KV heads of its query heads: ``k`` and ``v`` repeated
+    to ``q``'s head count (Megatron's KV replication) and placed on the
+    heads as ``q`` is. Otherwise as they are."""
+    if not _is_dtensor(q):
+        return k, v
+    h, kv = q.shape[2], k.shape[2]
+    on = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
+    if kv % math.prod(q.device_mesh.size(i) for i in on) == 0:
+        return k, v
+    from torch.distributed.tensor import Shard
+
+    def rep(t):
+        t = _gather_dim(t, 2, 1)                 # all KV heads on a rank
+        t = t[:, :, :, None, :].expand(t.shape[0], t.shape[1], kv, h // kv,
+                                       t.shape[-1])
+        t = t.reshape(t.shape[0], t.shape[1], h, t.shape[-1])
+        return t.redistribute(t.device_mesh, [
+            Shard(2) if i in on else p for i, p in enumerate(t.placements)])
+
+    return rep(k), rep(v)
+
+
 # ------------------------------------------------------------ GQA
 def init_gqa(key: InitKey, cfg: ModelConfig) -> dict:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
@@ -167,10 +268,57 @@ def _write_slots(cache: dict, names, news, pos) -> torch.Tensor:
     slot = torch.clamp_max(cache["idx"].long() % cap, cap - s)
     slots = slot + torch.arange(s, device=buf.device)
     for name, new in zip(names, news):
-        cache[name].index_copy_(1, slots, new.to(cache[name].dtype))
-    cache["pos"].index_copy_(1, slots, pos.to(torch.int32))
+        _copy_slots(cache[name], slots, new.to(cache[name].dtype))
+    _copy_slots(cache["pos"], slots, pos.to(torch.int32))
     cache["idx"].add_(s)
     return cache["pos"]
+
+
+def _copy_slots(buf, slots, new) -> None:
+    """``buf.index_copy_(1, slots, new)``. A DTensor cache is written on
+    each rank's block (DTensor has no ``index_copy_`` strategy in every
+    release): ``new`` is placed as the cache is, whole over the slots;
+    where the cache is split over its slots (the flash-decoding layout of
+    ``cache_shardings``), the rank that holds the slot writes it and the
+    others write back what they hold (one slot a step: decode)."""
+    if not _is_dtensor(buf):
+        buf.index_copy_(1, slots, new)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = buf.device_mesh
+    if not _is_dtensor(new):      # every rank holds it whole (positions)
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in buf.placements]).to_local()
+    local = buf.to_local()
+    slots = slots.full_tensor() if _is_dtensor(slots) else slots
+    if not any(p.is_shard(1) for p in buf.placements):
+        local.index_copy_(1, slots, new)
+        return
+    if slots.shape[0] != 1:
+        raise ValueError(f"a cache split over its slots takes one slot a "
+                         f"step, not {slots.shape[0]}")
+    n = local.shape[1]
+    rel = slots - _block(mesh, [i for i, p in enumerate(buf.placements)
+                                if p.is_shard(1)]) * n
+    owned = ((rel >= 0) & (rel < n)).reshape((1, -1) + (1,) * (
+        local.dim() - 2))
+    rel = rel.clamp(0, n - 1)
+    local.index_copy_(1, rel, torch.where(owned, new,
+                                          local.index_select(1, rel)))
+
+
+def _gqa_flash(qg, k, v, valid, scale):
+    """(max, sum of exponentials, weighted values) of GQA decode scores
+    over the slots held: qg [B, 1, KV, G, Dh] f32, k/v [B, C, KV, Dh]."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, k.float()) * scale
+    ok = valid[:, None, None, None, :]
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    return m, e.sum(-1), torch.einsum("bqkgc,bckd->bqkgd", e, v.float())
 
 
 def gqa_attention(params, x, pos, cfg: ModelConfig, *, window: int,
@@ -180,15 +328,16 @@ def gqa_attention(params, x, pos, cfg: ModelConfig, *, window: int,
     place)."""
     b, s, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    q = einsum("bsd,de->bse", x, params["wq"]).reshape(b, s, h, dh)
-    k = einsum("bsd,de->bse", x, params["wk"]).reshape(b, s, kv, dh)
-    v = einsum("bsd,de->bse", x, params["wv"]).reshape(b, s, kv, dh)
+    q = split_heads(einsum("bsd,de->bse", x, params["wq"]), h, dh)
+    k = split_heads(einsum("bsd,de->bse", x, params["wk"]), kv, dh)
+    v = split_heads(einsum("bsd,de->bse", x, params["wv"]), kv, dh)
     rp = mrope_pos if mrope_pos is not None else pos
     q = apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, rp, cfg.rope_theta, cfg.mrope_sections)
     q = shard(q, "heads")
 
     if cache is None:
+        k, v = _kv_for_heads(q, k, v)
         out = chunked_attention(q, k, v, pos, pos, causal=True,
                                 window=window, chunk=cfg.attn_chunk,
                                 canonical=True)
@@ -198,15 +347,22 @@ def gqa_attention(params, x, pos, cfg: ModelConfig, *, window: int,
         if window:
             valid = valid & (pos[:, :1] - cpos < window)
         g = h // kv
-        qg = q.reshape(b, s, kv, g, dh).float()
-        s_ = torch.einsum("bqkgd,bckd->bqkgc", qg,
-                          cache["k"].float()) * (dh ** -0.5)
-        s_ = torch.where(valid[:, None, None, None, :], s_, NEG_INF)
-        p = torch.softmax(s_, dim=-1)
-        out = torch.einsum("bqkgc,bckd->bqkgd", p, cache["v"].float())
+        qg = _gather_dim(q, 2, kv).reshape(b, s, kv, g, dh).float()
+        if _is_dtensor(cache["k"]):
+            out = _cache_attention(
+                lambda qs, cs, va: _gqa_flash(qs[0], cs[0], cs[1], va,
+                                              dh ** -0.5),
+                [qg], [cache["k"], cache["v"]], valid, q_heads=2,
+                cache_heads=2)
+        else:
+            s_ = torch.einsum("bqkgd,bckd->bqkgc", qg,
+                              cache["k"].float()) * (dh ** -0.5)
+            s_ = torch.where(valid[:, None, None, None, :], s_, NEG_INF)
+            p = torch.softmax(s_, dim=-1)
+            out = torch.einsum("bqkgc,bckd->bqkgd", p, cache["v"].float())
         out = out.reshape(b, s, h, dh).to(x.dtype)
 
-    y = einsum("bse,ed->bsd", out.reshape(b, s, h * dh), params["wo"])
+    y = einsum("bse,ed->bsd", merge_heads(out), params["wo"])
     y = shard(y, "residual")
     return (y, cache) if cache is not None else y
 
@@ -255,8 +411,8 @@ def _mla_q(params, x, pos, cfg):
                       params["q_norm"], cfg.norm_eps)
     else:
         cq = x
-    q = einsum("bsr,re->bse", cq, params["wuq"]).reshape(
-        b, s, h, m.nope_dim + m.rope_dim)
+    q = split_heads(einsum("bsr,re->bse", cq, params["wuq"]), h,
+                    m.nope_dim + m.rope_dim)
     q_nope, q_pe = q[..., :m.nope_dim], q[..., m.nope_dim:]
     q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
     return q_nope, q_pe
@@ -274,16 +430,17 @@ def mla_attention(params, x, pos, cfg: ModelConfig,
 
     if cache is None:
         # prefill: reconstruct per-head keys/values from the latent
-        kvu = einsum("bsr,re->bse",
-                     rms_norm(ckv_new, params["kv_norm"], cfg.norm_eps),
-                     params["wukv"]).reshape(b, s, h, m.nope_dim + m.v_dim)
+        kvu = split_heads(einsum(
+            "bsr,re->bse", rms_norm(ckv_new, params["kv_norm"],
+                                    cfg.norm_eps), params["wukv"]),
+            h, m.nope_dim + m.v_dim)
         k_nope, v = kvu[..., :m.nope_dim], kvu[..., m.nope_dim:]
         k = torch.cat([k_nope, kpe_new[:, :, None, :].expand(
             b, s, h, m.rope_dim)], dim=-1)
         q = torch.cat([q_nope, q_pe], dim=-1)
         out = chunked_attention(q, k, v, pos, pos, causal=True, window=0,
                                 chunk=cfg.attn_chunk, canonical=True)
-        y = einsum("bse,ed->bsd", out.reshape(b, s, h * m.v_dim),
+        y = einsum("bse,ed->bsd", merge_heads(out),
                    params["wo"])
         return shard(y, "residual")
 
@@ -296,20 +453,40 @@ def mla_attention(params, x, pos, cfg: ModelConfig,
     ckv_new_n = rms_norm(ckv_new, params["kv_norm"], cfg.norm_eps)
     cpos = _write_slots(cache, ("ckv", "kpe"), (ckv_new_n, kpe_new), pos)
     ckv, kpe = cache["ckv"], cache["kpe"]
-    wukv = params["wukv"].reshape(m.kv_lora, h, m.nope_dim + m.v_dim)
+    wukv = split_heads(params["wukv"], h, m.nope_dim + m.v_dim)
     w_uk, w_uv = wukv[..., :m.nope_dim], wukv[..., m.nope_dim:]
     # absorb: q_lat[b,s,h,r] = q_nope . w_uk^T
     q_lat = einsum_f32("bshn,rhn->bshr", q_nope, w_uk)
-    scores = einsum_f32("bshr,bcr->bshc", q_lat.to(dt), ckv) \
-        + einsum_f32("bshp,bcp->bshc", q_pe.to(dt), kpe)
-    scores = scores * ((m.nope_dim + m.rope_dim) ** -0.5)
-    scores = torch.where((cpos >= 0)[:, None, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out_lat = einsum_f32("bshc,bcr->bshr", p.to(dt), ckv)
+    scale = (m.nope_dim + m.rope_dim) ** -0.5
+    if _is_dtensor(ckv):
+        out_lat = _cache_attention(
+            lambda qs, cs, va: _mla_flash(*qs, *cs, va, scale, dt),
+            [q_lat.to(dt), q_pe.to(dt)], [ckv, kpe], cpos >= 0)
+    else:
+        scores = einsum_f32("bshr,bcr->bshc", q_lat.to(dt), ckv) \
+            + einsum_f32("bshp,bcp->bshc", q_pe.to(dt), kpe)
+        scores = scores * scale
+        scores = torch.where((cpos >= 0)[:, None, None, :], scores,
+                             NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        out_lat = einsum_f32("bshc,bcr->bshr", p.to(dt), ckv)
     out = einsum_f32("bshr,rhv->bshv", out_lat.to(dt), w_uv)
-    y = einsum("bse,ed->bsd", out.reshape(b, s, h * m.v_dim).to(dt),
+    y = einsum("bse,ed->bsd", merge_heads(out).to(dt),
                params["wo"])
     return shard(y, "residual"), cache
+
+
+def _mla_flash(q_lat, q_pe, ckv, kpe, valid, scale, dt):
+    """(max, sum of exponentials, weighted latents) of MLA's absorbed
+    decode scores over the slots held: q_lat [B, 1, H, R], q_pe
+    [B, 1, H, P], ckv [B, C, R], kpe [B, C, P]."""
+    s = (einsum_f32("bshr,bcr->bshc", q_lat, ckv)
+         + einsum_f32("bshp,bcp->bshc", q_pe, kpe)) * scale
+    ok = valid[:, None, None, :]
+    s = torch.where(ok, s, NEG_INF)
+    mx = s.amax(dim=-1)
+    e = torch.where(ok, torch.exp(s - mx[..., None]), 0.0)
+    return mx, e.sum(-1), einsum_f32("bshc,bcr->bshr", e.to(dt), ckv)
 
 
 # ------------------------------------------------------------ cross-attn
@@ -322,19 +499,20 @@ def cross_attention(params, x, enc_kv, cfg: ModelConfig):
     precomputed."""
     b, s, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    q = einsum("bsd,de->bse", x, params["wq"]).reshape(b, s, h, dh)
-    k, v = enc_kv
+    q = split_heads(einsum("bsd,de->bse", x, params["wq"]), h, dh)
+    k, v = _kv_for_heads(q, *enc_kv)
     t = k.shape[1]
     pos_q = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     pos_k = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     out = chunked_attention(q, k, v, pos_q, pos_k, causal=False, window=0,
                             chunk=cfg.attn_chunk, canonical=True)
-    return einsum("bse,ed->bsd", out.reshape(b, s, h * dh), params["wo"])
+    return shard(einsum("bse,ed->bsd", merge_heads(out),
+                        params["wo"]), "residual")
 
 
 def encode_cross_kv(params, enc_out, cfg: ModelConfig):
     b, t, d = enc_out.shape
     kv, dh = cfg.n_kv_heads, cfg.dh
-    k = einsum("btd,de->bte", enc_out, params["wk"]).reshape(b, t, kv, dh)
-    v = einsum("btd,de->bte", enc_out, params["wv"]).reshape(b, t, kv, dh)
+    k = split_heads(einsum("btd,de->bte", enc_out, params["wk"]), kv, dh)
+    v = split_heads(einsum("btd,de->bte", enc_out, params["wv"]), kv, dh)
     return k, v

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 
 import numpy as np
@@ -26,9 +27,10 @@ from .._device import resolve_device
 from .config import ModelConfig
 
 # ---------------------------------------------------------------- sharding
-# Logical activation-sharding hooks. A launcher installs a {name: placement}
-# map; inside the model activations are tagged by logical name. With no map
-# installed (the tests, one card) this is a no-op, as in the reference.
+# Logical activation-sharding hooks. A launcher installs a {name:
+# PartitionSpec} map and a mesh; inside the model activations are tagged by
+# logical name. With no map installed (the tests, one card) this is a
+# no-op, as in the reference.
 _CTX = threading.local()
 
 
@@ -42,14 +44,221 @@ def activation_sharding(rules: dict):
         _CTX.rules = old
 
 
+@contextlib.contextmanager
+def ambient_mesh(mesh):
+    """Install ``mesh`` (a ``DeviceMesh``) as the mesh ``shard`` places
+    activations on (``launch.mesh.set_mesh``). Inside, a plain tensor
+    that meets a DTensor is taken as replicated: the plain tensors of the
+    model (masks, positions, RoPE tables, constants) are computed alike
+    on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    old = getattr(_CTX, "mesh", None)
+    _CTX.mesh = mesh
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _CTX.mesh = old
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
 def shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Place activation ``x`` as the installed rules place ``name``: a
+    DTensor is redistributed to the rule's placements on the ambient mesh
+    (the counterpart of ``with_sharding_constraint``). No rule for
+    ``name``: ``x`` as it is."""
     rules = getattr(_CTX, "rules", None)
-    if rules and name in rules:
-        raise NotImplementedError(
-            f"activation sharding rule for {name!r}: sharded placements "
-            f"come with the port of distributed/sharding.py (ROADMAP §1 "
-            f"item 3)")
-    return x
+    if not rules or name not in rules:
+        return x
+    if not _is_dtensor(x):
+        raise TypeError(f"activation {name!r} is a plain tensor under "
+                        f"sharding rules; the parameters must be DTensors")
+    from ..distributed.sharding import placements
+    mesh = getattr(_CTX, "mesh", None) or x.device_mesh
+    # a block cut from a replicated tensor along an inner dimension is a
+    # strided view; later views of it (einsum's) need it dense
+    return _Place.apply(x, mesh, _even(placements(rules[name], mesh),
+                                       x.shape, mesh)).contiguous()
+
+
+def _even(pl, shape, mesh) -> tuple:
+    """``pl`` with every split that does not divide its dimension evenly
+    replaced by a replica (a batch of 1 over 16 data ranks stays whole,
+    as ``batch_shardings`` keeps it; DTensor cannot reshape an uneven
+    split)."""
+    from torch.distributed.tensor import Replicate
+
+    out = list(pl)
+    for d in range(len(shape)):
+        on = [i for i, p in enumerate(pl) if p.is_shard(d)]
+        if on and shape[d] % math.prod(mesh.size(i) for i in on):
+            for i in on:
+                out[i] = Replicate()
+    return tuple(out)
+
+
+class _Place(torch.autograd.Function):
+    """``x.redistribute(mesh, pl)`` whose gradient comes back in ``x``'s
+    placements with its partial sums reduced (Megatron's pair of
+    conjugate operators: an all-reduce forward is an identity backward,
+    and a partial gradient is all-reduced here, once). DTensor's own
+    backward passes a partial gradient on, and the products upstream then
+    gather their weights to take it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh = mesh
+        ctx.pl = tuple(x.placements)
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        return g.redistribute(ctx.mesh, [
+            Replicate() if p.is_partial() else p for p in ctx.pl]), None, None
+
+
+def settle(x):
+    """A DTensor's pending partial sums reduced over their mesh
+    dimensions (an all-reduce), its other placements kept; anything else
+    as it is: a value DTensor leaves partial (a reduction over a split
+    dimension, a gather from split logits) made whole where the next op
+    would redistribute it through a path DTensor does not run."""
+    if not _is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def _gather_dim(x, dim: int, parts: int):
+    """``x``, gathered over the mesh dimensions that shard tensor
+    dimension ``dim`` unless their shards split ``parts`` evenly (an
+    all-gather; GSPMD's reshard where a head split does not divide the
+    model axis). Plain tensors as they are."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim %= x.dim()
+    mesh = x.device_mesh
+    on = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    if not on or parts % math.prod(mesh.size(i) for i in on) == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if i in on else p
+                                 for i, p in enumerate(x.placements)])
+
+
+def split_heads(x, n: int, d: int):
+    """[..., n*d] -> [..., n, d]; a DTensor whose last dimension is split
+    over more shards than divide ``n`` is gathered on it first."""
+    x = _gather_dim(x, -1, n)
+    return x.reshape(tuple(x.shape[:-1]) + (n, d))
+
+
+def merge_heads(x):
+    """[..., n, d] -> [..., n*d]. For a DTensor the gradient that comes
+    back is put in the forward's placements first (``_Place``): a row-
+    parallel product's gradient splits the merged dimension over shards
+    that need not divide the heads, and the reshape's backward cannot
+    unflatten that."""
+    y = x.reshape(tuple(x.shape[:-2]) + (x.shape[-2] * x.shape[-1],))
+    if not _is_dtensor(y):
+        return y
+    return _Place.apply(y, y.device_mesh, y.placements)
+
+
+def _batch_placements(mesh, batch: int) -> tuple:
+    """Dimension 0 over the data axes (``pod``, ``data``) where the batch
+    divides them, replicated otherwise and over ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    if batch % math.prod(mesh.size(i) for i in dp):
+        dp = []
+    return tuple(Shard(0) if i in dp else Replicate()
+                 for i in range(len(names)))
+
+
+def batch_local(fn, *args, batch: int, sums: int = 0):
+    """``fn`` on this rank's block of the batch: each DTensor argument is
+    redistributed to dimension 0 over the data axes (``batch`` rows;
+    replicated where it does not divide) and handed over as its local
+    tensor; each tensor ``fn`` returns comes back as a DTensor of that
+    placement, except the last ``sums``, which are per-rank partial sums
+    over the data axes. For the model's ops that DTensor has no strategy
+    for or that mix index tensors with data (the MoE dispatch and combine,
+    ``searchsorted`` and ``index_select``): every batch row is computed on
+    the ranks holding it. No DTensor argument: ``fn(*args)``."""
+    mesh = next((a.device_mesh for a in args if _is_dtensor(a)), None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor
+
+    pl = _batch_placements(mesh, batch)
+    local = [a.redistribute(mesh, pl).to_local() if _is_dtensor(a) else a
+             for a in args]
+    outs = fn(*local)
+    single = isinstance(outs, torch.Tensor)
+    outs = [outs] if single else list(outs)
+    dp = [i for i, p in enumerate(pl) if p.is_shard(0)]
+    wrapped = [_sum_over(o, mesh, dp) if i >= len(outs) - sums
+               else DTensor.from_local(o, mesh, pl, run_check=False)
+               for i, o in enumerate(outs)]
+    return wrapped[0] if single else tuple(wrapped)
+
+
+def whole(p, batch: int):
+    """A DTensor parameter gathered whole on every rank as a plain tensor,
+    for use inside ``batch_local`` (its gradient on a rank sums that
+    rank's batch rows: partial over the data axes that split ``batch``);
+    a plain tensor as it is."""
+    if not _is_dtensor(p):
+        return p
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = p.device_mesh
+    return p.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if q.is_shard(0) else Replicate()
+                         for q in _batch_placements(mesh, batch)])
+
+
+def _rows_of(t, mesh, pl):
+    """This rank's block of ``t`` under ``pl`` (a DTensor redistributed,
+    or a plain tensor every rank holds whole)."""
+    if _is_dtensor(t):
+        return t.redistribute(mesh, pl).to_local()
+    from ..distributed.sharding import local_block
+    return local_block(t, pl, mesh)
+
+
+def _sum_over(local, mesh, over, pl=None):
+    """The sum of the ranks' ``local`` values over the mesh dimensions
+    ``over``, as a DTensor placed elsewhere as ``pl`` places ``local``
+    (default: replicated): the blocks are stacked on a new leading
+    dimension those mesh dimensions split, and summed over it (a DTensor
+    partial sum, whose gradient is every rank's own; ``from_local`` with a
+    partial placement passes its gradient on differently across torch
+    releases)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    stk = [Shard(0) if i in over else Shard(pl[i].dim + 1)
+           if pl is not None and pl[i].is_shard() else Replicate()
+           for i in range(mesh.ndim)]
+    return DTensor.from_local(local[None], mesh, stk, run_check=False).sum(0)
+
+
+def _block(mesh, dims) -> int:
+    """This rank's block index along a tensor dimension the mesh
+    dimensions ``dims`` split in turn (major to minor, as DTensor)."""
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in dims:
+        block = block * mesh.size(i) + coord[i]
+    return block
 
 
 # ---------------------------------------------------------------- numerics
@@ -91,8 +300,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
 class InitKey:
     """Where parameters are drawn: ``gen`` on the parameters' device, and
     ``lead``, the leading shape every parameter drawn with it gets (the
-    stacked cycles')."""
-    gen: torch.Generator
+    stacked cycles'). ``gen`` None draws on the meta device: shapes and
+    dtypes, nothing allocated (the reference's ``jax.eval_shape``)."""
+    gen: torch.Generator | None
     lead: tuple = ()
 
     @classmethod
@@ -100,9 +310,14 @@ class InitKey:
         dev = resolve_device(device)
         return cls(torch.Generator(device=dev).manual_seed(int(seed)))
 
+    @classmethod
+    def abstract(cls) -> "InitKey":
+        """A key whose parameters are meta tensors."""
+        return cls(None)
+
     @property
     def device(self) -> torch.device:
-        return self.gen.device
+        return torch.device("meta") if self.gen is None else self.gen.device
 
     def stacked(self, n: int) -> "InitKey":
         return dataclasses.replace(self, lead=self.lead + (n,))
@@ -177,7 +392,9 @@ def init_ffn(key: InitKey, cfg: ModelConfig, d_ff: int | None = None
 
 
 def swiglu(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    gate, up = torch.chunk(h, 2, dim=-1)
+    # a DTensor split over [gate | up] is gathered first: a rank's block
+    # holds gate or up columns, not both halves of its own columns
+    gate, up = torch.chunk(_gather_dim(h, -1, 1), 2, dim=-1)
     return F.silu(gate.float()).to(dtype) * up
 
 
@@ -188,7 +405,7 @@ def ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = gelu(h.float()).to(x.dtype)
     h = shard(h, "ffn_hidden")
-    return einsum("...f,fd->...d", h, params["wo"])
+    return shard(einsum("...f,fd->...d", h, params["wo"]), "residual")
 
 
 # ---------------------------------------------------------------- embedding
@@ -203,13 +420,41 @@ def init_embed(key: InitKey, cfg: ModelConfig) -> dict:
 
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
           ) -> torch.Tensor:
-    # a gather whose gradient is index_add_; the gradient of tok[tokens]
-    # is an accumulating index_put_, which CUDA runs one repeated index
-    # after another
+    # F.embedding's gradient sorts the token ids and sums each id's rows
+    # in one pass, the same order on every run (index_select's index_add_
+    # and tok[tokens]'s index_put_ add repeated ids by atomics on CUDA)
     tok = params["tok"]
-    out = torch.index_select(tok, 0, tokens.reshape(-1))
-    return shard(out.reshape(tuple(tokens.shape) + (tok.shape[-1],)),
-                 "embed")
+    if _is_dtensor(tok):
+        return shard(_embed_sharded(tok, tokens), "embed")
+    return shard(F.embedding(tokens.long(), tok), "embed")
+
+
+def _embed_sharded(tok, tokens):
+    """The vocab-parallel lookup of a DTensor table (Megatron's): each
+    rank looks its batch rows' tokens up in its block of the vocabulary,
+    zero where the token lies in another block, and the blocks' rows are
+    summed over the mesh dimensions that split the vocabulary (the
+    "embed" rule then reduces them). The table's other dimensions are
+    gathered first (FSDP's gather), explicitly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = tok.device_mesh
+    bpl = _batch_placements(mesh, tokens.shape[0])
+    vocab = [i for i, p in enumerate(tok.placements)
+             if p.is_shard(0) and not bpl[i].is_shard(0)]
+    tpl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    tokens = _rows_of(tokens, mesh, bpl)
+    # a rank's table gradient sums its own batch rows: partial over the
+    # data axes that split the batch
+    table = tok.redistribute(mesh, tpl).to_local(grad_placements=[
+        Partial() if bpl[i].is_shard(0) else p for i, p in enumerate(tpl)])
+    n = table.shape[0]
+    rel = tokens.long() - _block(mesh, vocab) * n
+    hit = ((rel >= 0) & (rel < n))[..., None]
+    rows = torch.where(hit, F.embedding(rel.clamp(0, n - 1), table),
+                       torch.zeros((), dtype=table.dtype,
+                                   device=table.device))
+    return _sum_over(rows, mesh, vocab, bpl)
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig

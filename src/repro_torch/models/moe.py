@@ -12,7 +12,7 @@ Dispatch algorithm (fixed shapes), per token group (a batch row):
   2. stable-sort token-slots by expert id,
   3. rank-within-expert via sorted-position - expert-start (capacity drop),
   4. gather tokens into [E, C, D]; batched expert matmul; weighted combine.
-Gathers are ``index_select`` and counts ``bincount`` / ``index_add_``:
+Gathers are ``index_select`` and counts ``index_add_`` of ones:
 on CUDA an accumulating ``index_put_`` adds repeated indices one after
 another.
 """
@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from .common import InitKey, einsum, init_dense, shard, swiglu
+from .common import (InitKey, batch_local, einsum, init_dense, shard,
+                     swiglu, whole)
 from .config import ModelConfig
 
 
@@ -81,6 +82,12 @@ def _dispatch(x, ids, e: int, cap: int):
     return buf.reshape(g, e, cap, d), (flat_ids, rank, keep)
 
 
+def _dispatch_flat(x, ids, e: int, cap: int):
+    """``_dispatch`` as (buf, flat_ids, rank, keep)."""
+    buf, maps = _dispatch(x, ids, e, cap)
+    return (buf,) + maps
+
+
 def _group_dispatch(x_g, ids_g, e: int, cap: int):
     """Sort-based dispatch WITHIN one token group. x_g: [S, D];
     ids_g: [S, k]. Returns (buf [E, cap, D], (flat_ids, rank, keep)).
@@ -93,20 +100,60 @@ def _group_dispatch(x_g, ids_g, e: int, cap: int):
     return buf[0], tuple(m[0] for m in maps)
 
 
+def _combine(y_buf, slot_e, rank, keep, gates, k: int):
+    """Weighted combine back to tokens (gather + reshape-sum over k).
+    y_buf: [G, E, C, D]; slot_e / rank / keep: [G, S*k]; gates [G*S, k].
+    Returns [G*S, D] f32."""
+    g, e, cap, d = y_buf.shape
+    t = slot_e.shape[1] // k * g
+    flat = (torch.arange(g, device=y_buf.device)[:, None] * e + slot_e) \
+        * cap + rank.clamp(0, cap - 1)                   # [G, S*k]
+    got = torch.index_select(y_buf.reshape(g * e * cap, d), 0,
+                             flat.reshape(-1))           # [T*k, D]
+    w = torch.where(keep.reshape(-1), gates.reshape(-1),
+                    torch.zeros((), device=y_buf.device))
+    got = got * w[:, None].to(got.dtype)                 # bf16 slot space
+    return got.reshape(t, k, d).float().sum(dim=1)       # f32 k-reduce
+
+
+def _balance(ids, gates, e: int):
+    """Per-expert slot counts and summed top-1 gates (the load-balance
+    terms' numerators) of ids / gates [T, k]."""
+    flat = ids.reshape(-1)
+    # bincount's length depends on the ids; a count of ones into [E] does
+    # not (an abstract step runs it), and sums whole numbers exactly
+    counts = torch.zeros((e,), dtype=torch.float32, device=ids.device
+                         ).index_add(0, flat, torch.ones(
+                             flat.shape, dtype=torch.float32,
+                             device=ids.device))
+    top1 = torch.zeros((e,), dtype=torch.float32, device=ids.device
+                       ).index_add(0, ids[:, 0], gates[:, 0].float())
+    return counts, top1
+
+
 def moe_ffn(params, x, cfg: ModelConfig):
     """x: [B, S, D] -> [B, S, D]. Returns (out, aux) with load-balance
     stats. GShard-style grouped dispatch: each batch row is a dispatch
-    group, the buffer [G, E, C, D]."""
+    group, the buffer [G, E, C, D]. On a mesh the dispatch, the combine
+    and the counts run on each rank's block of the batch rows
+    (``batch_local``); the expert compute between them is placed by the
+    rules (EP or expert-inner TP)."""
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s
     k = mo.top_k
     e = mo.n_experts
     x2d = x.reshape(t, d)
-    ids, gates = _route(params, x2d, cfg)                # [T, k]
+    # the router on each rank's batch rows, its table whole there (an
+    # FSDP-split router would leave the logits partial over 'data')
+    ids, gates = batch_local(
+        lambda xx, r: _route({"router": r}, xx.reshape(-1, d), cfg), x,
+        whole(params["router"], b), batch=b)             # [T, k]
 
     cap = int(mo.capacity_factor * s * k / e) + 1        # per-group capacity
-    buf, (slot_e, rank, keep) = _dispatch(x, ids.reshape(b, s, k), e, cap)
+    buf, slot_e, rank, keep = batch_local(
+        lambda xx, ii: _dispatch_flat(xx, ii, e, cap), x,
+        ids.reshape(b, s, k), batch=b)
     buf = shard(buf, "expert_buf")                       # [G, E, C, D]
 
     # ---- expert compute (batched swiglu)
@@ -116,17 +163,9 @@ def moe_ffn(params, x, cfg: ModelConfig):
     y_buf = einsum("gecf,efd->gecd", h, params["wo"])
     y_buf = shard(y_buf, "expert_out")
 
-    # ---- weighted combine back to tokens (gather + reshape-sum over k)
-    flat = (torch.arange(b, device=x.device)[:, None] * e + slot_e) * cap \
-        + rank.clamp(0, cap - 1)                         # [G, S*k]
-    got = torch.index_select(y_buf.reshape(b * e * cap, d), 0,
-                             flat.reshape(-1))           # [T*k, D]
-    w = torch.where(keep.reshape(-1), gates.reshape(-1),
-                    torch.zeros((), device=x.device))
-    got = got * w[:, None].to(got.dtype)                 # bf16 slot space
-    out = got.reshape(t, k, d).float().sum(dim=1)        # f32 k-reduce
+    out = batch_local(lambda *a: _combine(*a, k), y_buf, slot_e, rank, keep,
+                      gates, batch=b)
     out = out.to(x.dtype)
-    flat_ids = ids.reshape(-1)
     keep_frac = keep.reshape(-1).float().mean()
 
     if mo.n_shared:
@@ -135,9 +174,10 @@ def moe_ffn(params, x, cfg: ModelConfig):
         out = out + einsum("tf,fd->td", hs, params["shared_wo"])
 
     # aux: load-balance loss terms (mean gate fraction x token fraction)
-    me = torch.bincount(flat_ids, minlength=e).float() / (t * k)
-    pe = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add(
-        0, ids[:, 0], gates[:, 0].float()) / t
+    counts, top1 = batch_local(lambda i, g: _balance(i, g, e), ids, gates,
+                               batch=b, sums=2)
+    me = counts / (t * k)
+    pe = top1 / t
     aux = {"load_balance": e * torch.sum(me * pe),
            "dropped_frac": 1.0 - keep_frac}
-    return out.reshape(b, s, d), aux
+    return shard(out.reshape(b, s, d), "residual"), aux

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import InitKey, einsum, gelu, init_dense, init_full
+from .common import (InitKey, einsum, gelu, init_dense, init_full,
+                     merge_heads, shard, split_heads)
 from .config import ModelConfig
 
 
@@ -101,7 +102,7 @@ def rglru_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
         new_state = {"h": h, "conv": win}
 
     out = y.to(x.dtype) * gelu(gate.float()).to(x.dtype)
-    out = einsum("bsw,wd->bsd", out, params["wo"])
+    out = shard(einsum("bsw,wd->bsd", out, params["wo"]), "residual")
     return (out, new_state) if state is not None else out
 
 
@@ -177,7 +178,7 @@ def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
     # data-dependent decay (the Finch signature): w in (0,1)
     w = torch.exp(-torch.exp(params["decay_base"] + xw))
 
-    hd = lambda a: a.reshape(b, s, h, dh)
+    hd = lambda a: split_heads(a, h, dh)
     u = params["u"].float().reshape(h, dh)
     s0 = (state["s"] if state is not None
           else torch.zeros((b, h, dh, dh), dtype=torch.float32,
@@ -187,9 +188,10 @@ def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
     yh = y.reshape(b, s, h, dh)
     yh = (yh - yh.mean(-1, keepdim=True)) * torch.rsqrt(
         yh.var(-1, keepdim=True, correction=0) + 1e-5)
-    y = yh.reshape(b, s, d) * params["ln_x"]
+    y = merge_heads(yh) * params["ln_x"]
     y = y * F.silu(g)
-    out = einsum("bsd,de->bse", y.to(x.dtype), params["wo"])
+    out = shard(einsum("bsd,de->bse", y.to(x.dtype), params["wo"]),
+                "residual")
     if state is not None:
         return out, {"s": s_new, "x_prev": xf[:, -1]}
     return out
@@ -220,7 +222,7 @@ def rwkv_channel_mix(params, x, cfg: ModelConfig,
     vv = einsum("bsf,fd->bsd", kk, params["wv"])
     rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
                                     params["wr"].float()))
-    out = rr.to(x.dtype) * vv
+    out = shard(rr.to(x.dtype) * vv, "residual")
     if x_prev is not None:
         return out, xf[:, -1]
     return out

@@ -29,8 +29,10 @@ from .._device import resolve_device
 from . import attention as attn
 from . import moe as moe_lib
 from . import recurrent as rec
-from .common import (InitKey, einsum, embed, ffn, init_dense, init_embed,
-                     init_ffn, init_full, rms_norm, unembed)
+from .common import (InitKey, _block, _rows_of, _sum_over, batch_local,
+                     einsum, embed, ffn, init_dense, init_embed,
+                     init_ffn, init_full, merge_heads, rms_norm, settle,
+                     shard, split_heads, unembed)
 from .config import ModelConfig
 
 
@@ -223,18 +225,19 @@ class Transformer:
         for blk in params["enc"]["blocks"]:
             h = rms_norm(x, blk["ln1"], cfg.norm_eps)
             # bidirectional chunked attention (no causal mask)
-            hq = einsum("bsd,de->bse", h, blk["mixer"]["wq"]).reshape(
-                b, t, cfg.n_heads, cfg.dh)
-            hk = einsum("bsd,de->bse", h, blk["mixer"]["wk"]).reshape(
-                b, t, cfg.n_kv_heads, cfg.dh)
-            hv = einsum("bsd,de->bse", h, blk["mixer"]["wv"]).reshape(
-                b, t, cfg.n_kv_heads, cfg.dh)
+            hq = split_heads(einsum("bsd,de->bse", h, blk["mixer"]["wq"]),
+                             cfg.n_heads, cfg.dh)
+            hk = split_heads(einsum("bsd,de->bse", h, blk["mixer"]["wk"]),
+                             cfg.n_kv_heads, cfg.dh)
+            hv = split_heads(einsum("bsd,de->bse", h, blk["mixer"]["wv"]),
+                             cfg.n_kv_heads, cfg.dh)
+            hk, hv = attn._kv_for_heads(hq, hk, hv)
             out = attn.chunked_attention(hq, hk, hv, pos, pos, causal=False,
                                          window=0, chunk=cfg.attn_chunk,
                                          canonical=True)
-            r = einsum("bse,ed->bsd",
-                       out.reshape(b, t, cfg.n_heads * cfg.dh),
-                       blk["mixer"]["wo"])
+            r = shard(einsum("bse,ed->bsd",
+                             merge_heads(out),
+                             blk["mixer"]["wo"]), "residual")
             x = x + r
             h2 = rms_norm(x, blk["ln2"], cfg.norm_eps)
             x = x + ffn(blk["ffn"], h2, cfg)
@@ -315,14 +318,14 @@ class Transformer:
         """DeepSeek-style MTP: one extra block predicts token t+2 from
         [h_t ; emb(token_{t+1})]."""
         cfg = self.cfg
-        emb_next = embed(params["embed"], torch.roll(tokens, -1, 1), cfg)
+        emb_next = embed(params["embed"], _roll(tokens), cfg)
         hcat = torch.cat(
             [rms_norm(h, params["mtp"]["ln"], cfg.norm_eps), emb_next],
             dim=-1)
         h2 = einsum("bsd,de->bse", hcat, params["mtp"]["proj"])
         h2, _, _ = _apply_block(params["mtp"]["block"], h2, pos, "attn", cfg,
                                 use_moe=cfg.moe is not None)
-        labels2 = torch.roll(labels, -1, 1)
+        labels2 = _roll(labels)
         return _chunked_ce(params["embed"], h2, labels2, cfg)
 
     def _cross_kvs(self, params, enc_out):
@@ -409,16 +412,67 @@ class Transformer:
         return unembed(params["embed"], h[:, -1:], cfg), aux
 
 
+def _roll(t):
+    """``torch.roll(t, -1, 1)`` on each rank's batch rows (DTensor has no
+    strategy for ``roll`` in every release)."""
+    return batch_local(lambda x: torch.roll(x, -1, 1), t, batch=t.shape[0])
+
+
 def _idx_enc(enc_kvs, li):
     return None if enc_kvs is None else enc_kvs[li]
+
+
+def _vocab_split(logits) -> list:
+    """The mesh dimensions of more than one rank that split the vocabulary
+    (the last dimension) of DTensor logits; [] for anything else."""
+    if type(logits).__name__ != "DTensor":
+        return []
+    last = logits.dim() - 1
+    return [i for i, p in enumerate(logits.placements)
+            if p.is_shard(last) and logits.device_mesh.size(i) > 1]
+
+
+def _logsumexp(logits):
+    """``logsumexp`` over the last dimension. Over vocab-split DTensor
+    logits it reduces a max and a sum of exponentials across the shards
+    (two all-reduces of [B, S]) instead of gathering [B, S, V]."""
+    if not _vocab_split(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = settle(logits.amax(dim=-1)).detach()
+    return m + torch.log(settle(torch.exp(logits - m[..., None]).sum(-1)))
+
+
+def _gold(logits, lx):
+    """The logit of each labelled token. Over vocab-split DTensor logits
+    each rank picks the labels in its vocabulary block (zero elsewhere)
+    and the blocks are summed (Megatron's vocab-parallel cross entropy):
+    the gather's gradient stays one [B, S, V / shards] block a rank."""
+    idx = torch.clamp_min(lx, 0).long()[..., None]
+    vocab = _vocab_split(logits)
+    if not vocab:
+        return settle(torch.gather(logits, -1, idx))[..., 0]
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    pl = tuple(p if (i in vocab or p.is_shard(0)) else Replicate()
+               for i, p in enumerate(logits.placements))
+    local = logits.redistribute(mesh, pl).to_local()
+    bpl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    idx = _rows_of(idx, mesh, bpl)
+    n = local.shape[-1]
+    rel = idx - _block(mesh, vocab) * n
+    hit = (rel >= 0) & (rel < n)
+    picked = torch.where(hit, torch.gather(local, -1, rel.clamp(0, n - 1)),
+                         torch.zeros((), dtype=local.dtype,
+                                     device=local.device))[..., 0]
+    return settle(_sum_over(picked, mesh, vocab, bpl))
 
 
 def _ce_chunk(embed_params, hx, lx, cfg: ModelConfig):
     """(summed CE, count of labelled positions) of one sequence chunk."""
     logits = unembed(embed_params, hx, cfg).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp_min(lx, 0).long()[..., None])[..., 0]
+    logz = _logsumexp(logits)
+    gold = _gold(logits, lx)
     valid = (lx >= 0).float()
     return torch.sum((logz - gold) * valid), valid.sum()
 

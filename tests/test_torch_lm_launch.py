@@ -171,10 +171,18 @@ def test_train_resume_continues(tmp_path):
     assert seen and seen[0] == 5          # resumed after the step-4 ckpt
 
 
-def test_train_mesh_is_one_card():
-    assert train(_cfg(steps=1, mesh="1x1"))["last_step"] == 0
-    with pytest.raises(NotImplementedError, match="item 3"):
-        train(_cfg(steps=1, mesh="2x1"))
+def test_train_mesh_is_one_card(monkeypatch):
+    """``mesh=""`` trains on one card, with no process group and no
+    DTensor. A "DxM" mesh trains over the running group (started by
+    torchrun or ``launch.mesh.spawn``; tests/test_torch_lm_mesh.py): with
+    none running and no torchrun environment, it raises before a group
+    starts."""
+    assert train(_cfg(steps=1, mesh=""))["last_step"] == 0
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
+        train(_cfg(steps=1, mesh="2x1", dist_backend="gloo"))
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_trains_and_serves_on_cpu(capsys):
