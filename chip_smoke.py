@@ -260,7 +260,8 @@ Phases, each printing its lines, each failing the run on any error:
          cells at full published size, each in its own process, all
          started together (per device bytes, FLOPs, collectives, the
          roofline modeled from the H100 data sheet, each within a
-         deadline), and J1's own cell beside J1's measured peak.
+         deadline), and J1's own cell, its live bytes within 0.90-1.10
+         of J1's measured peak.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -3127,6 +3128,8 @@ J4_CELLS = (("internlm2-1.8b", "train_4k", False),
             ("rwkv6-3b", "long_500k", False),
             ("deepseek-v3-671b", "decode_32k", True))
 J4_DEADLINE = 420.0        # a dry-run cell's deadline, s
+# the dry run's live bytes of J1's cell over J1's own measured peak
+J4_LIVE_BAND = (0.90, 1.10)
 
 
 def leaf_errs(got: list, want: list) -> float:
@@ -3158,6 +3161,8 @@ def path_j1(device, card: str, i1: dict) -> float:
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # what the script holds already, I1's final parameters among it
+        held = torch.cuda.memory_allocated()
         stamps, losses, final = [], [], {}
 
         def on_step(step, metrics):
@@ -3173,6 +3178,7 @@ def path_j1(device, card: str, i1: dict) -> float:
             hooks={"on_step": on_step,
                    "on_end": lambda p, o: final.update(params=p)})
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        own = peak - held / 2 ** 30
         got = [full(x) for x in _tree.leaves(final.pop("params"))]
         verdict = j_check("J1", losses, i1["losses"],
                           leaf_errs(got, i1["params"]))
@@ -3184,12 +3190,15 @@ def path_j1(device, card: str, i1: dict) -> float:
               + f"; against I1 (same seed and batches): {verdict}; "
               f"{ms:.3f} ms a step (I1 {i1['ms']:.3f} ms; ratio "
               f"{ms / i1['ms']:.3f}; host clock between syncs, median "
-              f"after the first), peak memory {peak:.2f} GiB (I1 "
+              f"after the first), peak memory {peak:.2f} GiB, of which "
+              f"{held / 2 ** 30:.2f} GiB allocated before the run (I1's "
+              f"final parameters, held for the comparison, among it): the "
+              f"run's own {own:.2f} GiB (I1 "
               f"{i1['peak']:.2f}); {time.perf_counter() - t0:.1f} s; {card}",
               flush=True)
     finally:
         dist.destroy_process_group()
-    return peak
+    return own
 
 
 def j_smoke_config(arch: str):
@@ -3443,8 +3452,9 @@ def path_j4(card: str, j1_peak: float) -> None:
     """J4: the dry run's cells at full published sizes (16 x 16, and
     2 x 16 x 16 for deepseek-v3's decode), each in a process of its own
     (a fake group is its process's default group), all started together;
-    then the dry run of J1's own cell on a fake 1 x 1 mesh beside J1's
-    measured peak. Needs no card."""
+    then the dry run of J1's own cell on a fake 1 x 1 mesh, its live bytes
+    held to J1's measured peak (``j1_peak``, GiB) within J4_LIVE_BAND.
+    Needs no card."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory() as d:
@@ -3503,14 +3513,19 @@ def path_j4(card: str, j1_peak: float) -> None:
         require(own.returncode == 0, f"J4 J1's cell: {stderr[-2000:]}")
         rec = json.loads(stdout.strip().splitlines()[-1])
         m = rec["memory"]
+        ratio = m["live_bytes"] / 2 ** 30 / j1_peak
         print(f"[pathJ] J4 dry run of J1's cell ({I_ARCH}, batch {I1_BATCH} "
               f"x {I1_SEQ}, 1x1): live {m['live_bytes'] / 2 ** 30:.2f} GiB "
               f"estimated (arguments {m['argument_bytes'] / 2 ** 30:.2f}, "
               f"temp {m['temp_bytes'] / 2 ** 30:.2f}, alias "
               f"{m['alias_bytes'] / 2 ** 30:.2f}) against J1's measured peak "
-              f"{j1_peak:.2f} GiB (torch.cuda.max_memory_allocated; ratio "
-              f"{m['live_bytes'] / 2 ** 30 / j1_peak:.3f}); {card}",
+              f"{j1_peak:.2f} GiB (torch.cuda.max_memory_allocated, what "
+              f"was allocated before J1 taken out; ratio {ratio:.3f}, band "
+              f"{J4_LIVE_BAND[0]:.2f}-{J4_LIVE_BAND[1]:.2f}); {card}",
               flush=True)
+        require(J4_LIVE_BAND[0] <= ratio <= J4_LIVE_BAND[1],
+                f"J4: J1's cell estimated at {ratio:.3f} of J1's measured "
+                f"peak, outside {J4_LIVE_BAND}")
     print(f"[pathJ] J4 {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 

@@ -32,8 +32,7 @@ per trip, and each trip is counted as it runs, so ``while_trips`` stays
 empty. ``OpCounter.rows`` groups the ops by (op, shapes) with the count of
 runs as the multiplier (the reference's trip-count multiplier).
 
-With ``track_memory``, the counter also follows the storage that the ops
-allocate (per rank: the local shards): ``peak_bytes`` is the most that was
+The counter also follows the storage that the ops allocate (per rank: the local shards): ``peak_bytes`` is the most that was
 live at once, the dry run's ``temp_bytes``.
 """
 from __future__ import annotations
@@ -136,9 +135,8 @@ class OpCounter(TorchDispatchMode):
     module docstring). ``cost()`` is the ``ModuleCost``; ``rows()`` the
     per-(op, shapes) breakdown; ``peak_bytes`` the allocation peak."""
 
-    def __init__(self, track_memory: bool = True):
+    def __init__(self):
         super().__init__()
-        self.track_memory = track_memory
         self._rows = collections.OrderedDict()   # key -> [bytes, flops, n]
         self._counts = defaultdict(float)
         self._traffic = defaultdict(float)
@@ -172,16 +170,15 @@ class OpCounter(TorchDispatchMode):
         ins = list(_tensors(args)) + list(_tensors(kwargs))
         view = getattr(func, "is_view", False)
         name = func.overloadpacket.__name__
-        if self.track_memory:
-            inputs = {id(t) for t in ins}
-            # a view or an in-place result holds no new storage: it is
-            # followed only as another holder of a storage followed.
-            # DTensor's sharding propagation makes empty tensors of the
-            # global shapes (``empty_strided``) to learn an op's result:
-            # they are no rank's
-            new = not view and name != "empty_strided"
-            for t in outs:
-                self._follow(t, new=new and id(t) not in inputs)
+        inputs = {id(t) for t in ins}
+        # a view or an in-place result holds no new storage: it is
+        # followed only as another holder of a storage followed.
+        # DTensor's sharding propagation makes empty tensors of the global
+        # shapes (``empty_strided``) to learn an op's result: they are no
+        # rank's
+        new = not view and name != "empty_strided"
+        for t in outs:
+            self._follow(t, new=new and id(t) not in inputs)
         if name in _FREE or view:
             return
         flops = 0.0

@@ -66,13 +66,12 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
 
     A tree of DTensors is saved whole (the device-agnostic layout, so a
     checkpoint restores onto any mesh and in either package): every rank
-    of the mesh gathers each leaf, and rank 0 alone writes (the others
-    return None)."""
+    of the mesh gathers each leaf, rank 0 alone writes, blocking whatever
+    ``blocking`` says, and every rank waits at a barrier until the step is
+    on disk (the others return None)."""
     leaves, treedef = _tree.flatten(tree)
     arrays = {f"a{i}": _to_np(x) for i, x in enumerate(leaves)}
-    if any(_is_dtensor(x) for x in leaves) and \
-            torch.distributed.get_rank() != 0:
-        return None
+    sharded = any(_is_dtensor(x) for x in leaves)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + ".tmp"
 
@@ -89,6 +88,12 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
             shutil.rmtree(final)
         os.rename(tmp, final)
 
+    if sharded:
+        rank = torch.distributed.get_rank()
+        if rank == 0:
+            write()
+        torch.distributed.barrier()
+        return final if rank == 0 else None
     if blocking:
         write()
         return final
@@ -184,7 +189,9 @@ class CheckpointManager:
         elastic restore). ``mesh`` may also be a ``DeviceMesh`` (the LM
         stack's): each leaf becomes a DTensor of its spec holding this
         rank's block, on the mesh's device, in ``like``'s dtype (``like``
-        may be meta tensors). Either alone restores plainly, as there."""
+        may be meta tensors); the ranks wait for each other's saves, and
+        every rank restores the step rank 0 picks. Either alone restores
+        plainly, as there."""
         if mesh is not None and shardings is not None and \
                 hasattr(mesh, "mesh_dim_names"):
             return self._restore_on(like, mesh, shardings)
@@ -196,10 +203,10 @@ class CheckpointManager:
         return treedef.unflatten(_place(x, s, mesh)
                                  for x, s in zip(leaves, specs)), step
 
-
     def _restore_on(self, like, mesh, shardings):
         from ..distributed.sharding import place, spec_leaves
 
+        dist = torch.distributed
         specs = spec_leaves(shardings)
         dev = torch.device("cpu") if mesh.device_type == "cpu" else \
             torch.device(mesh.device_type, torch.cuda.current_device())
@@ -208,7 +215,19 @@ class CheckpointManager:
             x = torch.as_tensor(a).to(device=dev, dtype=leaf.dtype)
             return place(x, specs[i], mesh)
 
-        return _restore(self.dir, like, None, make)
+        self.finalize()
+        dist.barrier()                  # every rank's saves are on disk
+        pick = [latest_step(self.dir) if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(pick, src=0)
+        if pick[0] is None:
+            return None, None
+        tree, step = _restore(self.dir, like, pick[0], make)
+        steps = [None] * dist.get_world_size()
+        dist.all_gather_object(steps, step)
+        if len(set(steps)) > 1:         # a step corrupt on some ranks only
+            raise RuntimeError(f"the ranks restored different steps: "
+                               f"{steps}")
+        return tree, step
 
 
 def _place(x, spec, mesh):

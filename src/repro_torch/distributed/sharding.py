@@ -31,6 +31,8 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import torch
+
 from .. import _tree
 from ..launch.mesh import PartitionSpec as P
 from ..models.config import ModelConfig
@@ -363,11 +365,14 @@ def local_block(x, pl, device_mesh, coordinate=None):
 def place(x, spec, device_mesh):
     """The full tensor ``x`` (the same on every rank) as a DTensor of
     ``spec``: this rank keeps its block, cut locally, with no
-    collective."""
+    collective. A block cut from ``x`` is copied into storage of its own,
+    so that the full tensor can be freed (a dim-0 block is a view of it)."""
     from torch.distributed.tensor import DTensor
 
     pl = placements(spec, device_mesh)
-    block = local_block(x, pl, device_mesh).contiguous()
+    block = local_block(x, pl, device_mesh)
+    block = block.clone(memory_format=torch.contiguous_format) \
+        if block.numel() < x.numel() else block.contiguous()
     return DTensor.from_local(block, device_mesh, pl, run_check=False,
                               shape=x.shape, stride=x.contiguous().stride())
 

@@ -15,10 +15,11 @@ Where the reference compiles, the port runs the step on meta shards:
 FLOPs, bytes and collectives are counted per device as each rank's local
 ops run, and memory is read from the storage they make:
 ``argument_bytes`` is the local shards of every input, ``temp_bytes``
-the peak of storage the step allocated on top of them, ``alias_bytes``
-the donated inputs (train: params and optimizer state; decode: the
-caches), ``live_bytes`` = argument + temp - alias, as the reference
-computes it. The roofline
+the peak of storage the step allocated on top of them, ``live_bytes`` =
+argument + temp - alias, as the reference computes it. The port's eager
+steps donate nothing (the caller holds the parameters, the optimizer
+state and the caches while the step builds the new ones), so
+``alias_bytes`` is 0 and ``live_bytes`` is argument + temp. The roofline
 uses ``analysis.roofline.H100`` (NVIDIA's data sheet, not a measurement),
 and each record says so (``hw``).
 
@@ -97,11 +98,10 @@ def _local_bytes(tree) -> int:
 
 @dataclasses.dataclass
 class Lowered:
-    """One cell ready to run: the step, its abstract arguments (built by
-    ``build_args`` on the meta device) and which of them it donates."""
+    """One cell ready to run: the step and its abstract arguments (built
+    by ``build_args`` on the meta device)."""
     step: object
     build_args: object
-    donate: tuple
     mesh: object
 
     def run(self):
@@ -109,7 +109,6 @@ class Lowered:
         Returns (counter, memory dict)."""
         args = self.build_args()
         arg_bytes = _local_bytes(args)
-        alias = sum(_local_bytes(args[i]) for i in self.donate)
         with set_mesh(self.mesh), OpCounter() as counter:
             out = self.step(*args)
         out_bytes = _local_bytes(out)
@@ -117,8 +116,8 @@ class Lowered:
         mem = {"argument_bytes": arg_bytes,
                "output_bytes": out_bytes,
                "temp_bytes": counter.peak_bytes,
-               "alias_bytes": alias,
-               "live_bytes": arg_bytes + counter.peak_bytes - alias}
+               "alias_bytes": 0,        # the eager step donates nothing
+               "live_bytes": arg_bytes + counter.peak_bytes}
         return counter, mem
 
 
@@ -158,7 +157,6 @@ def lower_cell(arch: str, shape_name: str, mesh, *, remat: str | None = None,
             return (_meta_tree(params_s, p_spec, mesh),
                     _meta_tree(opt_s, o_spec, mesh),
                     _meta_tree(batch_s, b_spec, mesh))
-        donate = (0, 1)
         n_tokens = b * spec.seq_len
     elif spec.kind == "prefill":
         # the prefill step reads no labels (the reference's jit drops the
@@ -171,7 +169,6 @@ def lower_cell(arch: str, shape_name: str, mesh, *, remat: str | None = None,
         def build_args():
             return (_meta_tree(params_s, p_spec, mesh),
                     _meta_tree(batch_s, b_spec, mesh))
-        donate = ()
         n_tokens = b * spec.seq_len
     else:  # decode
         caches_s = model.init_caches(b, spec.seq_len, device="meta")
@@ -198,10 +195,9 @@ def lower_cell(arch: str, shape_name: str, mesh, *, remat: str | None = None,
                         _meta_tree(caches_s, c_spec, mesh),
                         _meta_leaf(tok_s, t_spec, mesh),
                         _meta_leaf(pos_s, P(), mesh))
-        donate = (1,)
         n_tokens = b  # one new token per sequence
     meta["n_tokens"] = n_tokens
-    return Lowered(step, build_args, donate, mesh), cfg, meta
+    return Lowered(step, build_args, mesh), cfg, meta
 
 
 def _enc_struct(model, cfg, b: int):

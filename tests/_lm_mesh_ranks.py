@@ -94,22 +94,44 @@ def run_meshes(rank: int, world: int, rdv: str, path: str, meshes):
     return out
 
 
+class NodeFailure(Exception):
+    """A simulated node failure: ``train()`` restores and retries."""
+
+
+def fail_once_at(step: int):
+    """A ``fault`` hook that raises ``NodeFailure`` the first time the
+    loop reaches ``step``."""
+    fired = []
+
+    def fault(s):
+        if s == step and not fired:
+            fired.append(s)
+            raise NodeFailure(f"simulated failure at step {s}")
+    return fault
+
+
 def run_elastic(rank: int, world: int, rdv: str, ckpt_root: str):
     """train() on 2x1 saving at step 3; the checkpoint resharded onto
     1x2 and onto one card, each continuing to step 6; an uninterrupted
-    2x1 run; and restores onto 2-D meshes. Returns what rank 0 saw."""
+    2x1 run; a 2x1 run that fails at step 4 and retries from its step-3
+    checkpoint; and restores onto 2-D meshes. Returns what each rank
+    saw."""
     arch = "internlm2-1.8b"
     cfg = model_config(arch)
     base = dict(arch=arch, batch=BATCH, seq=SEQ, log_every=100,
                 dist_backend="gloo", device="cpu")
-    run = lambda losses, **kw: train(
-        TrainConfig(**(base | kw)), model_cfg=cfg,
-        hooks={"on_step": lambda s, m: losses.append((s, float(m["loss"])))})
+
+    def run(losses, hooks=None, **kw):
+        return train(TrainConfig(**(base | kw)), model_cfg=cfg, hooks={
+            "on_step": lambda s, m: losses.append((s, float(m["loss"]))),
+            **(hooks or {})})
     _join(rank, rdv, (2, 1))
     ck = os.path.join(ckpt_root, "ckpt")
-    first, full, grown, single = [], [], [], []
+    first, full, grown, single, faulted = [], [], [], [], []
     run(first, mesh="2x1", steps=4, ckpt_dir=ck, ckpt_every=3)
     run(full, mesh="2x1", steps=6)
+    run(faulted, {"fault": fail_once_at(4)}, mesh="2x1", steps=6,
+        ckpt_dir=ck + "_fault", ckpt_every=3)
     torch.distributed.barrier()
     if rank == 0:
         shutil.copytree(ck, ck + "_one")
@@ -117,15 +139,16 @@ def run_elastic(rank: int, world: int, rdv: str, ckpt_root: str):
     from repro_torch.launch.elastic import reshard
     mesh12 = _join(rank, rdv, (1, 2))
     params, opt, step = reshard(ck, arch, mesh12, model_cfg=cfg)
-    blocks = {"step": step, "tok": tuple(params["embed"]["tok"].to_local()
-                                         .shape),
+    tok = params["embed"]["tok"].to_local()
+    blocks = {"step": step, "tok": tuple(tok.shape),
+              "tok_storage": tok.untyped_storage().nbytes(),
               "placements": str(params["embed"]["tok"].placements)}
     run(grown, mesh="1x2", steps=6, ckpt_dir=ck, ckpt_every=100)
     run(single, mesh="", steps=6, ckpt_dir=ck + "_one", ckpt_every=100)
     restore = _restore_blocks(rank, rdv, ckpt_root)
     tp = preferred_mesh(cfg, 2, backend="gloo", device="cpu")
     return {"first": first, "full": full, "grown": grown, "single": single,
-            "resharded": blocks, "restore": restore,
+            "faulted": faulted, "resharded": blocks, "restore": restore,
             "preferred": tuple(tp.mesh.shape)}
 
 
@@ -151,7 +174,8 @@ def _restore_blocks(rank: int, rdv: str, root: str):
         got, step = CheckpointManager(d).restore(like, mesh=mesh,
                                                  shardings=specs)
         out["x".join(map(str, shape))] = (step, {
-            k: (v.to_local().numpy(), str(v.placements))
+            k: (v.to_local().numpy(), str(v.placements),
+                v.to_local().untyped_storage().nbytes())
             for k, v in got.items()})
     return out
 

@@ -131,8 +131,8 @@ def test_record_has_the_reference_keys_and_renders(records, kind, tmp_path,
               "alias_bytes", "live_bytes"):
         assert k in rec["memory"]
     m = rec["memory"]
-    assert m["live_bytes"] == m["argument_bytes"] + m["temp_bytes"] - \
-        m["alias_bytes"]
+    assert m["alias_bytes"] == 0              # the eager step donates nothing
+    assert m["live_bytes"] == m["argument_bytes"] + m["temp_bytes"]
     assert rec["ok"] and rec["n_devices"] == 8 and rec["mesh"] == "2x4"
     assert "modeled" in rec["hw"]
     path = tmp_path / "dryrun.jsonl"

@@ -9,8 +9,10 @@ card (no mesh), and each continues to step 6 on the losses of the
 uninterrupted run (the token stream is indexed by step). A checkpoint
 restored onto 2-D meshes leaves each rank the block ``jax.device_put``
 onto a ``NamedSharding`` would leave addressable on it (the case of
-``tests/test_checkpoint.py::test_elastic_restore_onto_mesh``), and
-``preferred_mesh`` takes the reference's TP degree.
+``tests/test_checkpoint.py::test_elastic_restore_onto_mesh``), in storage
+of its own, and ``preferred_mesh`` takes the reference's TP degree. A 2x1
+run that fails at step 4 resumes on every rank from its step-3 checkpoint
+(saved every 3 steps) and ends on the uninterrupted run's losses.
 """
 import numpy as np
 import pytest
@@ -70,3 +72,23 @@ def test_preferred_mesh_matches_reference_tp(elastic):
     assert elastic[0]["preferred"] == (2 // tp, tp)
 
 
+
+
+def test_fault_on_a_mesh_resumes_every_rank_at_the_same_step(elastic):
+    for rank, r in enumerate(elastic):
+        full = dict(r["full"])
+        steps = [s for s, _ in r["faulted"]]
+        assert steps == [0, 1, 2, 3, 4, 5], (rank, steps)
+        for s, v in r["faulted"]:
+            np.testing.assert_allclose(v, full[s], rtol=1e-5, atol=0)
+
+
+def test_restored_blocks_own_their_storage(elastic):
+    """A block cut from the full tensor is copied out of it, so the full
+    tensor can be freed (a dim-0 block would otherwise be a view)."""
+    b = elastic[0]["resharded"]
+    assert b["tok_storage"] == 128 * 64 * 4
+    for r in elastic:
+        for mesh in ("2x1", "1x2"):
+            for name, (block, _, storage) in r["restore"][mesh][1].items():
+                assert storage == block.nbytes, (mesh, name)
