@@ -8,8 +8,9 @@ Phases, each printing its lines, each failing the run on any error:
   1. the card (``nvidia-smi`` name and power limit), the torch, CUDA and
      nvcc versions; the kernels built from ``src/repro_torch/csrc`` (one
      nvcc per source, all started together).
-  2. each of the six kernels against its plain PyTorch version on the
-     same inputs, at the shapes its path gives it:
+  2. each of the six GNN kernels against its plain PyTorch version on
+     the same inputs, at the shapes its path gives it (the two scan
+     kernels: path K3):
        * the serving kernels at collab-like F=496 -> H=64 and 64 -> 16,
          S=8, 372,475 destination rows with some zero-degree rows, on
          ideal, default bit-accurate and 12-bit-ADC/64-row numerics and
@@ -216,8 +217,9 @@ Phases, each printing its lines, each failing the run on any error:
          bytes; H3 the CLI under ``torch.distributed.run`` on 8 gloo
          ranks, its refresh line printed once, by rank 0.
        * path I, the LM stack (``repro_torch.models``, ``launch.train``,
-         ``launch.serve``), which launches none of the six kernels (its
-         counts must stay 0): I1 ``train()`` on internlm2-1.8b at its full
+         ``launch.serve``), which launches none of the six GNN kernels
+         (their counts must stay 0; I3's recurrent smoke configs must reach
+         the two scan kernels): I1 ``train()`` on internlm2-1.8b at its full
          published size (24 layers, d_model 2,048, 1.89 B parameters,
          bf16), batch 4 x seq 512, 6 AdamW steps, the loss finite and
          lower at the end; ms a step (host clock between device syncs,
@@ -248,20 +250,45 @@ Phases, each printing its lines, each failing the run on any error:
          on a world of one NCCL rank at I1's size, seed and batches (the
          DTensor path), its losses within 1e-5 relative and every
          parameter within 1e-4 of its leaf's max|ref| of I1's, ms a step
-         beside I1's and peak memory; J2 the DTensor redistributions on
-         two gloo ranks sharing cuda:0 (all-reduce, reduce-scatter and
-         all-to-all must run; the all-gather's failure is reported, and
-         training on such ranks is left out while it fails), then the
-         smoke configs of internlm2, grok-1 (3 experts: expert-inner TP)
-         and deepseek-v3 (EP) on 1x2, 2x1 and 2x2 meshes of gloo CPU ranks
-         on the host against one rank (1e-5 / 1e-4); J3 the elastic
-         reshard of a 2x1 train() checkpoint onto 1x2 and one rank,
-         continuing on the uninterrupted losses; J4 the dry run's six
-         cells at full published size, each in its own process, all
-         started together (per device bytes, FLOPs, collectives, the
-         roofline modeled from the H100 data sheet, each within a
-         deadline), and J1's own cell, its live bytes within 0.90-1.10
-         of J1's measured peak.
+         beside I1's and peak memory; J2 F7's probe (two ranks sharing
+         cuda:0: gloo's plain all-gather and the functional one through
+         the port's route must run), the DTensor redistributions on two
+         gloo ranks sharing cuda:0 (all-reduce, reduce-scatter, all-to-all
+         and the all-gather, each required), the smoke internlm2 on 1x2
+         (TP) and 2x1 (ZeRO-1) meshes of gloo ranks sharing cuda:0 against
+         one rank on the card (1e-5 / 1e-4), then the smoke configs of
+         grok-1 (3 experts: expert-inner TP) and deepseek-v3 (EP) on 1x2,
+         2x1 and 2x2 meshes of gloo CPU ranks on the host, and internlm2
+         on 2x2, against one rank (1e-5 / 1e-4); J3 the elastic reshard of
+         a 2x1 train() checkpoint onto 1x2 and one rank, continuing on the
+         uninterrupted losses, on the card's shared ranks; J4 the dry run's seven cells at full published size
+         (rwkv6-3b's ``train_4k`` runs the scans' backward op on meta
+         tensors), each in its own process, all started together (per
+         device bytes, FLOPs, collectives, the roofline modeled from the
+         H100 data sheet, each within a deadline), and J1's own cell, its
+         live bytes within 0.90-1.10 of J1's measured peak.
+       * path K, the two sequence-scan kernels (``kernels.recurrence``:
+         ``rglru_scan``, ``wkv6_scan``) on the recurrent architectures at
+         full published widths: K3 first, each kernel forward and
+         backward against its plain loop on the card at K2's RG-LRU layer
+         (1 x 4,096 x 4,096), K1's RWKV layer (4 x 512, 40 heads of 64),
+         the smoke shapes and a one-step decode, from a zero and a nonzero
+         initial state (``rglru_scan``'s states and ``wkv6_scan``'s final
+         state ``torch.equal``, y within rtol 1e-5 + 1e-5 * max|y|, every
+         gradient within 1e-4 * max|g_ref|), and each timed (CUDA events)
+         beside its plain loop and its bound; K1 ``train()`` on rwkv6-3b
+         (32 layers, d_model 2,560, 3.07 B parameters, bf16) at I1's batch,
+         6 AdamW steps, finite losses, the mean loss on the six batches
+         trained on lower at the final weights than at the initial ones (a
+         step's loss on a fresh batch moves with the batch more than six
+         warm-up steps move it), ms a step, tokens/s, peak memory, one step profiled with the scans' share, and one layer's
+         forward and backward with the kernel and with the plain loop (ms,
+         peak bytes); K2 recurrentgemma-9b's prefill (38 layers, 10 B
+         parameters, bf16) of 1 x 4,096 tokens under no_grad, its logits
+         equal bit for bit to the same prefill with the plain loops, then
+         8 decode steps through ``Server`` at 4 slots; and the gnn_serve
+         demos ``--stream 12``, ``--buckets auto`` and ``--tech`` as
+         subprocesses. K1 and K2 must launch both scans.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -286,6 +313,11 @@ The last lines are the card line, one JSON object with a record per
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 
+``python3 chip_smoke.py --f7-probe`` runs only F7's probe, with the two
+all-gather entry points that end gloo ranks holding CUDA tensors (the
+process group's coalesced all-gather and the functional op without the
+port's route) reported, not raised.
+
 ``python3 chip_smoke.py --f6-loop ROUNDS`` runs none of that: it loops
 path H1's eight cases ROUNDS times with CUDA_LAUNCH_BLOCKING=1 and a
 device sync after every kernel launch, naming the launch before a fault,
@@ -299,7 +331,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -377,7 +411,7 @@ QUANT = dict(in_bits=8, w_bits=8, adc_bits=12, rows_per_xbar=64)
 SCENARIO_NODES = 20_000        # the CLI's --scale 0.1 (200,000 * 0.1)
 TECHS = ("sot-mram", "reram", "sram", "fefet")
 
-KERNELS = {   # name -> (source, TPU kernel it replaces)
+KERNELS = {   # name -> (source, TPU kernel it replaces): the GNN kernels
     "fused_ideal_layer": ("src/repro_torch/csrc/fused_layer.cu",
                           "src/repro/kernels/fused_layer/fused_layer.py:142"),
     "fused_zmax": ("src/repro_torch/csrc/fused_layer.cu",
@@ -2251,12 +2285,14 @@ def phase_ms(events: list) -> str:
 
 
 def step_profile(tag: str, fn, prefix: str = "[pathG]",
-                 card: str = "") -> None:
+                 card: str = "", share: tuple = ()) -> None:
     """One call of ``fn`` (a training or decode step) under
     ``torch.profiler``: its host ms (profiler on), the kernels' summed
     device ms over it (the device-busy share), the three kernels that
     take most and the split of ``phase_ms``, from its chrome trace
-    (``chiprun_out/step_<tag>.json``)."""
+    (``chiprun_out/step_<tag>.json``); with ``share``, the kernels whose
+    names start with one of those prefixes: their ms, launches and share
+    of the kernel time."""
     from torch.profiler import ProfilerActivity, profile
     path = os.path.join(ROOT, "chiprun_out", f"step_{tag}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -2284,14 +2320,20 @@ def step_profile(tag: str, fn, prefix: str = "[pathG]",
         by_name[k] = by_name.get(k, 0.0) + float(e["dur"]) / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    mine = [e for e in kernels if kernel_name(e["name"]).startswith(share)] \
+        if share else []
+    mine_ms = sum(float(e["dur"]) for e in mine) / 1e3
     print(f"{prefix} {tag} one step under torch.profiler: "
           f"{wall_ms:.3f} ms on the host clock, {len(kernels)} kernels, "
           f"{busy:.3f} ms of kernel time (device-busy share "
           f"{busy / wall_ms:.3f}); most: "
           + "; ".join(f"{k} {ms:.3f} ms ({ms / busy:.2f})" for k, ms in top)
-          + f"; {phase_ms(events)}; trace chiprun_out/"
-          f"{os.path.basename(path)}" + (f"; {card}" if card else ""),
-          flush=True)
+          + f"; {phase_ms(events)}"
+          + (f"; {'/'.join(share)}* kernels {len(mine)} launches, "
+             f"{mine_ms:.3f} ms ({mine_ms / busy:.3f} of the kernel time)"
+             if share else "")
+          + f"; trace chiprun_out/{os.path.basename(path)}"
+          + (f"; {card}" if card else ""), flush=True)
 
 
 def path_g1(plan_c, x1, nbr, wts, g01, device) -> float:
@@ -2985,12 +3027,12 @@ def path_i3(device, card: str) -> None:
                                       dtype=dtype)
             model = lm_models.build(cfg)
             host = model.init(0, device="cpu")
-            card = _tree.tree_map(lambda t: t.to(device), host)
+            on_card = _tree.tree_map(lambda t: t.to(device), host)
             hb, cb = i3_batch(cfg, "cpu"), i3_batch(cfg, device)
             if dtype == "float32":
                 (lh, _), gh = _tree.value_and_grad(model.loss, host, hb,
                                                    has_aux=True)
-                (lc, _), gc = _tree.value_and_grad(model.loss, card, cb,
+                (lc, _), gc = _tree.value_and_grad(model.loss, on_card, cb,
                                                    has_aux=True)
                 ok, g_err = leaf_errors(gc, gh, rtol=0.0)
                 rel = abs(float(lc) - float(lh)) / abs(float(lh))
@@ -2999,13 +3041,13 @@ def path_i3(device, card: str) -> None:
             else:
                 with torch.no_grad():
                     lh, _ = model.loss(host, hb)
-                    lc, _ = model.loss(card, cb)
+                    lc, _ = model.loss(on_card, cb)
                 rel = abs(float(lc) - float(lh)) / abs(float(lh))
                 g_err = None
                 require(np.isfinite(float(lc)) and rel <= tol,
                         f"I3 {arch} bf16: loss {float(lc)} / {float(lh)}")
             worst = 0.0
-            for got, ref in zip(i3_decode(model, card, cb),
+            for got, ref in zip(i3_decode(model, on_card, cb),
                                 i3_decode(model, host, hb)):
                 scale = float(ref.abs().max()) or 1.0
                 require(bool(torch.isfinite(got).all()), f"I3 {arch} "
@@ -3103,7 +3145,10 @@ def path_i(device, card: str) -> dict:
     counts = launch_counts()
     print(f"[pathI] launches over path I {json.dumps(counts)}; "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
-    require(not any(counts.values()), "path I launched a GNN kernel")
+    require(not any(counts[k] for k in KERNELS),
+            "path I launched a GNN kernel")
+    require(counts["rglru_scan"] > 0 and counts["wkv6_scan"] > 0,
+            "path I's recurrent smoke configs did not reach the scans")
     return i1
 
 
@@ -3126,6 +3171,7 @@ J4_CELLS = (("internlm2-1.8b", "train_4k", False),
             ("internlm2-1.8b", "decode_32k", False),
             ("grok-1-314b", "train_4k", False),
             ("rwkv6-3b", "long_500k", False),
+            ("rwkv6-3b", "train_4k", False),
             ("deepseek-v3-671b", "decode_32k", True))
 J4_DEADLINE = 420.0        # a dry-run cell's deadline, s
 # the dry run's live bytes of J1's cell over J1's own measured peak
@@ -3214,40 +3260,109 @@ def j_smoke_config(arch: str):
 
 J2_REDISTRIBUTIONS = ("all_reduce", "reduce_scatter", "all_to_all",
                       "all_gather")
+# F7's probe: gloo's all-gather entry points on CUDA tensors, two ranks
+# sharing cuda:0. "plain" is dist.all_gather_into_tensor (_allgather_base);
+# "routed" the functional op DTensor calls, through the port's
+# route_gloo_cuda_all_gather. "coalesced" (the process group's
+# allgather_into_tensor_coalesced) and "functional" (the functional op
+# without the route) end both ranks with SIGSEGV under torch 2.11: they run
+# only under ``--f7-probe``.
+J2_PROBE = ("plain", "routed")
+J2_PROBE_FAULTS = ("coalesced", "functional")
 
 
-def j2_collective(rank, world, d, kind: str):
+def j2_probe_rank(rank, world, d, cases: tuple):
+    """One rank of F7's probe: each case's all-gather of a [2, 4] CUDA
+    tensor over one gloo group of two ranks sharing cuda:0, in turn."""
+    from repro_torch.launch.mesh import route_gloo_cuda_all_gather
+    dist.init_process_group("gloo", init_method=f"file://"
+                            f"{os.path.join(d, cases[0])}", rank=rank,
+                            world_size=world)
+    torch.cuda.set_device(0)
+    x = torch.arange(8, dtype=torch.float32, device="cuda").reshape(2, 4) \
+        + 100 * rank
+    fn = torch.ops._c10d_functional
+    res = {}
+    for case in cases:
+        out = torch.empty((4, 4), device="cuda")
+        if case == "plain":
+            dist.all_gather_into_tensor(out, x)
+        elif case == "coalesced":
+            dist.group.WORLD.allgather_into_tensor_coalesced([out],
+                                                             [x]).wait()
+        else:
+            if case == "routed":
+                route_gloo_cuda_all_gather()
+            out = fn.wait_tensor(fn.all_gather_into_tensor(
+                x, world, dist.group.WORLD.group_name))
+        torch.cuda.synchronize()
+        res[case] = out.cpu().tolist()
+    dist.destroy_process_group()
+    return res
+
+
+def j2_probe(card: str, faults: bool = False) -> None:
+    """F7's probe: the cases that run on one pair of ranks; with
+    ``faults`` also each case that kills its ranks, on a pair of its own,
+    reported and not raised."""
+    whole = [[float(c + 4 * i + 100 * r) for c in range(4)]
+             for r in range(2) for i in range(2)]
+    out = []
+    runs = [J2_PROBE] + ([(c,) for c in J2_PROBE_FAULTS] if faults else [])
+    with tempfile.TemporaryDirectory() as d:
+        for cases in runs:
+            try:
+                res = spawn(j2_probe_rank, 2, (d, cases), deadline=120.0)
+            except RuntimeError as e:
+                require(faults and cases[0] in J2_PROBE_FAULTS,
+                        f"J2 probe: the {cases} all-gathers on CUDA "
+                        f"tensors failed: {e}")
+                out.append(f"{cases[0]} FAILS ({e})")
+                continue
+            for case in cases:
+                require(all(r[case] == whole for r in res), f"J2 probe: "
+                        f"the {case} all-gather gave {res}")
+                out.append(f"{case} runs")
+    print(f"[pathJ] J2 probe, gloo all-gather of CUDA tensors on two ranks "
+          f"sharing cuda:0, torch {torch.__version__}: " + "; ".join(out)
+          + f"; {card}", flush=True)
+
+
+def j2_collective(rank, world, d):
     """One rank of J2's check: a DTensor on a 1x2 mesh of gloo ranks
-    sharing cuda:0, redistributed as ``kind`` needs (Partial -> Replicate,
-    Partial -> Shard, Shard(0) -> Shard(1), Shard -> Replicate)."""
+    sharing cuda:0, redistributed as each of J2_REDISTRIBUTIONS needs
+    (Partial -> Replicate, Partial -> Shard, Shard(0) -> Shard(1), Shard
+    -> Replicate)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from repro_torch.launch.mesh import make_lm_mesh
     mesh = make_lm_mesh((1, 2), ("data", "model"), backend="gloo",
                         device="cuda:0", init_method=f"file://"
-                        f"{os.path.join(d, kind)}", rank=rank,
+                        f"{os.path.join(d, 'redistribute')}", rank=rank,
                         timeout=J_TIMEOUT)
-    src, dst = {"all_reduce": (Partial(), Replicate()),
-                "reduce_scatter": (Partial(), Shard(0)),
-                "all_to_all": (Shard(0), Shard(1)),
-                "all_gather": (Shard(0), Replicate())}[kind]
     x = torch.arange(16, dtype=torch.float32, device="cuda").reshape(4, 4) \
         + 100 * rank
-    got = DTensor.from_local(x, mesh, [Replicate(), src],
-                             run_check=False).redistribute(
-        mesh, [Replicate(), dst]).to_local()
-    torch.cuda.synchronize()
-    out = got.cpu().tolist()    # by value: a tensor would travel by fd
+    out = {}
+    for kind in J2_REDISTRIBUTIONS:
+        src, dst = {"all_reduce": (Partial(), Replicate()),
+                    "reduce_scatter": (Partial(), Shard(0)),
+                    "all_to_all": (Shard(0), Shard(1)),
+                    "all_gather": (Shard(0), Replicate())}[kind]
+        got = DTensor.from_local(x, mesh, [Replicate(), src],
+                                 run_check=False).redistribute(
+            mesh, [Replicate(), dst]).to_local()
+        torch.cuda.synchronize()
+        out[kind] = got.cpu().tolist()  # by value: a tensor travels by fd
     dist.destroy_process_group()
     return out
 
 
 def path_j2_collectives(card: str) -> None:
-    """J2 on the card: which DTensor redistributions gloo runs on CUDA
-    tensors (two ranks sharing cuda:0). Every training mesh of the rules
-    gathers (TP the activations, ZeRO-1 the parameters, a checkpoint the
-    whole tree), so while the gather fails the training cases of J2 and
-    J3 are left out on the card (ROADMAP §3); they run on the host's
-    gloo ranks below."""
+    """J2 on the card: F7's probe, then every DTensor redistribution of
+    the training meshes (all-reduce, reduce-scatter, all-to-all and the
+    all-gather, which runs through ``route_gloo_cuda_all_gather``) on gloo
+    ranks sharing cuda:0, each required to run and give the whole
+    tensor's blocks."""
+    j2_probe(card)
     x = [torch.arange(16, dtype=torch.float32).reshape(4, 4) + 100 * r
          for r in range(2)]
     whole = torch.cat(x, 0)                 # the Shard(0) tensor
@@ -3255,31 +3370,30 @@ def path_j2_collectives(card: str) -> None:
             "reduce_scatter": list(torch.chunk(x[0] + x[1], 2, 0)),
             "all_to_all": list(torch.chunk(whole, 2, 1)),
             "all_gather": [whole] * 2}
-    out = []
     with tempfile.TemporaryDirectory() as d:
-        for kind in J2_REDISTRIBUTIONS:
-            try:
-                res = spawn(j2_collective, 2, (d, kind), deadline=120.0)
-            except RuntimeError as e:
-                require(kind == "all_gather", f"J2: gloo's {kind} on CUDA "
-                        f"tensors failed: {e}")
-                out.append(f"{kind} FAILS ({e})")
-                continue
-            require(all(torch.equal(torch.tensor(r), w)
-                        for r, w in zip(res, want[kind])),
-                    f"J2: gloo's {kind} on CUDA tensors gave {res}")
-            out.append(f"{kind} runs")
+        res = spawn(j2_collective, 2, (d,), deadline=120.0)
+    for kind in J2_REDISTRIBUTIONS:
+        require(all(torch.equal(torch.tensor(r[kind]), w)
+                    for r, w in zip(res, want[kind])),
+                f"J2: gloo's {kind} on CUDA tensors gave "
+                f"{[r[kind] for r in res]}")
     print(f"[pathJ] J2 DTensor redistributions on gloo ranks sharing cuda:0, "
-          f"torch {torch.__version__}: " + "; ".join(out) + f"; {card}",
+          f"torch {torch.__version__}: "
+          + "; ".join(f"{k} runs" for k in J2_REDISTRIBUTIONS)
+          + f" (the all-gather through the port's route); {card}",
           flush=True)
 
 
 def j_steps(cfg, mesh, params, batches):
     """AdamW steps (J_OPT) of ``cfg`` on DTensors placed by the rules over
-    ``mesh``, from the full ``params`` over ``batches``: (losses, final
-    parameters gathered)."""
+    ``mesh``, from the full ``params`` over ``batches`` (both moved to the
+    mesh's device): (losses, final parameters gathered)."""
     from repro_torch.distributed import sharding as S
     from repro_torch.launch.mesh import PartitionSpec, set_mesh
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    params = _tree.tree_map(lambda t: t.to(dev), params)
+    batches = [_tree.tree_map(lambda t: t.to(dev), b) for b in batches]
     model = lm_models.build(cfg)
     p_spec = S.param_shardings(params, cfg, mesh)
     m_spec = S.optimizer_shardings(p_spec, params, mesh)
@@ -3314,19 +3428,22 @@ def j_batches(cfg) -> list:
     return [stream.batch_at(i) for i in range(J2_SMOKE_STEPS)]
 
 
-def j2_host_rank(rank, world, d, shape) -> dict:
-    """One gloo CPU rank of J2's host cases: the three smoke configs on
-    ``shape``, rank 0 holding the final parameters against the one-rank
-    run's; on 2x1 also J3 (train() saved at step J2_CKPT, resharded onto
-    1x2 and onto one rank, continued to J2_STEPS)."""
+def j2_host_rank(rank, world, d, shape, device: str, archs: tuple,
+                 j3: bool) -> dict:
+    """One gloo rank of J2's training cases: the smoke configs ``archs``
+    on ``shape``, on the host (``device`` "cpu") or on cuda:0 shared by
+    the ranks, rank 0 holding the final parameters against the one-rank
+    run's; with ``j3`` on 2x1 also J3 (train() saved at step J2_CKPT,
+    resharded onto 1x2 and onto one rank, continued to J2_STEPS)."""
     from repro_torch.launch.mesh import make_lm_mesh
     join = lambda sh: make_lm_mesh(
-        sh, ("data", "model"), backend="gloo", device="cpu",
+        sh, ("data", "model"), backend="gloo",
+        device="cpu" if device == "cpu" else "cuda:0",
         init_method=f"file://{os.path.join(d, 'rendezvous')}", rank=rank,
         timeout=J_TIMEOUT)
     mesh = join(shape)
     out = {}
-    for arch in J2_SMOKE:
+    for arch in archs:
         cfg = j_smoke_config(arch)
         params = lm_models.build(cfg).init(0, device="cpu")
         t0 = time.perf_counter()
@@ -3336,17 +3453,18 @@ def j2_host_rank(rank, world, d, shape) -> dict:
             err = leaf_errs(got, torch.load(os.path.join(d, f"{arch}.pt")))
         out[arch] = dict(losses=losses, err=err,
                          s=time.perf_counter() - t0)
-    if shape == (2, 1):
-        out["j3"] = j3_runs(rank, d, join)
+    if j3 and shape == (2, 1):
+        out["j3"] = j3_runs(rank, d, join, device)
     dist.destroy_process_group()
     return out
 
 
-def j3_runs(rank, d, join) -> dict:
+def j3_runs(rank, d, join, device: str = "cpu") -> dict:
     """J3: train() on 2x1 saving at step J2_CKPT; ``launch.elastic.
     reshard`` of that checkpoint onto 1x2, and train() continuing from it
     on 1x2 and on one rank without a mesh (rank 0) to step J2_STEPS; the
-    uninterrupted 2x1 run's losses."""
+    uninterrupted 2x1 run's losses. ``device``: "cpu", or "cuda" (the
+    ranks share cuda:0)."""
     from repro_torch.launch.elastic import reshard
     cfg = j_smoke_config(I_ARCH)
     runs = {}
@@ -3355,7 +3473,7 @@ def j3_runs(rank, d, join) -> dict:
         losses = runs.setdefault(name, [])
         lm_train.train(lm_train.TrainConfig(**(dict(
             arch=I_ARCH, batch=J2_SMOKE_B, seq=J2_SMOKE_S,
-            log_every=10 ** 6, dist_backend="gloo", device="cpu") | kw)),
+            log_every=10 ** 6, dist_backend="gloo", device=device) | kw)),
             model_cfg=cfg, hooks={"on_step": lambda s, m: losses.append(
                 (s, float(m["loss"])))})
 
@@ -3379,11 +3497,70 @@ def j3_runs(rank, d, join) -> dict:
     return runs
 
 
+def j3_check(j3: dict, where_tag: str) -> None:
+    full = dict(j3["full"])
+    for name, where in (("grown", "1x2"), ("single", "one rank")):
+        got = dict(j3[name])
+        require(sorted(got) == list(range(J2_CKPT + 1, J2_STEPS)),
+                f"J3 {where_tag} {where}: resumed at steps {sorted(got)}")
+        rel = max(abs(got[s] - full[s]) / abs(full[s]) for s in got)
+        require(rel <= 1e-5, f"J3 {where_tag} {where}: losses {got} against "
+                f"the uninterrupted {full} (rel {rel:.3e})")
+        print(f"[pathJ] J3 {where_tag} {I_ARCH} smoke f32: the 2x1 train() "
+              f"run's step-{J2_CKPT} checkpoint resharded onto {where} (tok "
+              f"{j3['resharded'][1]} {j3['resharded'][2]} a rank on 1x2) "
+              f"continues at steps {sorted(got)} with losses "
+              + " ".join(f"{got[s]:.6f}" for s in sorted(got))
+              + f", within {rel:.2e} relative of the uninterrupted run's",
+              flush=True)
+
+
+def path_j2_card(card: str) -> None:
+    """J2 and J3 on the card: smoke internlm2 training on 1x2 (TP) and
+    2x1 (ZeRO-1) meshes of gloo ranks sharing cuda:0 against one rank on
+    the card, and the elastic reshard there (what F7 kept out before)."""
+    t0 = time.perf_counter()
+    cfg = j_smoke_config(I_ARCH)
+    with tempfile.TemporaryDirectory() as d:
+        params = _tree.tree_map(lambda t: t.cuda(), lm_models.build(
+            cfg).init(0, device="cpu"))
+        batches = [_tree.tree_map(lambda t: t.cuda(), b)
+                   for b in j_batches(cfg)]
+        ref, ref_p = j_plain_steps(cfg, params, batches)
+        torch.save([x.cpu() for x in ref_p], os.path.join(d, f"{I_ARCH}.pt"))
+        del params, batches, ref_p
+        res = {}
+        for shape in ((1, 2), (2, 1)):
+            res[shape] = spawn(j2_host_rank, 2, (d, shape, "cuda",
+                                                 (I_ARCH,), True),
+                               deadline=J_DEADLINE)
+            os.remove(os.path.join(d, "rendezvous"))
+    kinds = {(1, 2): "TP", (2, 1): "ZeRO-1"}
+    for shape, r in res.items():
+        r0 = r[0][I_ARCH]
+        verdict = j_check(f"J2 card {shape} {I_ARCH}", r0["losses"], ref,
+                          r0["err"])
+        require(all(x[I_ARCH]["losses"] == r0["losses"] for x in r),
+                f"J2 card {shape}: the ranks' losses differ")
+        print(f"[pathJ] J2 card mesh {shape[0]}x{shape[1]} ({kinds[shape]}), "
+              f"2 gloo ranks sharing cuda:0, {I_ARCH} smoke f32, "
+              f"{J2_SMOKE_STEPS} AdamW steps (eps 1e-3): against one rank "
+              f"on the card: {verdict}; {r0['s']:.1f} s", flush=True)
+    j3_check(res[(2, 1)][0]["j3"], "card (2 gloo ranks sharing cuda:0)")
+    print(f"[pathJ] J2 and J3 on the card {time.perf_counter() - t0:.1f} s "
+          f"in all; {card}", flush=True)
+
+
+# J2 on the host's gloo CPU ranks: smoke internlm2 on 1x2 and 2x1 and
+# J3 run on the card's shared ranks (path_j2_card), so the host keeps the
+# MoE configs on every mesh and internlm2 on 2x2
+J2_HOST = {(1, 2): J2_SMOKE[1:], (2, 1): J2_SMOKE[1:], (2, 2): J2_SMOKE}
+
+
 def path_j2_host(card: str) -> None:
-    """J2 and J3 on gloo CPU ranks of the card's host (the card's torch):
-    the smoke configs of internlm2, grok-1 (expert-inner TP) and
-    deepseek-v3 (EP) on 1x2, 2x1 and 2x2 against one rank, and the
-    elastic reshard."""
+    """J2 on gloo CPU ranks of the card's host (the card's torch): the
+    smoke configs of grok-1 (expert-inner TP) and deepseek-v3 (EP) on
+    1x2, 2x1 and 2x2, and internlm2 on 2x2, against one rank."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         refs = {}
@@ -3394,14 +3571,15 @@ def path_j2_host(card: str) -> None:
                 j_batches(cfg))
             torch.save(ref_p, os.path.join(d, f"{arch}.pt"))
         res = {}
-        for shape in ((1, 2), (2, 1), (2, 2)):
+        for shape, archs in J2_HOST.items():
             res[shape] = spawn(j2_host_rank, shape[0] * shape[1],
-                               (d, shape), deadline=J_DEADLINE)
+                               (d, shape, "cpu", archs, False),
+                               deadline=J_DEADLINE)
             os.remove(os.path.join(d, "rendezvous"))
     kinds = {"internlm2-1.8b": "dense", "grok-1-314b":
              "expert-inner TP, 3 experts", "deepseek-v3-671b": "EP"}
     for shape, r in res.items():
-        for arch in J2_SMOKE:
+        for arch in J2_HOST[shape]:
             r0 = r[0][arch]
             verdict = j_check(f"J2 host {shape} {arch}", r0["losses"],
                               refs[arch], r0["err"])
@@ -3412,23 +3590,7 @@ def path_j2_host(card: str) -> None:
                   f"({kinds[arch]}), {J2_SMOKE_STEPS} AdamW steps (eps "
                   f"1e-3): against one rank: {verdict}; {r0['s']:.1f} s",
                   flush=True)
-    j3 = res[(2, 1)][0]["j3"]
-    full = dict(j3["full"])
-    for name, where in (("grown", "1x2"), ("single", "one rank")):
-        got = dict(j3[name])
-        require(sorted(got) == list(range(J2_CKPT + 1, J2_STEPS)),
-                f"J3 {where}: resumed at steps {sorted(got)}")
-        rel = max(abs(got[s] - full[s]) / abs(full[s]) for s in got)
-        require(rel <= 1e-5, f"J3 {where}: losses {got} against the "
-                f"uninterrupted {full} (rel {rel:.3e})")
-        print(f"[pathJ] J3 host {I_ARCH} smoke f32: the 2x1 train() run's "
-              f"step-{J2_CKPT} checkpoint resharded onto {where} (tok "
-              f"{j3['resharded'][1]} {j3['resharded'][2]} a rank on 1x2) "
-              f"continues at steps {sorted(got)} with losses "
-              + " ".join(f"{got[s]:.6f}" for s in sorted(got))
-              + f", within {rel:.2e} relative of the uninterrupted run's",
-              flush=True)
-    print(f"[pathJ] J2 and J3 on the host's gloo CPU ranks "
+    print(f"[pathJ] J2 on the host's gloo CPU ranks "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
 
 
@@ -3536,13 +3698,489 @@ def path_j(device, card: str, i1: dict) -> None:
     i1.clear()
     torch.cuda.empty_cache()
     path_j2_collectives(card)
+    path_j2_card(card)
     counts = launch_counts()
     path_j2_host(card)
     path_j4(card, j1_peak)
     print(f"[pathJ] launches over path J {json.dumps(counts)} (PR 23 path "
           f"J: 0 expected); {time.perf_counter() - t0:.1f} s in all; {card}",
           flush=True)
-    require(not any(counts.values()), "path J launched a GNN kernel")
+    require(not any(counts[k] for k in KERNELS),
+            "path J launched a GNN kernel")
+
+
+# ------------------------------------------------------------------ path K
+
+# the two sequence-scan kernels (kernels.recurrence) on the recurrent
+# architectures at full published widths: K1 train() on rwkv6-3b (I1's
+# batch), K2 recurrentgemma-9b's prefill of 4,096 tokens and Server decode,
+# K3 each scan, forward and backward, against its plain version; then the
+# reference's last gnn_serve demos as subprocesses.
+SCAN_KERNELS = {   # name -> (source, the reference's scan it replaces)
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                   "src/repro/models/recurrent.py:91"),
+    "wkv6_scan": ("src/repro_torch/csrc/wkv6_scan.cu",
+                  "src/repro/models/recurrent.py:151"),
+}
+ALL_KERNELS = (*KERNELS, *SCAN_KERNELS)
+K1_ARCH, K2_ARCH = "rwkv6-3b", "recurrentgemma-9b"
+K1_BATCH, K1_SEQ, K1_STEPS, K1_LR = I1_BATCH, I1_SEQ, 6, I1_LR
+K2_SEQ, K2_SLOTS, K2_CAPACITY, K2_NEW = 4096, 4, 64, 8
+# K3's shapes: (B, S, W) and (B, S, H, Dh); the first of each is the main
+# path's (K2's RG-LRU layer, K1's RWKV layer), the others the smoke
+# configs' (I3) and a one-step decode from a state
+K3_RGLRU = ((1, K2_SEQ, 4096), (2, 16, 64), (4, 1, 4096))
+K3_WKV6 = ((K1_BATCH, K1_SEQ, 40, 64), (2, 16, 4, 16), (K1_BATCH, 1, 40, 64))
+GDN_DEMOS = (("--stream", "12"), ("--buckets", "auto"), ("--tech",))
+
+
+def scan_bound(nbytes: int, flops: float) -> tuple:
+    """(bound ms, what bounds it): bytes over 3.35 TB/s against f32
+    operations over 67 TFLOP/s (H100 SXM data sheet), the larger."""
+    t_b, t_f = nbytes / HBM_BPS, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def k3_inputs(kind: str, shape: tuple, nonzero: bool, seed: int) -> tuple:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    if kind == "rglru":
+        b, s, w = shape
+        a = torch.rand((b, s, w), generator=gen, device="cuda")
+        h0 = rnd(b, w) if nonzero else torch.zeros((b, w), device="cuda")
+        return a, rnd(b, s, w), h0
+    b, s, h, d = shape
+    w = torch.exp(-torch.exp(rnd(b, s, h, d) - 2.0))
+    s0 = rnd(b, h, d, d) if nonzero else torch.zeros((b, h, d, d),
+                                                     device="cuda")
+    return rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d), w, \
+        rnd(h, d) * 0.5, s0
+
+
+def grad_errs(kernel, plain, xs: tuple, seed: int) -> list:
+    """max|g - g_ref| / max|g_ref| of every input's gradient: the kernel's
+    backward against autograd through the plain loop on the card, under
+    random cotangents of every output."""
+    outs, grads = [], []
+    for fn in (kernel, plain):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        out = fn(*leaves)
+        out = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        loss = sum((o * torch.randn(o.shape, generator=gen, device="cuda")
+                    ).sum() for o in out)
+        grads.append(torch.autograd.grad(loss, leaves))
+        outs.append(out)
+    return [float((g - r).abs().max()) / (float(r.abs().max()) or 1.0)
+            for g, r in zip(*grads)]
+
+
+def path_k3(card: str) -> dict:
+    """K3: each scan kernel against its plain version (``kernels.
+    recurrence.ref``) on the card: ``rglru_scan``'s states and
+    ``wkv6_scan``'s final state ``torch.equal``, ``wkv6_scan``'s y within
+    rtol 1e-5 and atol 1e-5 * max|ref|, every gradient within 1e-4 of its
+    max|g_ref|, from a zero and a nonzero initial state, at K3's shapes;
+    then each kernel timed at the main path's shape (CUDA events) beside
+    its plain version and its bound. Returns {kernel: its record}."""
+    from repro_torch.kernels.recurrence import (rglru_scan, rglru_scan_ref,
+                                                wkv6_scan, wkv6_scan_ref)
+    t0 = time.perf_counter()
+    plain_wkv6 = lambda *x: wkv6_scan_ref(*x)[:2]
+    errs = {"rglru_scan": 0.0, "wkv6_scan": 0.0}
+    for shape in K3_RGLRU:
+        for nonzero in (False, True):
+            xs = k3_inputs("rglru", shape, nonzero, 1)
+            with torch.no_grad():
+                got, ref = rglru_scan(*xs), rglru_scan_ref(*xs)
+            require(torch.equal(got, ref), f"K3 rglru_scan {shape} h0 "
+                    f"{'nonzero' if nonzero else 'zero'}: off the plain loop "
+                    f"by {float((got - ref).abs().max())}")
+            g = grad_errs(rglru_scan, rglru_scan_ref, xs, 2)
+            require(max(g) <= 1e-4, f"K3 rglru_scan {shape}: gradients off "
+                    f"by {g} of max|g_ref|")
+            print(f"[pathK] K3 rglru_scan {shape} h0 "
+                  f"{'nonzero' if nonzero else 'zero'}: states equal to the "
+                  f"plain loop bit for bit; gradients (a, g, h0) within "
+                  + ", ".join(f"{e:.2e}" for e in g)
+                  + " of max|g_ref| (tol 1e-4)", flush=True)
+    for shape in K3_WKV6:
+        for nonzero in (False, True):
+            xs = k3_inputs("wkv6", shape, nonzero, 3)
+            with torch.no_grad():
+                (y, st), (yr, sr, _) = wkv6_scan(*xs), wkv6_scan_ref(*xs)
+            top = float(yr.abs().max())
+            y_err = float((y - yr).abs().max())
+            require(torch.equal(st, sr), f"K3 wkv6_scan {shape}: final state "
+                    f"off the plain loop by {float((st - sr).abs().max())}")
+            require(bool(((y - yr).abs() <= 1e-5 * yr.abs() + 1e-5 * top)
+                         .all()), f"K3 wkv6_scan {shape}: y off by {y_err}")
+            errs["wkv6_scan"] = max(errs["wkv6_scan"], y_err)
+            g = grad_errs(wkv6_scan, plain_wkv6, xs, 4)
+            require(max(g) <= 1e-4, f"K3 wkv6_scan {shape}: gradients off "
+                    f"by {g} of max|g_ref|")
+            print(f"[pathK] K3 wkv6_scan {shape} S0 "
+                  f"{'nonzero' if nonzero else 'zero'}: final state equal to "
+                  f"the plain loop bit for bit, y within {y_err:.3e} (max|y| "
+                  f"{top:.3e}; tol rtol 1e-5 + 1e-5 max|y|); gradients (r, "
+                  f"k, v, w, u, S0) within " + ", ".join(f"{e:.2e}" for e in g)
+                  + " of max|g_ref| (tol 1e-4)", flush=True)
+
+    # times at the main path's shapes, the forward alone and with the
+    # backward pass
+    rec = {}
+    for name, kind, shape, kern, plain in (
+            ("rglru_scan", "rglru", K3_RGLRU[0], rglru_scan, rglru_scan_ref),
+            ("wkv6_scan", "wkv6", K3_WKV6[0], wkv6_scan, plain_wkv6)):
+        xs = k3_inputs(kind, shape, False, 5)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: kern(*xs), 20)
+            plain_ms = cuda_ms(lambda: plain(*xs), 2)
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+
+        def train_call(fn):
+            out = fn(*leaves)
+            out = out if isinstance(out, torch.Tensor) else out[0]
+            out.sum().backward()
+        ms_train = cuda_ms(lambda: train_call(kern), 5)
+        plain_train = cuda_ms(lambda: train_call(plain), 1)
+        n = math.prod(shape)
+        if kind == "rglru":
+            b, s, w = shape
+            nbytes = 4 * (3 * n + b * w)           # a, g, h0 in; h out
+            flops = 2.0 * n                        # a multiply, an add
+            bwd_bytes = 4 * (5 * n + 2 * b * w)    # a, h, h0, dy; da, dg, dh0
+            bwd_flops = 3.0 * n
+        else:
+            b, s, h, d = shape
+            # r, k, v, w, u, S0 in; y, S out; per state element a step:
+            # k v, u (k v), S + ., r (.) (2), w S, + k v
+            nbytes = 4 * (5 * n + h * d + 2 * b * h * d * d)
+            flops = 7.0 * n * d
+            # r, k, v, w, u, the checkpoints, dy, dS in; dr, dk, dv, dw,
+            # du, dS0 out; the recomputed states (3 a state element), the
+            # three row sums (2 each), dv's partial (1) and sum (1), G's
+            # update (2)
+            nc = -(-s // 32)
+            bwd_bytes = 4 * (9 * n + 2 * h * d + 2 * b * h * d * d
+                             + b * h * nc * d * d)
+            bwd_flops = 13.0 * n * d
+        bound_ms, bound_by = scan_bound(nbytes, flops)
+        bwd_bound, bwd_by = scan_bound(bwd_bytes, bwd_flops)
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+        print(f"[pathK] K3 {name} at {shape}: forward {ms:.4f} ms a launch "
+              f"(CUDA events, mean of 20), plain loop {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP); forward + backward {ms_train:.4f} "
+              f"ms (plain loop under autograd {plain_train:.3f} ms; the "
+              f"backward's bound {bwd_bound:.4f} ms, {bwd_by}); no single "
+              f"library call computes it; {card}", flush=True)
+    for name, e in errs.items():
+        rec[name]["max_abs_err"] = e
+    print(f"[pathK] K3 {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """The models' scans swapped for their plain versions (the loops on
+    the card), for K's one-to-one comparisons; the package has no switch
+    for it."""
+    from repro_torch.kernels.recurrence import rglru_scan_ref, wkv6_scan_ref
+    from repro_torch.models import recurrent as rec
+    saved = rec.rglru_scan, rec.wkv6_scan
+    rec.rglru_scan = lambda a, g, h0=None: rglru_scan_ref(
+        a, g, torch.zeros_like(a[:, 0]) if h0 is None else h0)
+    rec.wkv6_scan = lambda *x: wkv6_scan_ref(*x)[:2]
+    try:
+        yield
+    finally:
+        rec.rglru_scan, rec.wkv6_scan = saved
+
+
+def k1_layer(device, card: str) -> None:
+    """One rwkv_mixer layer of rwkv6-3b at K1's batch, forward and
+    backward, with the kernel and with the plain loop (the "before"): ms
+    (median of 3 after one) and the peak bytes above what was held."""
+    from repro_torch.models import recurrent as rec
+    cfg = lm_configs.get_config(K1_ARCH)
+    params = rec.init_rwkv(lm_common.InitKey.from_seed(0, device), cfg)
+    for p in params.values():
+        p.requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((K1_BATCH, K1_SEQ, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16).requires_grad_(True)
+
+    def step():
+        rec.rwkv_mixer(params, x, cfg).float().sum().backward()
+
+    out = []
+    for label, ctx in (("kernel", contextlib.nullcontext), ("plain loop",
+                                                          plain_scans)):
+        with ctx():
+            step()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - held
+        out.append(f"{label} {median_ms(times):.3f} ms, peak "
+                   f"{peak / 2 ** 30:.3f} GiB")
+    print(f"[pathK] K1 one rwkv_mixer layer of {K1_ARCH} (d_model "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}) on [{K1_BATCH}, {K1_SEQ}], forward and "
+          f"backward (host clock between syncs, median of 3 after one; peak "
+          f"above what was held): " + "; ".join(out) + f"; {card}",
+          flush=True)
+    del params, x
+    torch.cuda.empty_cache()
+
+
+def path_k1(device, card: str) -> dict:
+    """K1: ``launch.train.train`` on rwkv6-3b at its full published size
+    and I1's batch and lr: AdamW steps with finite losses, the loss on the
+    batches trained on lower at the final weights than at the initial
+    ones, ms a step (median after the first), tokens/s, peak memory; one
+    step profiled (the scans' share of the kernel time); then one layer
+    with the kernel and with the plain loop. Returns the scans' launches
+    in train()."""
+    # the AdamW update's per-leaf temporaries fragment the cache: with
+    # fixed segments a step's 60 GiB of live tensors left 17 GiB reserved
+    # and unused and the next 2.7 GiB was refused; segments that grow in
+    # place hold the step
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _path_k1(device, card)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def _path_k1(device, card: str) -> dict:
+    mcfg = lm_configs.get_config(K1_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+
+    t0 = time.perf_counter()
+    final = {}
+    reset_launch_counts()
+    out = lm_train.train(lm_train.TrainConfig(
+        arch=K1_ARCH, smoke=False, steps=K1_STEPS, batch=K1_BATCH,
+        seq=K1_SEQ, lr=K1_LR, log_every=K1_STEPS, device=str(device)),
+        hooks={"on_step": on_step,
+               "on_end": lambda p, o: final.update(params=p)})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(out["last_step"] == K1_STEPS - 1 and all(np.isfinite(losses)),
+            f"K1: training did not run its steps with finite losses: "
+            f"{losses}")
+    require(counts["wkv6_scan"] > 0, "K1: wkv6_scan never launched")
+    # the stream's next token is a lookup over the 65,536-token vocabulary,
+    # so a step's loss on a fresh batch moves with the batch (0.07 across
+    # batches 0-5 at the initial weights) more than six warm-up steps move
+    # it: the losses are held on the six batches trained on, at the
+    # initial and at the final weights
+    model = lm_models.build(mcfg)
+    stream = TokenStream(mcfg.vocab, K1_BATCH, K1_SEQ)
+    batches = [_tree.tree_map(lambda x: x.to(device), stream.batch_at(i))
+               for i in range(K1_STEPS)]
+    n_params = sum(t.numel() for t in _tree.leaves(final["params"]))
+    with torch.no_grad():
+        after = [float(model.loss(final["params"], b)[0]) for b in batches]
+        final.clear()
+        start = model.init(0, device=device)
+        before = [float(model.loss(start, b)[0]) for b in batches]
+        del start
+    require(np.mean(after) < np.mean(before), f"K1: the loss on the "
+            f"batches trained on did not fall: {before} -> {after}")
+    ms = float(np.median(np.diff(stamps) * 1e3))
+    tokens = K1_BATCH * K1_SEQ
+    share = model_flops(mcfg, tokens, "train") / (ms / 1e3) \
+        / H100.peak("bf16")
+    print(f"[pathK] K1 train {K1_ARCH} full size ({mcfg.n_layers} layers, "
+          f"d_model {mcfg.d_model}, {mcfg.d_model // mcfg.rwkv_head_dim} "
+          f"heads of {mcfg.rwkv_head_dim}, d_ff {mcfg.d_ff}, vocab "
+          f"{mcfg.vocab}; {n_params:,} parameters, bf16; batch "
+          f"{K1_BATCH} x seq {K1_SEQ}): {K1_STEPS} AdamW steps, loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; on the six batches trained on, the mean loss "
+          f"{np.mean(before):.4f} at the initial weights -> "
+          f"{np.mean(after):.4f} at the final (per batch "
+          + " ".join(f"{a:.4f}->{b:.4f}" for a, b in zip(before, after))
+          + f"); {ms:.3f} ms a step (host clock between syncs, median after "
+          f"the first), {tokens / (ms / 1e3):,.0f} tokens/s, model FLOPs "
+          f"{share:.4f} of the bf16 peak; peak memory {peak:.2f} GiB; "
+          f"launches {json.dumps({k: counts[k] for k in SCAN_KERNELS})}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    del out, batches
+    torch.cuda.empty_cache()
+
+    params = model.init(1, device=device)
+    opt = adamw_init(params)
+    step = lm_steps.make_train_step(model, AdamWConfig(lr=K1_LR))
+    batch = _tree.tree_map(lambda x: x.to(device), TokenStream(
+        mcfg.vocab, K1_BATCH, K1_SEQ).batch_at(0))
+    step(params, opt, batch)
+    step_profile("K1", lambda: step(params, opt, batch), prefix="[pathK]",
+                 card=card, share=("wkv6_",))
+    del model, params, opt, step, batch
+    torch.cuda.empty_cache()
+    k1_layer(device, card)
+    return {k: counts[k] for k in SCAN_KERNELS}
+
+
+def path_k2(device, card: str) -> dict:
+    """K2: recurrentgemma-9b's ``make_prefill_step`` at its full published
+    size on 1 x 4,096 tokens (past the 2,048-token local window), under
+    no_grad: the logits against the same prefill with the plain loops on
+    the card, bit for bit; then 8 decode steps through ``Server`` at 4
+    slots. Returns the scans' launches in the prefills."""
+    mcfg = lm_configs.get_config(K2_ARCH)
+    t0 = time.perf_counter()
+    model = lm_models.build(mcfg)
+    params = model.init(0, device=device)
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    gen = torch.Generator(device=device).manual_seed(2)
+    batch = {"tokens": torch.randint(0, mcfg.vocab, (1, K2_SEQ),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    pf = lm_steps.make_prefill_step(model)
+    reset_launch_counts()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        logits = pf(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - tp) * 1e3)
+    counts = launch_counts()
+    require(counts["rglru_scan"] > 0, "K2: rglru_scan never launched")
+    require(logits.shape[0] == 1 and bool(torch.isfinite(
+        logits.float()).all()), f"K2: logits {tuple(logits.shape)} not "
+        f"finite")
+    with plain_scans():
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        ref = pf(params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tp) * 1e3
+    if torch.equal(logits, ref):
+        verdict = "equal to the plain-loop prefill bit for bit"
+    else:
+        again = pf(params, batch)
+        require(not torch.equal(again, logits), f"K2: the prefill's logits "
+                f"differ from the plain-loop prefill's by "
+                f"{float((logits.float() - ref.float()).abs().max())}, and "
+                f"the kernel path is deterministic")
+        gap = float((logits.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        require(gap <= 1e-5 * top, f"K2: logits off the plain loops by {gap}")
+        verdict = (f"within {gap:.3e} of the plain-loop prefill (max|ref| "
+                   f"{top:.3e}; two kernel-path runs differ: a library op "
+                   f"is not deterministic)")
+    n_rglru = sum(1 for i in range(mcfg.n_layers)
+                  if mcfg.pattern[i % len(mcfg.pattern)] == "rglru")
+    print(f"[pathK] K2 prefill {K2_ARCH} full size ({mcfg.n_layers} layers, "
+          f"{n_rglru} RG-LRU of width {mcfg.rglru_width or mcfg.d_model}, "
+          f"d_model {mcfg.d_model}, vocab {mcfg.vocab}, local window "
+          f"{mcfg.local_window}; {n_params:,} parameters, bf16) on 1 x "
+          f"{K2_SEQ} tokens, no_grad: logits {tuple(logits.shape)} "
+          f"{verdict}; {median_ms(times):.3f} ms a prefill (median of 3 "
+          f"after one) against {plain_ms:.1f} ms with the plain loops; "
+          f"launches {json.dumps({k: counts[k] for k in SCAN_KERNELS})}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    del model, params, logits, ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    srv = lm_serve.Server(K2_ARCH, smoke=False, slots=K2_SLOTS,
+                          capacity=K2_CAPACITY, device=device)
+    warm = lm_serve.requests(srv.cfg.vocab, 1, 2, seed=1)
+    for r in warm:
+        srv.submit(r)
+    srv.run()
+    reqs = lm_serve.requests(srv.cfg.vocab, K2_SLOTS, K2_NEW)
+    for r in reqs:
+        srv.submit(r)
+    srv.steps_run = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total = srv.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    require(total == K2_SLOTS * K2_NEW and all(r.done for r in reqs),
+            f"K2: served {total} tokens, want {K2_SLOTS * K2_NEW}")
+    print(f"[pathK] K2 serve {K2_ARCH} full size: {K2_SLOTS} requests "
+          f"(prompts {sorted({len(r.prompt) for r in reqs})}, {K2_NEW} new "
+          f"tokens each) on {K2_SLOTS} slots, {srv.steps_run} batched decode "
+          f"steps in {secs * 1e3:.1f} ms: {secs * 1e3 / srv.steps_run:.3f} "
+          f"ms a step, {total / secs:.1f} tokens/s; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    del srv
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in SCAN_KERNELS}
+
+
+def path_k_demos(card: str) -> None:
+    """The reference's last gnn_serve demos, ported: each as a
+    subprocess on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    want = {"--stream": "commits (", "--buckets": "overlap == serial: True",
+            "--tech": "recommended plan"}
+    for args in GDN_DEMOS:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.examples.gnn_serve", *args],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        said = [ln.strip() for ln in out.stdout.splitlines()
+                if want[args[0]] in ln or "overlap == serial" in ln
+                or "tier" in ln or ln.startswith(("bucketed", "streaming"))]
+        require(out.returncode == 0 and any(want[args[0]] in ln
+                                            for ln in said),
+                f"K: gnn_serve {' '.join(args)} failed:\n{out.stdout}\n"
+                f"{out.stderr}")
+        if args[0] == "--buckets":
+            # the jnp layer's torch.matmul may round a bucket's rows and
+            # the dense plan's apart on the card (path C1's tolerance)
+            gap = re.search(r"max\|diff\| (\S+) of max\|dense\| (\S+)\)",
+                            out.stdout)
+            require(gap is not None and float(gap[1]) <= 1e-4 * float(
+                gap[2]), f"K: the bucketed demo's embeddings leave the "
+                f"dense plan's: {said}")
+        print(f"[pathK] python -m repro_torch.examples.gnn_serve "
+              f"{' '.join(args)}: exit 0; " + " | ".join(said)
+              + f"; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+
+def path_k(device, card: str) -> dict:
+    """Path K; returns the scans' records for the kernels line (launches
+    are K1's and K2's)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rec = path_k3(card)
+    torch.cuda.empty_cache()
+    k1 = path_k1(device, card)
+    k2 = path_k2(device, card)
+    for name in SCAN_KERNELS:
+        rec[name]["launches"] = k1[name] + k2[name]
+    path_k_demos(card)
+    print(f"[pathK] launches over K1 and K2 "
+          f"{json.dumps({k: rec[k]['launches'] for k in SCAN_KERNELS})}; "
+          f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
+    return rec
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3920,6 +4558,10 @@ def main() -> None:
                          "launch (no result line)")
     ap.add_argument("--no-sanitizer", action="store_true",
                     help="with --f6-loop: skip the compute-sanitizer round")
+    ap.add_argument("--f7-probe", action="store_true",
+                    help="only run F7's probe, the two all-gather entry "
+                         "points that end gloo ranks on CUDA tensors "
+                         "included (no result line)")
     args = ap.parse_args()
     if args.f6_loop:
         os.environ["CUDA_LAUNCH_BLOCKING"] = "1"   # before CUDA starts
@@ -3928,6 +4570,9 @@ def main() -> None:
     if args.f6_loop:
         torch.backends.cuda.matmul.allow_tf32 = False
         f6_loop(args.f6_loop, sanitize=not args.no_sanitizer)
+        return
+    if args.f7_probe:
+        j2_probe(card_line(), faults=True)
         return
 
     t_start = time.perf_counter()
@@ -3975,7 +4620,7 @@ def main() -> None:
     small_shape_checks(device, errs)
 
     # ---- the paths, counted
-    totals = {k: 0 for k in KERNELS}
+    totals = {k: 0 for k in ALL_KERNELS}
     serve_cases(plan_c, cfg, ("alltoall",), device, True, totals)
     t0 = time.perf_counter()
     g01 = dataset_like("collab", scale=0.1, seed=0).gcn_normalize()
@@ -3998,7 +4643,7 @@ def main() -> None:
     # ---- path H: the SPMD runtime, on the pristine collab 0.1 plans
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    h_totals = {k: 0 for k in KERNELS}
+    h_totals = {k: 0 for k in ALL_KERNELS}
     path_h(g01, plan_d, plan_s, cfg, params, device, h_totals, card)
     print(f"[pathH] launches over path H {json.dumps(h_totals)}; "
           f"{time.perf_counter() - t0:.1f} s in all", flush=True)
@@ -4009,7 +4654,7 @@ def main() -> None:
 
     # ---- path D: streaming serving, then the traced refresh
     t0 = time.perf_counter()
-    d_totals = {k: 0 for k in KERNELS}
+    d_totals = {k: 0 for k in ALL_KERNELS}
     path_d1(plan_c, cfg, params, device, d_totals)
     plan_b = plan_execution(g01, "decentralized", sample=SAMPLE,
                             n_clusters=16, partition_method="edge",
@@ -4035,7 +4680,7 @@ def main() -> None:
     e_totals = launch_counts()
     print(f"[pathE] launches over E2 and E3 {json.dumps(e_totals)}",
           flush=True)
-    require(all(v > 0 for v in e_totals.values()),
+    require(all(e_totals[k] > 0 for k in KERNELS),
             "a kernel of path E never launched")
     for k, v in e_totals.items():
         totals[k] += v
@@ -4043,7 +4688,7 @@ def main() -> None:
 
     # ---- path F: the planner, the load loops with its monitor, re-plans
     t0 = time.perf_counter()
-    f_totals = {k: 0 for k in KERNELS}
+    f_totals = {k: 0 for k in ALL_KERNELS}
     path_f1(g)
     path_f2(g01, plan_d, plan_s, cfg, params, device, f_totals)
     path_f3(g01, cfg, params, device, f_totals)
@@ -4073,7 +4718,7 @@ def main() -> None:
         totals[k] += v
     print(f"[paths] launches over all path runs {json.dumps(totals)}",
           flush=True)
-    require(all(v > 0 for v in totals.values()),
+    require(all(totals[k] > 0 for k in KERNELS),
             "a kernel of the paths never launched")
 
     # ---- path I: the LM stack, which launches none of the six kernels
@@ -4083,6 +4728,9 @@ def main() -> None:
     # ---- path J: the LM stack on a mesh, and the dry run; none of the six
     path_j(device, card, i1)
     del i1
+
+    # ---- path K: the scan kernels on the recurrent architectures
+    k_rec = path_k(device, card)
 
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)
@@ -4097,6 +4745,9 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=totals[name],
                             max_abs_err=errs[name], **rec1[name]))
+    for name, (source, replaces) in SCAN_KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **k_rec[name]))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,19 @@ mode that counted the DTensor op itself would see the global program.)
                         operand + result bytes, as ``_mover_bytes`` charges.
   * collective bytes -- per collective (``_c10d_functional``), the ring
                         model below on its result bytes and group size.
+  * the sequence scans -- each custom op of ``kernels.recurrence`` is one
+                        op, charged by a rule of its own (``_scan_cost``):
+                        FLOPs the products the reference's scan body
+                        counts as dots, times its trips. RWKV-6 forward:
+                        ``r . (S + ...)``, 2 B H Dh^2 a step (``k v^T``
+                        contracts nothing: XLA makes it a multiply, no
+                        dot); backward: its three transposed products
+                        with a contraction (``dr``, ``dk``'s ``G v``,
+                        ``dv``'s ``G^T k``), 6 B H Dh^2 a step. The
+                        RG-LRU's scan has no product. Bytes: the kernel's
+                        own reads and writes (operands, results, and the
+                        backward's recomputed states written and read
+                        once). Nothing is charged per time step.
 
 Ring traffic model per collective (bytes = full result size r, group n):
   all-reduce          2 * r * (n-1)/n
@@ -120,6 +133,21 @@ def _dot_flops(name: str, args) -> float:
     return 2.0 * a.numel() * b.shape[-1]
 
 
+_SCANS = {"rglru_scan", "rglru_scan_backward", "wkv6_scan",
+          "wkv6_scan_backward"}
+
+
+def _scan_cost(name: str, args) -> tuple:
+    """(FLOPs, extra bytes beyond operands and results) of one scan op."""
+    if not name.startswith("wkv6"):
+        return 0.0, 0
+    b, s, h, d = args[0].shape
+    if name == "wkv6_scan":
+        return 2.0 * b * s * h * d * d, 0
+    # the backward recomputes every S_{t-1} into scratch and reads it back
+    return 6.0 * b * s * h * d * d, 2 * b * s * h * d * d * 4
+
+
 def _group_size(name: str, args) -> int:
     if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
         return int(args[-2])
@@ -181,13 +209,17 @@ class OpCounter(TorchDispatchMode):
             self._follow(t, new=new and id(t) not in inputs)
         if name in _FREE or view:
             return
-        flops = 0.0
-        if name in _DOTS:
+        flops, extra = 0.0, 0
+        if name in _SCANS:
+            flops, extra = _scan_cost(name, args)
+            self._flops_by_dtype[args[0].dtype] += flops
+        elif name in _DOTS:
             flops = _dot_flops(name, args)
             dt = args[1].dtype if name in ("addmm", "baddbmm") \
                 else args[0].dtype
             self._flops_by_dtype[dt] += flops
-        nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in
+                                                     outs) + extra
         op = name
         if name in _COLLECTIVES:
             op = _COLLECTIVES[name]

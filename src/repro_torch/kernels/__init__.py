@@ -2,7 +2,8 @@
 
 Each kernel module has ``ref.py`` (plain PyTorch) and ``ops.py`` (the
 wrapper that launches the CUDA kernel from ``repro_torch/csrc`` on a CUDA
-tensor and runs the plain version on a CPU tensor). ``launch_counts`` reads
+tensor and runs the plain version on a CPU tensor; ``recurrence`` registers
+its two scans as custom ops with a backward kernel each). ``launch_counts`` reads
 the wrappers' launch counters and ``reset_launch_counts`` sets them to 0.
 """
 from __future__ import annotations
@@ -13,13 +14,17 @@ def _wrappers() -> dict:
     from .crossbar_mvm.ops import crossbar_matmul_quantized
     from .csr_aggregate.ops import csr_aggregate
     from .fused_layer.ops import fused_ideal_layer, fused_quant_layer, fused_zmax
+    from .recurrence.ops import rglru_scan, wkv6_scan
     return {f.__name__: f for f in (fused_ideal_layer, fused_zmax,
                                     fused_quant_layer, csr_aggregate,
-                                    crossbar_matmul_quantized, cam_search)}
+                                    crossbar_matmul_quantized, cam_search,
+                                    rglru_scan, wkv6_scan)}
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` of the six kernel wrappers."""
+    """``{kernel name: launches}`` of the eight kernel wrappers: the six
+    that replace the reference's Pallas kernels and the two sequence
+    scans (forward and backward launches both)."""
     return {name: f.launches for name, f in _wrappers().items()}
 
 

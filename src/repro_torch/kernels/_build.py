@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("cam_match", "crossbar_mvm", "csr_aggregate", "fused_layer")
+SOURCES = ("cam_match", "crossbar_mvm", "csr_aggregate", "fused_layer",
+           "rglru_scan", "wkv6_scan")
 _QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 

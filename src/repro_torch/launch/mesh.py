@@ -33,6 +33,11 @@ which the sharding rules place DTensors:
   * ``set_mesh``, the context that installs the ambient mesh
     ``models.common.shard`` reads;
   * ``preferred_tp`` / ``preferred_mesh``, copies of the reference's.
+
+A gloo group on CUDA tensors runs DTensor's all-gathers through
+``route_gloo_cuda_all_gather`` (see there): gloo's coalesced all-gather,
+the entry point of the functional collective, reads its tensors as host
+memory and ends the ranks with a segmentation fault.
 """
 from __future__ import annotations
 
@@ -164,7 +169,52 @@ def make_lm_mesh(shape, axes=("data", "model"), *, backend: str = "nccl",
     if dev.type == "cuda":
         torch.cuda.set_device(dev if dev.index is not None else
                               dist.get_rank() % torch.cuda.device_count())
+        if backend == "gloo":
+            route_gloo_cuda_all_gather()
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+_ROUTES = {}       # dispatch key -> the library holding the registration
+
+
+def route_gloo_cuda_all_gather(key: str = "CUDA") -> None:
+    """Run the functional all-gather of a gloo group on ``key``'s tensors
+    (CUDA) through gloo's plain all-gather.
+
+    DTensor's Shard -> Replicate calls ``_c10d_functional::
+    all_gather_into_tensor``, which reaches the group through its
+    coalesced entry point (``allgather_into_tensor_coalesced``); gloo
+    serves that one with its CPU algorithm only, which reads CUDA memory
+    as host memory and ends every rank with a segmentation fault.
+    ``dist.all_gather_into_tensor`` (``_allgather_base``) stages CUDA
+    tensors through the host and runs. This registers, once a process, a
+    ``key`` kernel of the functional op that takes that path for a gloo
+    group and hands any other group (NCCL) to the op's own kernel. The
+    gather is then blocking: ``wait_tensor`` on its result finds no
+    pending work. ``key`` is for the tests, which register it on CPU
+    tensors."""
+    if key in _ROUTES:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", _gloo_all_gather, key)
+    _ROUTES[key] = lib
+
+
+def _gloo_all_gather(inp: torch.Tensor, group_size: int, group_name):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    pg = _resolve_process_group(group_name)
+    if dist.get_backend(pg) != "gloo":
+        return torch.ops._c10d_functional.all_gather_into_tensor.default \
+            .redispatch(torch._C.DispatchKeySet(
+                torch._C.DispatchKey.CompositeExplicitAutograd), inp,
+                group_size, group_name)
+    out = inp.new_empty((group_size * inp.shape[0], *inp.shape[1:]))
+    dist.all_gather_into_tensor(out, inp.contiguous(), group=pg)
+    _gloo_all_gather.calls += 1
+    return out
+
+
+_gloo_all_gather.calls = 0
 
 
 def make_production_mesh(*, multi_pod: bool = False):

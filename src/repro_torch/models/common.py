@@ -267,6 +267,11 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def cast(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x`` in the config's dtype (the reference's ``cast``)."""
+    return x.to(dtype_of(cfg.dtype))
+
+
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with the operands promoted to their common dtype,
     as ``jnp.einsum`` promotes them."""

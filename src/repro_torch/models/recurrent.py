@@ -2,21 +2,98 @@
 
 The counterpart of ``repro.models.recurrent``. Both expose the same
 interface as the attention mixers:
-  * full-sequence mode (train/prefill), a loop over time,
-  * single-step decode against a small recurrent state (their "KV cache").
+  * full-sequence mode (train/prefill): one scan over time, the
+    hand-written kernels of ``kernels.recurrence`` (``rglru_scan``,
+    ``wkv6_scan``; their plain versions on CPU tensors),
+  * single-step decode against a small recurrent state (their "KV cache"):
+    the RG-LRU's one elementwise step, the RWKV scan over one step.
 The RG-LRU's recurrence runs step by step where the reference takes a
 log-depth ``associative_scan``: the same recurrence, rounded in another
 order. The per-head group norm's variance is the population variance
 (``correction=0``), as ``jnp.var``.
+
+On a mesh the scans run on each rank's local block (``_rglru_scan_local``,
+``_wkv6_scan_local``; the token shifts' padding too, ``_front_pad``): they
+are independent across the batch, the heads (RWKV) and the channels
+(RG-LRU), so a split of those dimensions stays, and a split of the
+sequence or a pending partial sum is made whole first.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import (InitKey, einsum, gelu, init_dense, init_full,
-                     merge_heads, shard, split_heads)
+from ..kernels.recurrence.ops import rglru_scan, wkv6_scan
+from .common import (InitKey, _is_dtensor, _rows_of, einsum, gelu,
+                     init_dense, init_full, merge_heads, shard, split_heads)
 from .config import ModelConfig
+
+
+def _local_placements(x) -> tuple:
+    """``x``'s placements with only the splits of dimension 0 (batch) and
+    2 (heads or channels) kept: the scans' blocks."""
+    from torch.distributed.tensor import Replicate
+    return tuple(p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
+                 for p in x.placements)
+
+
+def _front_pad(x, n: int):
+    """``x`` [B, S, D] with ``n`` zero steps put in front of the sequence.
+    A DTensor is padded on its local blocks (batch and width splits
+    kept, a split of the sequence gathered first): DTensor's own ``pad``
+    fails to redistribute under torch 2.11 (an index error in its
+    transform planning)."""
+    if not _is_dtensor(x):
+        return F.pad(x, (0, 0, n, 0))
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    pl = _local_placements(x)
+    local = F.pad(x.redistribute(mesh, pl).to_local(), (0, 0, n, 0))
+    return DTensor.from_local(local, mesh, pl, run_check=False)
+
+
+def _rglru_scan_local(a, g):
+    """``rglru_scan`` from a zero state; DTensor a, g [B, S, W] on each
+    rank's block (batch and channel splits kept)."""
+    if not _is_dtensor(a):
+        return rglru_scan(a, g)
+    from torch.distributed.tensor import DTensor
+    mesh = a.device_mesh
+    pl = _local_placements(a)
+    h = rglru_scan(*(t.redistribute(mesh, pl).to_local() for t in (a, g)))
+    return DTensor.from_local(h, mesh, pl, run_check=False)
+
+
+def _wkv6_scan_local(r, k, v, w, u, s0):
+    """``wkv6_scan``; DTensor r, k, v, w [B, S, H, Dh] on each rank's block
+    (batch and head splits kept): ``u`` [H, Dh] is cut to the local heads,
+    its gradient summed over the ranks that split the batch; the state
+    [B, H, Dh, Dh] (``s0`` None: zero) follows the batch and heads."""
+    if not _is_dtensor(r):
+        if s0 is None:
+            b, _, h, d = r.shape
+            s0 = r.new_zeros((b, h, d, d))
+        return wkv6_scan(r, k, v, w, u, s0)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = r.device_mesh
+    pl = _local_placements(r)
+    spl = tuple(Shard(1) if p.is_shard(2) else p for p in pl)
+    upl = tuple(Shard(0) if p.is_shard(2) else Replicate() for p in pl)
+    lr, lk, lv, lw = (t.redistribute(mesh, pl).to_local()
+                      for t in (r, k, v, w))
+    if _is_dtensor(u):
+        u = u.redistribute(mesh, upl).to_local(grad_placements=[
+            Partial() if p.is_shard(0) else q for p, q in zip(pl, upl)])
+    else:
+        u = _rows_of(u, mesh, upl)
+    if s0 is None:
+        b, _, h, d = lr.shape
+        s0 = lr.new_zeros((b, h, d, d))
+    else:
+        s0 = _rows_of(s0, mesh, spl)
+    y, s = wkv6_scan(lr, lk, lv, lw, u, s0)
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(s, mesh, spl, run_check=False))
 
 
 # ================================================================ RG-LRU
@@ -81,17 +158,12 @@ def rglru_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
 
     if state is None:
         # temporal conv (width 4, causal) over the rnn branch
-        pad = F.pad(rnn_in, (0, 0, 3, 0))
+        pad = _front_pad(rnn_in, 3)
         conv = sum(pad[:, i:i + s] * params["conv"][i].float()
                    for i in range(4))
         # the elementwise linear recurrence h_t = a_t h_{t-1} + g_t
         a, g = _rglru_gates(params, conv)               # [B, S, W]
-        h = torch.zeros_like(a[:, 0])
-        hs = []
-        for t in range(s):
-            h = a[:, t] * h + g[:, t]
-            hs.append(h)
-        y = torch.stack(hs, dim=1)                      # [B, S, W]
+        y = _rglru_scan_local(a, g)                     # [B, S, W]
         new_state = None
     else:
         # decode: roll the conv window, one recurrence step
@@ -136,23 +208,6 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:
                                   device=device)}
 
 
-def _rwkv_inner(params, r, k, v, w, u, s0):
-    """Finch recurrence over time. r,k,v,w: [B, S, H, Dh] (f32);
-    s0: [B, H, Dh, Dh].
-
-    y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
-    """
-    s = s0
-    ys = []
-    for t in range(r.shape[1]):
-        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
-        kv = k_t[..., :, None] * v_t[..., None, :]
-        ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
-                               s + u[None, :, :, None] * kv))
-        s = w_t[..., None] * s + kv
-    return torch.stack(ys, dim=1), s                    # [B, S, H, Dh]
-
-
 def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
     """RWKV-6 time-mix. x: [B, S, D]."""
     b, s, d = x.shape
@@ -160,7 +215,7 @@ def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
     h = d // dh
     xf = x.float()
     if state is None:
-        x_prev = F.pad(xf, (0, 0, 1, 0))[:, :-1]
+        x_prev = _front_pad(xf, 1)[:, :-1]
     else:
         x_prev = state["x_prev"][:, None, :]
     delta = x_prev - xf
@@ -180,10 +235,8 @@ def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
 
     hd = lambda a: split_heads(a, h, dh)
     u = params["u"].float().reshape(h, dh)
-    s0 = (state["s"] if state is not None
-          else torch.zeros((b, h, dh, dh), dtype=torch.float32,
-                           device=x.device))
-    y, s_new = _rwkv_inner(params, hd(r), hd(k), hd(v), hd(w), u, s0)
+    s0 = state["s"] if state is not None else None
+    y, s_new = _wkv6_scan_local(hd(r), hd(k), hd(v), hd(w), u, s0)
     # group-norm per head (ln_x), then output gate
     yh = y.reshape(b, s, h, dh)
     yh = (yh - yh.mean(-1, keepdim=True)) * torch.rsqrt(
@@ -211,7 +264,7 @@ def rwkv_channel_mix(params, x, cfg: ModelConfig,
     """RWKV channel-mix ("FFN") with token shift. x: [B, S, D]."""
     xf = x.float()
     if x_prev is None:
-        prev = F.pad(xf, (0, 0, 1, 0))[:, :-1]
+        prev = _front_pad(xf, 1)[:, :-1]
     else:
         prev = x_prev[:, None, :]
     delta = prev - xf

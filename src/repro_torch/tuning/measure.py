@@ -8,7 +8,10 @@ it is given, as ``autotune.tune_plan`` gives it a served plan's own: the
 padding slots a served graph holds change which launch is fastest. ``time_callable`` takes
 CUDA events around each call after a warm-up, synchronises before it reads
 them and reports the minimum of ``iters`` calls. The runners call the
-port's kernel wrappers with the candidate's launch choice.
+port's kernel wrappers with the candidate's launch choice;
+``crossbar_runner``, ``fused_runner``, ``aggregate_runner`` and
+``cam_runner`` are the reference's names for them, each over
+``make_inputs`` and ``make_runner``.
 
 Measuring needs a CUDA device: no kernel runs on the CPU, so ``measure``
 and ``measurer`` raise there (the tests inject a ``measure_fn``, as the
@@ -118,6 +121,43 @@ def make_runner(geom, config, inputs: dict):
     from ..kernels.crossbar_mvm.ops import crossbar_matmul_programmed
     return lambda: crossbar_matmul_programmed(
         inputs["xq"], inputs["codes"], inputs["cfg"], config=config)
+
+
+def _runner(geom, config, seed: int, interpret, device):
+    """``make_runner`` on ``make_inputs(geom, seed, device)``, the inputs
+    kept on the runner (``run.inputs``). ``interpret`` is the reference's
+    switch for its Pallas interpreter: the port has none (a CPU tensor
+    runs the plain version), so it is taken and not read."""
+    del interpret
+    inputs = make_inputs(geom, seed, device)
+    run = make_runner(geom, config, inputs)
+    run.inputs = inputs
+    return run
+
+
+def crossbar_runner(geom, config, seed: int = 0,
+                    interpret: bool | None = None, device="cuda"):
+    """() -> y for one quantized crossbar MVM launch at ``config`` (the
+    reference's name, over ``make_inputs`` / ``make_runner``)."""
+    return _runner(geom, config, seed, interpret, device)
+
+
+def fused_runner(geom, config, seed: int = 0, interpret: bool | None = None,
+                 device="cuda"):
+    """() -> h for one fused GNN-layer launch at ``config``."""
+    return _runner(geom, config, seed, interpret, device)
+
+
+def aggregate_runner(geom, config, seed: int = 0,
+                     interpret: bool | None = None, device="cuda"):
+    """() -> z for one standalone aggregation launch at ``config``."""
+    return _runner(geom, config, seed, interpret, device)
+
+
+def cam_runner(geom, config, seed: int = 0, interpret: bool | None = None,
+               device="cuda"):
+    """() -> (match, counts) for one CAM search launch at ``config``."""
+    return _runner(geom, config, seed, interpret, device)
 
 
 def measurer(seed: int = 0, iters: int = 3, warmup: int = 1,

@@ -452,10 +452,16 @@ def test_launch_counters_stay_zero_on_cpu():
     pt_xbar.crossbar_matmul_quantized(*_t(xq, wq),
                                       pt_xbar.CrossbarNumerics(**QUANT))
     cam_search(*_t(nbr.reshape(-1), np.arange(4, dtype=np.int32)))
+    from repro_torch.kernels.recurrence import rglru_scan, wkv6_scan
+    a = torch.rand((2, 5, 8), requires_grad=True)
+    rglru_scan(a, torch.rand((2, 5, 8))).sum().backward()
+    r = torch.rand((2, 5, 3, 16), requires_grad=True)
+    wkv6_scan(r, r, r, r, torch.rand((3, 16)),
+              torch.zeros((2, 3, 16, 16)))[0].sum().backward()
     assert launch_counts() == {
         "fused_ideal_layer": 0, "fused_zmax": 0, "fused_quant_layer": 0,
         "csr_aggregate": 0, "crossbar_matmul_quantized": 0,
-        "cam_search": 0}
+        "cam_search": 0, "rglru_scan": 0, "wkv6_scan": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
