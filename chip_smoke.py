@@ -257,33 +257,35 @@ Phases, each printing its lines, each failing the run on any error:
          and the all-gather, each required), the smoke internlm2 on 1x2
          (TP) and 2x1 (ZeRO-1) meshes of gloo ranks sharing cuda:0 against
          one rank on the card (1e-5 / 1e-4), then the smoke configs of
-         grok-1 (3 experts: expert-inner TP) and deepseek-v3 (EP) on 1x2,
-         2x1 and 2x2 meshes of gloo CPU ranks on the host, and internlm2
-         on 2x2, against one rank (1e-5 / 1e-4); J3 the elastic reshard of
-         a 2x1 train() checkpoint onto 1x2 and one rank, continuing on the
-         uninterrupted losses, on the card's shared ranks; J4 the dry run's seven cells at full published size
-         (rwkv6-3b's ``train_4k`` runs the scans' backward op on meta
-         tensors), each in its own process, all started together (per
-         device bytes, FLOPs, collectives, the roofline modeled from the
-         H100 data sheet, each within a deadline), and J1's own cell, its
-         live bytes within 0.90-1.10 of J1's measured peak.
+         internlm2, grok-1 (3 experts: expert-inner TP) and deepseek-v3
+         (EP) on a 2x2 mesh of gloo CPU ranks on the host, against one
+         rank (1e-5 / 1e-4); J3 the elastic reshard of a 2x1 train()
+         checkpoint onto 1x2 and one rank, continuing on the uninterrupted
+         losses, on the card's shared ranks; J4 the dry run's seven cells
+         at full published size (rwkv6-3b's ``train_4k`` runs the scans'
+         backward op on meta tensors), each in its own process, all
+         started together (per device bytes, FLOPs, collectives, the
+         roofline modeled from the H100 data sheet, each within a
+         deadline), and J1's own cell, its live bytes within 0.90-1.10 of
+         J1's measured peak.
        * path K, the two sequence-scan kernels (``kernels.recurrence``:
          ``rglru_scan``, ``wkv6_scan``) on the recurrent architectures at
          full published widths: K3 first, each kernel forward and
          backward against its plain loop on the card at K2's RG-LRU layer
          (1 x 4,096 x 4,096), K1's RWKV layer (4 x 512, 40 heads of 64),
-         the smoke shapes and a one-step decode, from a zero and a nonzero
-         initial state (``rglru_scan``'s states and ``wkv6_scan``'s final
-         state ``torch.equal``, y within rtol 1e-5 + 1e-5 * max|y|, every
-         gradient within 1e-4 * max|g_ref|), and each timed (CUDA events)
-         beside its plain loop and its bound; K1 ``train()`` on rwkv6-3b
-         (32 layers, d_model 2,560, 3.07 B parameters, bf16) at I1's batch,
-         6 AdamW steps, finite losses, the mean loss on the six batches
-         trained on lower at the final weights than at the initial ones (a
-         step's loss on a fresh batch moves with the batch more than six
-         warm-up steps move it), ms a step, tokens/s, peak memory, one step profiled with the scans' share, and one layer's
-         forward and backward with the kernel and with the plain loop (ms,
-         peak bytes); K2 recurrentgemma-9b's prefill (38 layers, 10 B
+         the smoke shapes, Dh 32 and a one-step decode, from a zero and a
+         nonzero initial state (``rglru_scan``'s states and
+         ``wkv6_scan``'s final state ``torch.equal``, y within rtol 1e-5 +
+         1e-5 * max|y|, every gradient within 1e-4 * max|g_ref|), and
+         each timed (CUDA events) beside its plain loop and its bound; K1
+         ``train()`` on rwkv6-3b (32 layers, d_model 2,560, 3.07 B
+         parameters, bf16) at I1's batch, 6 AdamW steps, finite losses,
+         the mean loss on the six batches trained on lower at the final
+         weights than at the initial ones (a step's loss on a fresh batch
+         moves with the batch more than six warm-up steps move it), ms a step, tokens/s, peak memory, one
+         step profiled with the scans' share, and one layer's forward and
+         backward with the kernel and with the plain loop (ms, peak
+         bytes); K2 recurrentgemma-9b's prefill (38 layers, 10 B
          parameters, bf16) of 1 x 4,096 tokens under no_grad, its logits
          equal bit for bit to the same prefill with the plain loops, then
          8 decode steps through ``Server`` at 4 slots; and the gnn_serve
@@ -3553,14 +3555,15 @@ def path_j2_card(card: str) -> None:
 
 # J2 on the host's gloo CPU ranks: smoke internlm2 on 1x2 and 2x1 and
 # J3 run on the card's shared ranks (path_j2_card), so the host keeps the
-# MoE configs on every mesh and internlm2 on 2x2
-J2_HOST = {(1, 2): J2_SMOKE[1:], (2, 1): J2_SMOKE[1:], (2, 2): J2_SMOKE}
+# 2x2 mesh, whose TP and data axes hold every config's rules that 1x2 and
+# 2x1 hold one at a time
+J2_HOST = {(2, 2): J2_SMOKE}
 
 
 def path_j2_host(card: str) -> None:
     """J2 on gloo CPU ranks of the card's host (the card's torch): the
-    smoke configs of grok-1 (expert-inner TP) and deepseek-v3 (EP) on
-    1x2, 2x1 and 2x2, and internlm2 on 2x2, against one rank."""
+    smoke configs of internlm2 (dense), grok-1 (expert-inner TP) and
+    deepseek-v3 (EP) on 2x2, against one rank."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         refs = {}
@@ -3713,9 +3716,9 @@ def path_j(device, card: str, i1: dict) -> None:
 
 # the two sequence-scan kernels (kernels.recurrence) on the recurrent
 # architectures at full published widths: K1 train() on rwkv6-3b (I1's
-# batch), K2 recurrentgemma-9b's prefill of 4,096 tokens and Server decode,
-# K3 each scan, forward and backward, against its plain version; then the
-# reference's last gnn_serve demos as subprocesses.
+# batch), K2 recurrentgemma-9b's prefill of 4,096 tokens and Server
+# decode, K3 each scan, forward and backward, against its plain version;
+# then the reference's last gnn_serve demos as subprocesses.
 SCAN_KERNELS = {   # name -> (source, the reference's scan it replaces)
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                    "src/repro/models/recurrent.py:91"),
@@ -3730,7 +3733,8 @@ K2_SEQ, K2_SLOTS, K2_CAPACITY, K2_NEW = 4096, 4, 64, 8
 # path's (K2's RG-LRU layer, K1's RWKV layer), the others the smoke
 # configs' (I3) and a one-step decode from a state
 K3_RGLRU = ((1, K2_SEQ, 4096), (2, 16, 64), (4, 1, 4096))
-K3_WKV6 = ((K1_BATCH, K1_SEQ, 40, 64), (2, 16, 4, 16), (K1_BATCH, 1, 40, 64))
+K3_WKV6 = ((K1_BATCH, K1_SEQ, 40, 64), (2, 16, 4, 16), (2, 40, 4, 32),
+           (K1_BATCH, 1, 40, 64))
 GDN_DEMOS = (("--stream", "12"), ("--buckets", "auto"), ("--tech",))
 
 
@@ -3853,18 +3857,23 @@ def path_k3(card: str) -> dict:
             bwd_flops = 3.0 * n
         else:
             b, s, h, d = shape
-            # r, k, v, w, u, S0 in; y, S out; per state element a step:
-            # k v, u (k v), S + ., r (.) (2), w S, + k v
+            # r, k, v, w, u, S0 in; y, S out. Per state element a step:
+            # r^T S (2) and w S + k v (3); per key element a step the
+            # bonus v sum(r u k): r u k (2), its sum (1), v times it and
+            # the add to y (2)
             nbytes = 4 * (5 * n + h * d + 2 * b * h * d * d)
-            flops = 7.0 * n * d
+            flops = 5.0 * n * d + 5.0 * n
             # r, k, v, w, u, the checkpoints, dy, dS in; dr, dk, dv, dw,
-            # du, dS0 out; the recomputed states (3 a state element), the
-            # three row sums (2 each), dv's partial (1) and sum (1), G's
-            # update (2)
+            # du, dS0 out. Per state element a step: the recomputed
+            # state w S + k v (3), S dy, G v, G^T k and rowsum(G S) (2
+            # each), G's update w G + r dy^T (3); per key element a step
+            # the bonus terms: v . dy (2), dr's u k (v . dy) (3), dk's
+            # u r (v . dy) (3), dv's sum(r u k) and dy times it (5), du's
+            # r k (v . dy) (3)
             nc = -(-s // 32)
             bwd_bytes = 4 * (9 * n + 2 * h * d + 2 * b * h * d * d
                              + b * h * nc * d * d)
-            bwd_flops = 13.0 * n * d
+            bwd_flops = 14.0 * n * d + 16.0 * n
         bound_ms, bound_by = scan_bound(nbytes, flops)
         bwd_bound, bwd_by = scan_bound(bwd_bytes, bwd_flops)
         rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -3944,26 +3953,12 @@ def k1_layer(device, card: str) -> None:
 
 def path_k1(device, card: str) -> dict:
     """K1: ``launch.train.train`` on rwkv6-3b at its full published size
-    and I1's batch and lr: AdamW steps with finite losses, the loss on the
-    batches trained on lower at the final weights than at the initial
-    ones, ms a step (median after the first), tokens/s, peak memory; one
-    step profiled (the scans' share of the kernel time); then one layer
-    with the kernel and with the plain loop. Returns the scans' launches
-    in train()."""
-    # the AdamW update's per-leaf temporaries fragment the cache: with
-    # fixed segments a step's 60 GiB of live tensors left 17 GiB reserved
-    # and unused and the next 2.7 GiB was refused; segments that grow in
-    # place hold the step
-    torch.cuda.empty_cache()
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    try:
-        return _path_k1(device, card)
-    finally:
-        torch.cuda.empty_cache()
-        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
-
-
-def _path_k1(device, card: str) -> dict:
+    and I1's batch and lr: AdamW steps with finite losses, the
+    loss on the batches trained on lower at the final weights than at the
+    initial ones, ms a step (median after the first), tokens/s, peak
+    memory; one step profiled (the scans' share of the kernel time); then
+    one layer with the kernel and with the plain loop. Returns the scans'
+    launches in train()."""
     mcfg = lm_configs.get_config(K1_ARCH)
     torch.cuda.reset_peak_memory_stats()
     stamps, losses = [], []

@@ -96,13 +96,10 @@ def _mesh(args):
             os.remove(path)
 
 
-def stream_demo(n_ticks: int, sample: int, device="cuda", stream=None,
-                params=None):
+def stream_demo(n_ticks: int, sample: int, device="cuda"):
     """The streaming quickstart: ``synthetic_stream`` ticks -> ingest ->
-    incremental refresh -> batched query. ``stream`` ([ticks, N, F] numpy;
-    default ``synthetic_stream(0, ...)``) and ``params`` (default: the
-    server's seed-0 draw) let a caller hand in its own. Returns the
-    server after the final flush."""
+    incremental refresh -> batched query. Returns the server after the
+    final flush."""
     from ..core import taxi
     from ..streaming import StreamingGNNServer
 
@@ -114,16 +111,15 @@ def stream_demo(n_ticks: int, sample: int, device="cuda", stream=None,
                           n_clusters=4)
     cfg = gnn.GNNConfig(in_dim=cfg_t.region, hidden_dims=(32,), out_dim=16,
                         sample=sample)
-    srv = StreamingGNNServer(plan, cfg, params=params,
-                             policy="bounded-staleness", max_staleness=4,
-                             max_dirty_frac=0.3, device=device)
+    srv = StreamingGNNServer(plan, cfg, policy="bounded-staleness",
+                             max_staleness=4, max_dirty_frac=0.3,
+                             device=device)
     print(f"streaming: {n_nodes} taxis, {cfg_t.region}-dim demand maps, "
           f"cold refresh {srv.refresh() * 1e3:.1f} ms")
 
     # the §4.2 demand/supply stream: each tick only part of the map moves
-    if stream is None:
-        stream = taxi.synthetic_stream(0, n_nodes, n_ticks, cfg_t,
-                                       device="cpu").numpy()
+    stream = taxi.synthetic_stream(0, n_nodes, n_ticks, cfg_t,
+                                   device="cpu").numpy()
     rng = np.random.default_rng(0)
     feats = np.asarray(g.features)
     for t in range(n_ticks):
@@ -149,20 +145,18 @@ def stream_demo(n_ticks: int, sample: int, device="cuda", stream=None,
     return srv
 
 
-def bucketed_demo(sample: int, buckets, clusters: int, device="cuda",
-                  params=None) -> dict:
+def bucketed_demo(sample: int, buckets, clusters: int,
+                  device="cuda") -> dict:
     """The capacity-bucketed layout quickstart: skewed partition -> pow2
-    buckets -> overlapped halo exchange -> dense parity. ``params``
-    default to ``gnn.init_params(cfg, seed=0)``. Returns the bucketed
-    embeddings of both schedules and the dense plan's (numpy, global
-    node order)."""
+    buckets -> overlapped halo exchange -> dense parity. Returns the
+    bucketed embeddings of both schedules and the dense plan's (numpy,
+    global node order)."""
     k = clusters or 16
     g = random_graph(6000, 24000, 16, seed=0).gcn_normalize()
     cfg = gnn.GNNConfig(in_dim=16, hidden_dims=(32,), out_dim=16,
                         sample=sample)
     dev = resolve_device(device)
-    if params is None:
-        params = gnn.init_params(cfg, seed=0, device=dev)
+    params = gnn.init_params(cfg, seed=0, device=dev)
     plan = plan_execution(g, "decentralized", backend="jnp", sample=sample,
                           n_clusters=k, buckets=buckets,
                           partition_method="edge")

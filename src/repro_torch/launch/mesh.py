@@ -174,12 +174,12 @@ def make_lm_mesh(shape, axes=("data", "model"), *, backend: str = "nccl",
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
-_ROUTES = {}       # dispatch key -> the library holding the registration
+_ROUTE = []        # the library holding the registration, once made
 
 
-def route_gloo_cuda_all_gather(key: str = "CUDA") -> None:
-    """Run the functional all-gather of a gloo group on ``key``'s tensors
-    (CUDA) through gloo's plain all-gather.
+def route_gloo_cuda_all_gather() -> None:
+    """Run the functional all-gather of a gloo group on CUDA tensors
+    through gloo's plain all-gather.
 
     DTensor's Shard -> Replicate calls ``_c10d_functional::
     all_gather_into_tensor``, which reaches the group through its
@@ -188,16 +188,15 @@ def route_gloo_cuda_all_gather(key: str = "CUDA") -> None:
     as host memory and ends every rank with a segmentation fault.
     ``dist.all_gather_into_tensor`` (``_allgather_base``) stages CUDA
     tensors through the host and runs. This registers, once a process, a
-    ``key`` kernel of the functional op that takes that path for a gloo
+    CUDA kernel of the functional op that takes that path for a gloo
     group and hands any other group (NCCL) to the op's own kernel. The
     gather is then blocking: ``wait_tensor`` on its result finds no
-    pending work. ``key`` is for the tests, which register it on CPU
-    tensors."""
-    if key in _ROUTES:
+    pending work."""
+    if _ROUTE:
         return
     lib = torch.library.Library("_c10d_functional", "IMPL")
-    lib.impl("all_gather_into_tensor", _gloo_all_gather, key)
-    _ROUTES[key] = lib
+    lib.impl("all_gather_into_tensor", _gloo_all_gather, "CUDA")
+    _ROUTE.append(lib)
 
 
 def _gloo_all_gather(inp: torch.Tensor, group_size: int, group_name):

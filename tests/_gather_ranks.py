@@ -15,7 +15,10 @@ def redistribute(rank: int, world: int, rdv: str, routed: bool):
                        device="cpu", init_method=f"file://{rdv}", rank=rank,
                        timeout=60.0)
     if routed:
-        M.route_gloo_cuda_all_gather("CPU")
+        # the route's own kernel, registered for CPU tensors as
+        # route_gloo_cuda_all_gather registers it for CUDA ones
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", M._gloo_all_gather, "CPU")
     x = torch.arange(8, dtype=torch.float32).reshape(2, 4) + 100 * rank
     got = DTensor.from_local(x, m, [Replicate(), Shard(0)]).redistribute(
         m, [Replicate(), Replicate()]).to_local()

@@ -44,7 +44,9 @@ def _lines(text: str, drop: tuple = ()) -> list:
 
 def test_stream_demo_matches_reference(monkeypatch, capsys):
     import repro.streaming as jx_streaming
+    import repro_torch.streaming as tr_streaming
     from repro.core import taxi as jx_taxi
+    from repro_torch.core import taxi as tr_taxi
 
     made = []
 
@@ -61,9 +63,17 @@ def test_stream_demo_matches_reference(monkeypatch, capsys):
         jax.random.key(0), 300, ticks, jx_taxi.TaxiConfig(m=6, n=6)))
     params = [{k: torch.from_numpy(np.array(v)) for k, v in p.items()}
               for p in ref.params]
+
+    class FromReference(tr_streaming.StreamingGNNServer):
+        def __init__(self, plan, cfg, **kw):
+            super().__init__(plan, cfg, params=params, **kw)
+
+    # the port serves the reference's ticks from the reference's weights
+    monkeypatch.setattr(tr_taxi, "synthetic_stream",
+                        lambda *a, **kw: torch.from_numpy(stream.copy()))
+    monkeypatch.setattr(tr_streaming, "StreamingGNNServer", FromReference)
     capsys.readouterr()
-    srv = gnn_serve.stream_demo(ticks, 8, device="cpu", stream=stream,
-                                params=params)
+    srv = gnn_serve.stream_demo(ticks, 8, device="cpu")
     assert "commits" in capsys.readouterr().out
     assert (srv.commits, srv.full_refreshes) == (ref.commits,
                                                  ref.full_refreshes)
