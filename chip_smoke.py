@@ -273,17 +273,25 @@ Phases, each printing its lines, each failing the run on any error:
          full published widths: K3 first, each kernel forward and
          backward against its plain loop on the card at K2's RG-LRU layer
          (1 x 4,096 x 4,096), K1's RWKV layer (4 x 512, 40 heads of 64),
-         the smoke shapes, Dh 32 and a one-step decode, from a zero and a
-         nonzero initial state (``rglru_scan``'s states and
+         the smoke shapes, Dh 32, a one-step decode, lengths that end in
+         part of a tile or chunk and ragged RG-LRU widths, from a zero and
+         a nonzero initial state (``rglru_scan``'s states and
          ``wkv6_scan``'s final state ``torch.equal``, y within rtol 1e-5 +
-         1e-5 * max|y|, every gradient within 1e-4 * max|g_ref|), and
-         each timed (CUDA events) beside its plain loop and its bound; K1
+         1e-5 * max|y|, every gradient within 1e-4 * max|g_ref|, two
+         launches of each kernel, forward and backward, equal), the
+         card's residency of the ``wkv6_scan`` launches, and each kernel
+         timed (CUDA events), forward and backward apart, beside its
+         plain loop and its bound; K1
          ``train()`` on rwkv6-3b (32 layers, d_model 2,560, 3.07 B
          parameters, bf16) at I1's batch, 6 AdamW steps, finite losses,
          the mean loss on the six batches trained on lower at the final
          weights than at the initial ones (a step's loss on a fresh batch
-         moves with the batch more than six warm-up steps move it), ms a step, tokens/s, peak memory, one
-         step profiled with the scans' share, and one layer's forward and
+         moves with the batch more than six warm-up steps move it), ms a
+         step (each step's, with the caching allocator's counts over it),
+         tokens/s, peak memory, train() again with each step profiled
+         (kernel ms, the device's idle ms, the host's longest CUDA calls),
+         one step of ``make_train_step`` alone profiled with the scans'
+         share, and one layer's forward and
          backward with the kernel and with the plain loop (ms, peak
          bytes); K2 recurrentgemma-9b's prefill (38 layers, 10 B
          parameters, bf16) of 1 x 4,096 tokens under no_grad, its logits
@@ -319,6 +327,11 @@ without the repository around it, the script fails and prints no result.
 all-gather entry points that end gloo ranks holding CUDA tensors (the
 process group's coalesced all-gather and the functional op without the
 port's route) reported, not raised.
+
+``python3 chip_smoke.py --k1`` runs only path K1 (rwkv6-3b's training
+steps, each timed with the allocator's counts and profiled), on the
+package beside the script: copied into another checkout, it compares
+that checkout's K1 with this one's on the same card.
 
 ``python3 chip_smoke.py --f6-loop ROUNDS`` runs none of that: it loops
 path H1's eight cases ROUNDS times with CUDA_LAUNCH_BLOCKING=1 and a
@@ -3731,10 +3744,14 @@ K1_BATCH, K1_SEQ, K1_STEPS, K1_LR = I1_BATCH, I1_SEQ, 6, I1_LR
 K2_SEQ, K2_SLOTS, K2_CAPACITY, K2_NEW = 4096, 4, 64, 8
 # K3's shapes: (B, S, W) and (B, S, H, Dh); the first of each is the main
 # path's (K2's RG-LRU layer, K1's RWKV layer), the others the smoke
-# configs' (I3) and a one-step decode from a state
-K3_RGLRU = ((1, K2_SEQ, 4096), (2, 16, 64), (4, 1, 4096))
+# configs' (I3), a one-step decode from a state, and lengths that end in
+# a part of a tile (RG-LRU: 16 steps) or of a chunk and its 4-step piece
+# (RWKV: 16 steps, pieces of 4); the RG-LRU also on ragged widths, one a
+# multiple of 4 and one not (padded to one by the wrapper)
+K3_RGLRU = ((1, K2_SEQ, 4096), (2, 16, 64), (4, 1, 4096), (3, 37, 100),
+            (2, 19, 70))
 K3_WKV6 = ((K1_BATCH, K1_SEQ, 40, 64), (2, 16, 4, 16), (2, 40, 4, 32),
-           (K1_BATCH, 1, 40, 64))
+           (K1_BATCH, 1, 40, 64), (2, 23, 4, 64))
 GDN_DEMOS = (("--stream", "12"), ("--buckets", "auto"), ("--tech",))
 
 
@@ -3779,16 +3796,48 @@ def grad_errs(kernel, plain, xs: tuple, seed: int) -> list:
             for g, r in zip(*grads)]
 
 
+def k3_backward(kind: str, xs: tuple, seed: int) -> tuple:
+    """The backward op's inputs at ``xs`` (the forward run with its
+    checkpoints) and a call of it: (fn, the forward's outputs)."""
+    from repro_torch.kernels.recurrence import ops as rec_ops
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "rglru":
+        a, g, h0 = xs
+        with torch.no_grad():
+            h = torch.ops.repro_torch.rglru_scan(a, g, h0)
+        dy = torch.randn(h.shape, generator=gen, device="cuda")
+        return (lambda: torch.ops.repro_torch.rglru_scan_backward(
+            a, h, h0, dy)), (h,)
+    with torch.no_grad():
+        out = torch.ops.repro_torch.wkv6_scan(*xs, rec_ops.CHUNK)
+    r, k, v, w, u, _ = xs
+    dy = torch.randn(r.shape, generator=gen, device="cuda")
+    ds = torch.randn(out[1].shape, generator=gen, device="cuda")
+    return (lambda: torch.ops.repro_torch.wkv6_scan_backward(
+        r, k, v, w, u, out[2], dy, ds, rec_ops.CHUNK)), out
+
+
+def same_twice(fn) -> bool:
+    """Two launches of ``fn`` give equal outputs (``torch.equal``)."""
+    one, two = fn(), fn()
+    one = (one,) if isinstance(one, torch.Tensor) else tuple(one)
+    two = (two,) if isinstance(two, torch.Tensor) else tuple(two)
+    return all(torch.equal(x, y) for x, y in zip(one, two))
+
+
 def path_k3(card: str) -> dict:
     """K3: each scan kernel against its plain version (``kernels.
     recurrence.ref``) on the card: ``rglru_scan``'s states and
     ``wkv6_scan``'s final state ``torch.equal``, ``wkv6_scan``'s y within
     rtol 1e-5 and atol 1e-5 * max|ref|, every gradient within 1e-4 of its
     max|g_ref|, from a zero and a nonzero initial state, at K3's shapes;
-    then each kernel timed at the main path's shape (CUDA events) beside
-    its plain version and its bound. Returns {kernel: its record}."""
+    two launches of each kernel, forward and backward, equal; then each
+    kernel timed at the main path's shape (CUDA events), forward and
+    backward apart, beside its plain version and its bound. Returns
+    {kernel: its record}."""
     from repro_torch.kernels.recurrence import (rglru_scan, rglru_scan_ref,
                                                 wkv6_scan, wkv6_scan_ref)
+    from repro_torch.kernels.recurrence import ops as rec_ops
     t0 = time.perf_counter()
     plain_wkv6 = lambda *x: wkv6_scan_ref(*x)[:2]
     errs = {"rglru_scan": 0.0, "wkv6_scan": 0.0}
@@ -3803,11 +3852,16 @@ def path_k3(card: str) -> dict:
             g = grad_errs(rglru_scan, rglru_scan_ref, xs, 2)
             require(max(g) <= 1e-4, f"K3 rglru_scan {shape}: gradients off "
                     f"by {g} of max|g_ref|")
+            bwd, _ = k3_backward("rglru", xs, 6)
+            with torch.no_grad():
+                twice = same_twice(lambda: rglru_scan(*xs)) and same_twice(bwd)
+            require(twice, f"K3 rglru_scan {shape}: two launches differ")
             print(f"[pathK] K3 rglru_scan {shape} h0 "
                   f"{'nonzero' if nonzero else 'zero'}: states equal to the "
                   f"plain loop bit for bit; gradients (a, g, h0) within "
                   + ", ".join(f"{e:.2e}" for e in g)
-                  + " of max|g_ref| (tol 1e-4)", flush=True)
+                  + " of max|g_ref| (tol 1e-4); two launches equal, forward "
+                  "and backward", flush=True)
     for shape in K3_WKV6:
         for nonzero in (False, True):
             xs = k3_inputs("wkv6", shape, nonzero, 3)
@@ -3823,15 +3877,30 @@ def path_k3(card: str) -> dict:
             g = grad_errs(wkv6_scan, plain_wkv6, xs, 4)
             require(max(g) <= 1e-4, f"K3 wkv6_scan {shape}: gradients off "
                     f"by {g} of max|g_ref|")
+            bwd, _ = k3_backward("wkv6", xs, 6)
+            with torch.no_grad():
+                twice = (same_twice(lambda: torch.ops.repro_torch.wkv6_scan(
+                    *xs, rec_ops.CHUNK)) and same_twice(bwd))
+            require(twice, f"K3 wkv6_scan {shape}: two launches differ")
             print(f"[pathK] K3 wkv6_scan {shape} S0 "
                   f"{'nonzero' if nonzero else 'zero'}: final state equal to "
                   f"the plain loop bit for bit, y within {y_err:.3e} (max|y| "
                   f"{top:.3e}; tol rtol 1e-5 + 1e-5 max|y|); gradients (r, "
                   f"k, v, w, u, S0) within " + ", ".join(f"{e:.2e}" for e in g)
-                  + " of max|g_ref| (tol 1e-4)", flush=True)
+                  + " of max|g_ref| (tol 1e-4); two launches equal, forward "
+                  "and backward", flush=True)
+    b, _, h, d = K3_WKV6[0]
+    res = rec_ops.wkv6_residency(b, h, d)
+    print(f"[pathK] K3 wkv6_scan at B {b}, H {h}, Dh {d}: {res['blocks']} "
+          f"blocks; the card holds {res['forward_blocks_per_sm']} forward "
+          f"and {res['backward_blocks_per_sm']} backward blocks an SM "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs), {res['backward_clusters_at_once']} backward clusters of "
+          f"{res['cluster_size']} at once ({res['clusters']} in a launch)",
+          flush=True)
 
-    # times at the main path's shapes, the forward alone and with the
-    # backward pass
+    # times at the main path's shapes: the forward alone (no checkpoints),
+    # the backward op alone, and the two under autograd
     rec = {}
     for name, kind, shape, kern, plain in (
             ("rglru_scan", "rglru", K3_RGLRU[0], rglru_scan, rglru_scan_ref),
@@ -3840,6 +3909,12 @@ def path_k3(card: str) -> dict:
         with torch.no_grad():
             ms = cuda_ms(lambda: kern(*xs), 20)
             plain_ms = cuda_ms(lambda: plain(*xs), 2)
+            bwd, _ = k3_backward(kind, xs, 7)
+            ms_bwd = cuda_ms(bwd, 20)
+            # the forward as a gradient runs it: with its checkpoints
+            ms_saving = ms if kind == "rglru" else cuda_ms(
+                lambda: torch.ops.repro_torch.wkv6_scan(*xs, rec_ops.CHUNK),
+                20)
         leaves = [x.detach().clone().requires_grad_(True) for x in xs]
 
         def train_call(fn):
@@ -3855,6 +3930,7 @@ def path_k3(card: str) -> dict:
             flops = 2.0 * n                        # a multiply, an add
             bwd_bytes = 4 * (5 * n + 2 * b * w)    # a, h, h0, dy; da, dg, dh0
             bwd_flops = 3.0 * n
+            ckpt_bytes = 0
         else:
             b, s, h, d = shape
             # r, k, v, w, u, S0 in; y, S out. Per state element a step:
@@ -3863,28 +3939,43 @@ def path_k3(card: str) -> dict:
             # the add to y (2)
             nbytes = 4 * (5 * n + h * d + 2 * b * h * d * d)
             flops = 5.0 * n * d + 5.0 * n
-            # r, k, v, w, u, the checkpoints, dy, dS in; dr, dk, dv, dw,
-            # du, dS0 out. Per state element a step: the recomputed
-            # state w S + k v (3), S dy, G v, G^T k and rowsum(G S) (2
-            # each), G's update w G + r dy^T (3); per key element a step
-            # the bonus terms: v . dy (2), dr's u k (v . dy) (3), dk's
-            # u r (v . dy) (3), dv's sum(r u k) and dy times it (5), du's
-            # r k (v . dy) (3)
-            nc = -(-s // 32)
-            bwd_bytes = 4 * (9 * n + 2 * h * d + 2 * b * h * d * d
-                             + b * h * nc * d * d)
+            # the states the forward saves every CHUNK steps for the
+            # backward: this design's traffic, written by the forward and
+            # read by the backward, printed apart and not in the bounds,
+            # which count what the function needs
+            ckpt_bytes = 4 * b * h * (-(-s // rec_ops.CHUNK)) * d * d
+            # r, k, v, w, u, S0, dy, dS in; dr, dk, dv, dw, du, dS0 out.
+            # Per state element a step: the recomputed state w S + k v
+            # (3), S dy, G v, G^T k and rowsum(G S) (2 each), G's update
+            # w G + r dy^T (3); per key element a step the bonus terms:
+            # v . dy (2), dr's u k (v . dy) (3), dk's u r (v . dy) (3),
+            # dv's sum(r u k) and dy times it (5), du's r k (v . dy) (3)
+            bwd_bytes = 4 * (9 * n + 2 * h * d + 3 * b * h * d * d)
             bwd_flops = 14.0 * n * d + 16.0 * n
         bound_ms, bound_by = scan_bound(nbytes, flops)
         bwd_bound, bwd_by = scan_bound(bwd_bytes, bwd_flops)
+        train_bound, train_by = scan_bound(nbytes + bwd_bytes,
+                                           flops + bwd_flops)
+        ckpt = (f"; the design's checkpoints (every {rec_ops.CHUNK} steps) "
+                f"{ckpt_bytes / 1e6:.1f} MB, written by the forward and "
+                f"read by the backward, {2e3 * ckpt_bytes / HBM_BPS:.4f} ms "
+                f"at the memory rate, not in the bounds" if ckpt_bytes
+                else "")
         rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None)
         print(f"[pathK] K3 {name} at {shape}: forward {ms:.4f} ms a launch "
               f"(CUDA events, mean of 20), plain loop {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.3f} GFLOP); forward + backward {ms_train:.4f} "
-              f"ms (plain loop under autograd {plain_train:.3f} ms; the "
-              f"backward's bound {bwd_bound:.4f} ms, {bwd_by}); no single "
-              f"library call computes it; {card}", flush=True)
+              f"{flops / 1e9:.3f} GFLOP); backward {ms_bwd:.4f} ms a launch "
+              f"(mean of 20), bound {bwd_bound:.4f} ms ({bwd_by}: "
+              f"{bwd_bytes / 1e6:.1f} MB, {bwd_flops / 1e9:.3f} GFLOP); "
+              f"forward with its checkpoints + backward {ms_saving:.4f} + "
+              f"{ms_bwd:.4f} = {ms_saving + ms_bwd:.4f} ms of kernel time "
+              f"(bound {train_bound:.4f} ms, {train_by}){ckpt}; under "
+              f"autograd, "
+              f"the host's dispatch included, {ms_train:.4f} ms (mean of 5; "
+              f"the plain loop under autograd {plain_train:.3f} ms); no "
+              f"single library call computes it; {card}", flush=True)
     for name, e in errs.items():
         rec[name]["max_abs_err"] = e
     print(f"[pathK] K3 {time.perf_counter() - t0:.1f} s in all", flush=True)
@@ -3951,31 +4042,133 @@ def k1_layer(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the caching allocator's counts read around each K1 step: retries after
+# a refused cudaMalloc (each frees the cached blocks and synchronizes),
+# device allocations and frees, and syncs of all streams
+K1_ALLOC = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+            "num_sync_all_streams")
+
+
+def alloc_counts() -> np.ndarray:
+    stats = torch.cuda.memory_stats()
+    return np.array([int(stats.get(k, 0)) for k in K1_ALLOC])
+
+
+def k1_config(device) -> "lm_train.TrainConfig":
+    return lm_train.TrainConfig(
+        arch=K1_ARCH, smoke=False, steps=K1_STEPS, batch=K1_BATCH,
+        seq=K1_SEQ, lr=K1_LR, log_every=K1_STEPS, device=str(device))
+
+
+def k1_step_trace(events: list) -> dict | None:
+    """A profiled K1 step's chrome-trace events: its kernels and their ms,
+    the ``wkv6_*`` kernels' ms, the device's idle ms between its first and
+    last kernel, and the CUDA API calls that held the host longest (None
+    when the trace holds no kernel)."""
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    if not kernels:
+        return None
+    idle, end = 0.0, kernels[0]["ts"]
+    for e in kernels:
+        idle += max(0.0, e["ts"] - end)
+        end = max(end, e["ts"] + e["dur"])
+    api: dict = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            api[e["name"]] = api.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    scans = [float(e["dur"]) for e in kernels
+             if kernel_name(e["name"]).startswith("wkv6_")]
+    return dict(kernels=len(kernels),
+                busy=sum(float(e["dur"]) for e in kernels) / 1e3,
+                scans=len(scans), scans_ms=sum(scans) / 1e3,
+                idle=idle / 1e3,
+                api=sorted(api.items(), key=lambda kv: -kv[1])[:3])
+
+
+def k1_profiled(device, card: str) -> None:
+    """``train()`` at K1 again, each step after the first under a
+    torch.profiler of its own, started after the previous step's sync:
+    its host ms (profiler on), kernel ms, the device's idle ms between
+    kernels, the scans' ms and the CUDA API calls that held the host
+    longest. The median step's chrome trace is kept as
+    ``chiprun_out/step_K1_train.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(ROOT, "chiprun_out", "step_K1_train.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rows, live = [], {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        if step > 0:
+            wall = (time.perf_counter() - live["t0"]) * 1e3
+            live["prof"].stop()
+            part = f"{path}.{step}"
+            live["prof"].export_chrome_trace(part)
+            with open(part) as fh:
+                row = k1_step_trace(json.load(fh)["traceEvents"])
+            rows.append((step, wall, row, part))
+        if step < K1_STEPS - 1:
+            live["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+            live["prof"].start()
+            live["t0"] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    lm_train.train(k1_config(device), hooks={"on_step": on_step})
+    torch.cuda.empty_cache()
+    traced = sorted((r for r in rows if r[2] is not None),
+                    key=lambda r: r[1])
+    if traced:
+        os.replace(traced[len(traced) // 2][3], path)
+    for r in rows:
+        if os.path.exists(r[3]):
+            os.remove(r[3])
+    text = []
+    for step, wall, row, _ in rows:
+        if row is None:
+            text.append(f"step {step} {wall:.1f} ms, kernel time not "
+                        f"measured (no kernel in its trace)")
+            continue
+        text.append(
+            f"step {step} {wall:.1f} ms: {row['kernels']} kernels "
+            f"{row['busy']:.1f} ms, device idle between kernels "
+            f"{row['idle']:.1f} ms, wkv6_* {row['scans']} launches "
+            f"{row['scans_ms']:.2f} ms; host in "
+            + ", ".join(f"{k} {v:.1f}" for k, v in row["api"]))
+    print(f"[pathK] K1 train() again, steps 1-{K1_STEPS - 1} each under "
+          f"torch.profiler (host clock from the profiler's start to the "
+          f"step's sync): " + "; ".join(text)
+          + (f"; trace of the median step chiprun_out/"
+             f"{os.path.basename(path)}" if traced else "")
+          + f"; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+
 def path_k1(device, card: str) -> dict:
     """K1: ``launch.train.train`` on rwkv6-3b at its full published size
     and I1's batch and lr: AdamW steps with finite losses, the
     loss on the batches trained on lower at the final weights than at the
-    initial ones, ms a step (median after the first), tokens/s, peak
-    memory; one step profiled (the scans' share of the kernel time); then
-    one layer with the kernel and with the plain loop. Returns the scans'
-    launches in train()."""
+    initial ones, ms a step (each step's and their median after the
+    first) and the allocator's counts over each step, tokens/s, peak
+    memory; train() again with each step profiled (``k1_profiled``) and
+    one step of ``make_train_step`` alone profiled (the scans' share of
+    the kernel time); then one layer with the kernel and with the plain
+    loop. Returns the scans' launches in the first train()."""
     mcfg = lm_configs.get_config(K1_ARCH)
     torch.cuda.reset_peak_memory_stats()
-    stamps, losses = [], []
+    stamps, losses, allocs = [], [], []
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        allocs.append(alloc_counts())
         losses.append(float(metrics["loss"]))
 
     t0 = time.perf_counter()
     final = {}
     reset_launch_counts()
-    out = lm_train.train(lm_train.TrainConfig(
-        arch=K1_ARCH, smoke=False, steps=K1_STEPS, batch=K1_BATCH,
-        seq=K1_SEQ, lr=K1_LR, log_every=K1_STEPS, device=str(device)),
-        hooks={"on_step": on_step,
-               "on_end": lambda p, o: final.update(params=p)})
+    out = lm_train.train(k1_config(device), hooks={
+        "on_step": on_step, "on_end": lambda p, o: final.update(params=p)})
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4020,8 +4213,17 @@ def path_k1(device, card: str) -> dict:
           f"{share:.4f} of the bf16 peak; peak memory {peak:.2f} GiB; "
           f"launches {json.dumps({k: counts[k] for k in SCAN_KERNELS})}; "
           f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    steps = np.diff(stamps) * 1e3
+    per_step = np.diff(np.stack(allocs), axis=0)
+    print(f"[pathK] K1 train() each step after the first (host clock "
+          f"between syncs) and the caching allocator's counts over it "
+          f"({', '.join(K1_ALLOC)}): "
+          + "; ".join(f"step {i + 1} {ms:.1f} ms {tuple(int(x) for x in c)}"
+                      for i, (ms, c) in enumerate(zip(steps, per_step)))
+          + f"; {card}", flush=True)
     del out, batches
     torch.cuda.empty_cache()
+    k1_profiled(device, card)
 
     params = model.init(1, device=device)
     opt = adamw_init(params)
@@ -4557,6 +4759,10 @@ def main() -> None:
                     help="only run F7's probe, the two all-gather entry "
                          "points that end gloo ranks on CUDA tensors "
                          "included (no result line)")
+    ap.add_argument("--k1", action="store_true",
+                    help="only run path K1, rwkv6-3b's training steps "
+                         "timed and profiled, on the package beside this "
+                         "script (no result line)")
     args = ap.parse_args()
     if args.f6_loop:
         os.environ["CUDA_LAUNCH_BLOCKING"] = "1"   # before CUDA starts
@@ -4568,6 +4774,13 @@ def main() -> None:
         return
     if args.f7_probe:
         j2_probe(card_line(), faults=True)
+        return
+    if args.k1:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        print(f"[card] {card}; torch {torch.__version__}", flush=True)
+        _build.build_all(tuple(SCAN_KERNELS))
+        path_k1(torch.device("cuda"), card)
         return
 
     t_start = time.perf_counter()

@@ -20,7 +20,7 @@ mode that counted the DTensor op itself would see the global program.)
   * collective bytes -- per collective (``_c10d_functional``), the ring
                         model below on its result bytes and group size.
   * the sequence scans -- each custom op of ``kernels.recurrence`` is one
-                        op, charged by a rule of its own (``_scan_cost``):
+                        op, charged by a rule of its own (``_scan_flops``):
                         FLOPs the products the reference's scan body
                         counts as dots, times its trips. RWKV-6 forward:
                         ``r . (S + ...)``, 2 B H Dh^2 a step (``k v^T``
@@ -29,9 +29,9 @@ mode that counted the DTensor op itself would see the global program.)
                         with a contraction (``dr``, ``dk``'s ``G v``,
                         ``dv``'s ``G^T k``), 6 B H Dh^2 a step. The
                         RG-LRU's scan has no product. Bytes: the kernel's
-                        own reads and writes (operands, results, and the
-                        backward's recomputed states written and read
-                        once). Nothing is charged per time step.
+                        own reads and writes, operands and results (the
+                        backward recomputes its states on chip). Nothing
+                        is charged per time step.
 
 Ring traffic model per collective (bytes = full result size r, group n):
   all-reduce          2 * r * (n-1)/n
@@ -137,15 +137,12 @@ _SCANS = {"rglru_scan", "rglru_scan_backward", "wkv6_scan",
           "wkv6_scan_backward"}
 
 
-def _scan_cost(name: str, args) -> tuple:
-    """(FLOPs, extra bytes beyond operands and results) of one scan op."""
+def _scan_flops(name: str, args) -> float:
+    """FLOPs of one scan op."""
     if not name.startswith("wkv6"):
-        return 0.0, 0
+        return 0.0
     b, s, h, d = args[0].shape
-    if name == "wkv6_scan":
-        return 2.0 * b * s * h * d * d, 0
-    # the backward recomputes every S_{t-1} into scratch and reads it back
-    return 6.0 * b * s * h * d * d, 2 * b * s * h * d * d * 4
+    return (2.0 if name == "wkv6_scan" else 6.0) * b * s * h * d * d
 
 
 def _group_size(name: str, args) -> int:
@@ -209,9 +206,9 @@ class OpCounter(TorchDispatchMode):
             self._follow(t, new=new and id(t) not in inputs)
         if name in _FREE or view:
             return
-        flops, extra = 0.0, 0
+        flops = 0.0
         if name in _SCANS:
-            flops, extra = _scan_cost(name, args)
+            flops = _scan_flops(name, args)
             self._flops_by_dtype[args[0].dtype] += flops
         elif name in _DOTS:
             flops = _dot_flops(name, args)
@@ -219,7 +216,7 @@ class OpCounter(TorchDispatchMode):
                 else args[0].dtype
             self._flops_by_dtype[dt] += flops
         nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in
-                                                     outs) + extra
+                                                     outs)
         op = name
         if name in _COLLECTIVES:
             op = _COLLECTIVES[name]

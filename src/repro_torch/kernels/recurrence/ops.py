@@ -18,10 +18,26 @@ a layer forward and one backward, whatever the sequence length.
 ``rglru_scan.launches`` and ``wkv6_scan.launches`` count the kernels'
 launches, forward and backward passes both.
 
-The RWKV forward saves its state every ``CHUNK`` steps (only when a
-gradient will be taken: the wrapper asks for it when grad mode is on and
-an input requires a gradient); the backward recomputes each chunk's
-states from its checkpoint.
+The kernels' designs (each ``.cu`` file's header has the detail):
+
+  * ``rglru_scan`` is bound by bytes: a thread walks one channel through
+    time (every h as the plain loop rounds it), a block is one warp of 32
+    channels, and its inputs stream through a ring of 16-step tiles in
+    shared memory that the Tensor Memory Accelerator fills 9 tiles (6 in
+    the backward) ahead, so tens of KB are in flight on each SM even at
+    one sequence. The copy engine wants W a multiple of 4: the wrapper
+    pads other widths with zero channels and slices them off.
+  * ``wkv6_scan`` is bound by the issue of instructions: each state stays
+    in registers, split over 2 warps a 16-column slab (forward) or a
+    16-row slab (backward: a thread block cluster a (b, h), the column
+    sums of dv added across it through distributed shared memory), with
+    inputs staged ``CHUNK`` steps at a time by the Tensor Memory
+    Accelerator. The forward saves its state every ``CHUNK`` steps (only
+    when a gradient will be taken: the wrapper asks for it when grad mode
+    is on and an input requires a gradient); the backward walks the
+    chunks in reverse and recomputes each one's states from its
+    checkpoint, on chip: the states at every fourth step in shared
+    memory, four at a time in registers. No scratch in device memory.
 """
 from __future__ import annotations
 
@@ -33,7 +49,7 @@ from .. import _build
 from .ref import (rglru_scan_backward_ref, rglru_scan_ref,
                   wkv6_scan_backward_ref, wkv6_scan_ref)
 
-CHUNK = 32          # steps between the RWKV forward's saved states
+CHUNK = 16          # steps between the RWKV forward's saved states
 HEAD_DIMS = (16, 32, 64)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -58,6 +74,27 @@ def _check(what: str, *ts: torch.Tensor) -> None:
         raise ValueError(f"{what}: runs on CPU or CUDA tensors, not {dev}")
 
 
+def _aligned(*ts: torch.Tensor) -> list:
+    """The tensors, each at a 16-byte aligned address (a copy where not):
+    the copy engine reads the scans' inputs in boxes."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
+def _tileable(*ts: torch.Tensor) -> list:
+    """RG-LRU arrays ([..., W]) as the copy engine reads them: W padded with
+    zeros up to a multiple of 4 where it is not one (a padded channel has
+    a = g = dy = 0, so its h and gradients stay 0), each base 16-byte
+    aligned."""
+    pad = -ts[0].shape[-1] % 4
+    if pad:
+        return [torch.nn.functional.pad(t, (0, pad)) for t in ts]
+    return _aligned(*ts)
+
+
+def _unpadded(t: torch.Tensor, w: int) -> torch.Tensor:
+    return t if t.shape[-1] == w else t[..., :w].contiguous()
+
+
 # ---------------------------------------------------------------- RG-LRU
 @torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
 def _rglru_scan(a: torch.Tensor, g: torch.Tensor,
@@ -65,15 +102,17 @@ def _rglru_scan(a: torch.Tensor, g: torch.Tensor,
     _check("rglru_scan", a, g, h0)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, g, h0)
+    if not a.numel():
+        return torch.empty_like(a)
     b, s, w = a.shape
+    a, g, h0 = _tileable(a, g, h0)
     h = torch.empty_like(a)
-    if a.numel():
-        fn = _build.c_function("rglru_scan", "rglru_scan_f32",
-                               (_P, _P, _P, _P, _I, _I, _I, _P))
-        _build.check(fn(a.data_ptr(), g.data_ptr(), h0.data_ptr(),
-                        h.data_ptr(), b, s, w, _stream(a)), "rglru_scan")
-        rglru_scan.launches += 1
-    return h
+    fn = _build.c_function("rglru_scan", "rglru_scan_f32",
+                           (_P, _P, _P, _P, _I, _I, _I, _P))
+    _build.check(fn(a.data_ptr(), g.data_ptr(), h0.data_ptr(), h.data_ptr(),
+                    b, s, a.shape[2], _stream(a)), "rglru_scan")
+    rglru_scan.launches += 1
+    return _unpadded(h, w)
 
 
 @_rglru_scan.register_fake
@@ -88,18 +127,19 @@ def _rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
     _check("rglru_scan backward", a, h, h0, dy)
     if a.device.type == "cpu":
         return rglru_scan_backward_ref(a, h, h0, dy)
+    if not a.numel():
+        return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
     b, s, w = a.shape
+    a, h, h0, dy = _tileable(a, h, h0, dy)
     da, dg, dh0 = torch.empty_like(a), torch.empty_like(a), \
         torch.empty_like(h0)
-    if a.numel():
-        fn = _build.c_function("rglru_scan", "rglru_scan_backward_f32",
-                               (_P,) * 7 + (_I, _I, _I, _P))
-        _build.check(fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(),
-                        dy.data_ptr(), da.data_ptr(), dg.data_ptr(),
-                        dh0.data_ptr(), b, s, w, _stream(a)),
-                     "rglru_scan backward")
-        rglru_scan.launches += 1
-    return da, dg, dh0
+    fn = _build.c_function("rglru_scan", "rglru_scan_backward_f32",
+                           (_P,) * 7 + (_I, _I, _I, _P))
+    _build.check(fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+                    da.data_ptr(), dg.data_ptr(), dh0.data_ptr(), b, s,
+                    a.shape[2], _stream(a)), "rglru_scan backward")
+    rglru_scan.launches += 1
+    return _unpadded(da, w), _unpadded(dg, w), _unpadded(dh0, w)
 
 
 @_rglru_scan_backward.register_fake
@@ -157,8 +197,12 @@ def _wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_scan_ref(r, k, v, w, u, s0, chunk)
     b, s, h, d = r.shape
     _check_head_dim(d)
+    if chunk not in (0, CHUNK):
+        raise ValueError(f"wkv6_scan: the kernel saves its state every "
+                         f"{CHUNK} steps or not at all, not every {chunk}")
     y, s_out = torch.empty_like(r), torch.empty_like(s0)
     ckpt = r.new_empty((b, h, _chunks(s, chunk), d, d))
+    r, k, v, w = _aligned(r, k, v, w)
     if r.numel():
         fn = _build.c_function("wkv6_scan", "wkv6_scan_f32",
                                (_P,) * 9 + (_I,) * 5 + (_P,))
@@ -192,18 +236,23 @@ def _wkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_scan_backward_ref(r, k, v, w, u, ckpt[:, :, 0], dy, ds)
     b, s, h, d = r.shape
     _check_head_dim(d)
+    if chunk != CHUNK:
+        raise ValueError(f"wkv6_scan backward: the kernel reads states "
+                         f"saved every {CHUNK} steps, not every {chunk}")
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    if not r.numel():
+        return dr, dk, dv, dw, torch.zeros_like(u), ds.clone()
     du_part = r.new_empty((b, h, d))
     ds0 = torch.empty_like(ds)
-    scratch = r.new_empty((b * h, chunk, d, d))
+    r, k, v, w, dy = _aligned(r, k, v, w, dy)
     fn = _build.c_function("wkv6_scan", "wkv6_scan_backward_f32",
-                           (_P,) * 15 + (_I,) * 5 + (_P,))
+                           (_P,) * 14 + (_I,) * 5 + (_P,))
     _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
                     ds.data_ptr(), dr.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-                    ds0.data_ptr(), scratch.data_ptr(), b, h, s, d, chunk,
-                    _stream(r)), "wkv6_scan backward")
+                    ds0.data_ptr(), b, h, s, d, chunk, _stream(r)),
+                 "wkv6_scan backward")
     wkv6_scan.launches += 1
     return dr, dk, dv, dw, du_part.sum(0), ds0
 
@@ -246,3 +295,20 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv6_scan.launches = 0
+
+
+def wkv6_residency(b: int, h: int, d: int) -> dict:
+    """What the card makes of ``wkv6_scan``'s launches at B ``b``, H ``h``
+    and Dh ``d``: blocks an SM (forward, backward) and the backward's
+    clusters that run at once, against the blocks and clusters a launch
+    has. Needs the card."""
+    _check_head_dim(d)
+    out = (ctypes.c_int * 3)()
+    fn = _build.c_function("wkv6_scan", "wkv6_scan_residency",
+                           (_I, _I, _I, _P))
+    _build.check(fn(b, h, d, ctypes.addressof(out)), "wkv6_scan residency")
+    slabs = d // 16
+    return {"forward_blocks_per_sm": out[0], "backward_blocks_per_sm": out[1],
+            "backward_clusters_at_once": out[2],
+            "blocks": b * h * slabs, "clusters": b * h,
+            "cluster_size": slabs}
