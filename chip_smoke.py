@@ -278,7 +278,10 @@ Phases, each printing its lines, each failing the run on any error:
          a nonzero initial state (``rglru_scan``'s states and
          ``wkv6_scan``'s final state ``torch.equal``, y within rtol 1e-5 +
          1e-5 * max|y|, every gradient within 1e-4 * max|g_ref|, two
-         launches of each kernel, forward and backward, equal), the
+         launches of each kernel, forward and backward, equal), then
+         ``wkv6_scan`` with S0 and its backward with dS at a 4-byte offset
+         (views ``flat[1:]``), equal bit for bit to the launches on the
+         aligned states, the
          card's residency of the ``wkv6_scan`` launches, and each kernel
          timed (CUDA events), forward and backward apart, beside its
          plain loop and its bound; K1
@@ -299,6 +302,27 @@ Phases, each printing its lines, each failing the run on any error:
          8 decode steps through ``Server`` at 4 slots; and the gnn_serve
          demos ``--stream 12``, ``--buckets auto`` and ``--tech`` as
          subprocesses. K1 and K2 must launch both scans.
+       * path L, four more architectures at full published widths and
+         depth (bf16, weights drawn from a seed on the card), which
+         launch none of the eight kernels: L1-L3 h2o-danube-3-4b,
+         minicpm3-4b and qwen2-vl-2b through ``Server`` on I2's request
+         mix, each checked as I2 is (a tied head's prefill against the
+         decode chain on the same weights in float32, its bf16 gap
+         printed), with its decode step profiled, a 4 x 128 prefill timed
+         and its peak memory; L3 also a prefill whose M-RoPE positions
+         differ by axis (an image of 4 x 8 patches inside 64 text tokens:
+         finite, two runs equal) and ``python -m repro_torch.launch.serve
+         --arch qwen2-vl-2b --full``; L4 whisper-base's encoder over 4 x
+         1,500 frames and 16 greedy tokens through
+         ``make_serve_step(with_enc=True)``, twice with equal tokens, the
+         prefill against the decode chain (0.15 + 0.15 |ref|); L5 one
+         layer each of h2o-danube-3-4b (window 4,096), recurrentgemma-9b
+         (local window 2,048) and minicpm3-4b (MLA) decoded from an empty
+         cache 256 / 256 / 128 steps past the window or the 1,024-token
+         ``attn_chunk``, every output within 0.02 * (its position's
+         max|ref| + |ref|) of the cacheless forward, the forward without
+         the window outside that tolerance, the cache ending on the last
+         positions.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -2300,17 +2324,21 @@ def phase_ms(events: list) -> str:
 
 
 def step_profile(tag: str, fn, prefix: str = "[pathG]",
-                 card: str = "", share: tuple = ()) -> None:
+                 card: str = "", share: tuple = (), keep: bool = True) -> None:
     """One call of ``fn`` (a training or decode step) under
     ``torch.profiler``: its host ms (profiler on), the kernels' summed
     device ms over it (the device-busy share), the three kernels that
     take most and the split of ``phase_ms``, from its chrome trace
-    (``chiprun_out/step_<tag>.json``); with ``share``, the kernels whose
-    names start with one of those prefixes: their ms, launches and share
-    of the kernel time."""
+    (``chiprun_out/step_<tag>.json``, or a temporary file without
+    ``keep``); with ``share``, the kernels whose names start with one of
+    those prefixes: their ms, launches and share of the kernel time."""
     from torch.profiler import ProfilerActivity, profile
-    path = os.path.join(ROOT, "chiprun_out", f"step_{tag}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if keep:
+        path = os.path.join(ROOT, "chiprun_out", f"step_{tag}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    else:
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2322,6 +2350,8 @@ def step_profile(tag: str, fn, prefix: str = "[pathG]",
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
+        if not keep:
+            os.remove(path)
         kernels = [e for e in events if e.get("cat") == "kernel"]
         if kernels:
             break
@@ -2347,7 +2377,7 @@ def step_profile(tag: str, fn, prefix: str = "[pathG]",
           + (f"; {'/'.join(share)}* kernels {len(mine)} launches, "
              f"{mine_ms:.3f} ms ({mine_ms / busy:.3f} of the kernel time)"
              if share else "")
-          + f"; trace chiprun_out/{os.path.basename(path)}"
+          + (f"; trace chiprun_out/{os.path.basename(path)}" if keep else "")
           + (f"; {card}" if card else ""), flush=True)
 
 
@@ -2895,14 +2925,49 @@ def direct_chain(model, params, req, forced: list, device):
     return greedy, gap, peak
 
 
-def path_i2(device, card: str) -> None:
-    """I2: ``launch.serve.Server`` at internlm2-1.8b's full size on the
-    CLI's request mix; every request's greedy output against a direct
+def text_positions(cfg, b: int, s: int, device) -> dict:
+    """The prefill batch's M-RoPE positions of a text-only input (equal on
+    the three axes), for a config with M-RoPE sections; else none."""
+    if not cfg.mrope_sections:
+        return {}
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    return {"mrope_pos": pos[None, None].expand(3, b, s)}
+
+
+def prefill_vs_chain(model, params, prompt) -> tuple:
+    """``make_prefill_step``'s last logits over ``prompt`` [1, S] against
+    the teacher-forced decode chain's: (max|diff|, max|ref|, how many
+    logits lie outside 0.15 + 0.15 |ref|)."""
+    ref = lm_steps.make_prefill_step(model)(params, {
+        "tokens": prompt, **text_positions(model.cfg, 1, prompt.shape[1],
+                                           prompt.device)}).float()
+    caches = model.init_caches(1, I2_CAPACITY, device=prompt.device)
+    with torch.no_grad():
+        for i in range(prompt.shape[1]):
+            logits, caches = model.decode_step(
+                params, prompt[:, i:i + 1], caches, i)
+    diff = (logits.float() - ref).abs()
+    return (float(diff.max()), float(ref.abs().max()),
+            int((diff > 0.15 + 0.15 * ref.abs()).sum()))
+
+
+def serve_full(arch: str, tag: str, prefix: str, device, card: str,
+               cli: bool = True, keep_trace: bool = False,
+               extra=None) -> None:
+    """``launch.serve.Server`` at ``arch``'s full size on the CLI's
+    request mix (I2's); every request's greedy output against a direct
     one-sequence decode chain, ``prefill`` against the teacher-forced
-    chain; then the CLI ``--full`` as a subprocess."""
+    chain; one batched decode step profiled; a 4 x 128 prefill timed; the
+    peak device memory; ``extra(srv)``, if given, adds its line; then,
+    with ``cli``, the CLI ``--full`` as a subprocess. The server is freed
+    before the CLI runs."""
     t0 = time.perf_counter()
-    srv = lm_serve.Server(I_ARCH, smoke=False, slots=I2_SLOTS,
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    srv = lm_serve.Server(arch, smoke=False, slots=I2_SLOTS,
                           capacity=I2_CAPACITY, device=device)
+    n_params = sum(t.numel() for t in _tree.leaves(srv.params))
     warm = lm_serve.requests(srv.cfg.vocab, 2, 2, seed=1)
     for r in warm:
         srv.submit(r)
@@ -2918,7 +2983,7 @@ def path_i2(device, card: str) -> None:
     secs = time.perf_counter() - t1
     step_ms = secs * 1e3 / srv.steps_run
     require(total == I2_REQUESTS * I2_NEW and all(r.done for r in reqs),
-            f"I2: served {total} tokens, want {I2_REQUESTS * I2_NEW}")
+            f"{tag}: served {total} tokens, want {I2_REQUESTS * I2_NEW}")
 
     equal, worst = 0, 0.0
     for r in reqs:
@@ -2926,11 +2991,11 @@ def path_i2(device, card: str) -> None:
                                          device)
         equal += greedy == r.out
         worst = max(worst, gap / peak)
-        require(gap <= 0.05 * peak, f"I2: request {r.rid}'s server tokens "
+        require(gap <= 0.05 * peak, f"{tag}: request {r.rid}'s server tokens "
                 f"{r.out} leave the direct chain's greedy {greedy} by a "
                 f"logit gap {gap:.4f} (tol 0.05 * {peak:.3f})")
         if greedy != r.out:
-            print(f"[pathI] I2 request {r.rid}: server {r.out} vs direct "
+            print(f"{prefix} {tag} request {r.rid}: server {r.out} vs direct "
                   f"chain {greedy}, a near-tie (largest gap {gap:.4f} of "
                   f"max|logit| {peak:.3f})", flush=True)
 
@@ -2938,24 +3003,18 @@ def path_i2(device, card: str) -> None:
     caches = srv.model.init_caches(I2_SLOTS, I2_CAPACITY, device=device)
     tok = torch.zeros((I2_SLOTS, 1), dtype=torch.long, device=device)
     srv._step(srv.params, caches, tok, 0)
-    step_profile("I2", lambda: srv._step(srv.params, caches, tok, 1),
-                 prefix="[pathI]", card=card)
+    step_profile(tag, lambda: srv._step(srv.params, caches, tok, 1),
+                 prefix=prefix, card=card, keep=keep_trace)
+    del caches
 
     # prefill's last logits against the teacher-forced decode chain
     prompt = torch.tensor(reqs[0].prompt * 4, device=device)[None]
+    diff, top, over = prefill_vs_chain(srv.model, srv.params, prompt)
     pf = lm_steps.make_prefill_step(srv.model)
-    ref = pf(srv.params, {"tokens": prompt})
-    caches = srv.model.init_caches(1, I2_CAPACITY, device=device)
-    with torch.no_grad():
-        for i in range(prompt.shape[1]):
-            logits, caches = srv.model.decode_step(
-                srv.params, prompt[:, i:i + 1], caches, i)
-    diff = (logits.float() - ref.float()).abs()
-    require(bool((diff <= 0.15 + 0.15 * ref.float().abs()).all()),
-            f"I2: prefill vs the decode chain off by {float(diff.max())}")
     batch = {"tokens": torch.randint(0, srv.cfg.vocab, (I2_SLOTS,
                                                          I2_CAPACITY),
-                                     device=device)}
+                                     device=device),
+             **text_positions(srv.cfg, I2_SLOTS, I2_CAPACITY, device)}
     prefill = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -2963,31 +3022,62 @@ def path_i2(device, card: str) -> None:
         pf(srv.params, batch)
         torch.cuda.synchronize()
         prefill.append((time.perf_counter() - tp) * 1e3)
-    print(f"[pathI] I2 serve {I_ARCH} full size: {I2_REQUESTS} requests "
+    said = extra(srv) if extra is not None else ""
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30   # before the copy
+    consistency = (f"prefill vs the decode chain max|diff| {diff:.4f} (tol "
+                   f"0.15 + 0.15 |ref|)")
+    if srv.cfg.tie_embeddings:
+        # a head tied to the token table (drawn at scale 1) puts the
+        # logits near sqrt(d_model) times an untied head's: through the
+        # depth the bf16 prefill's and chain's roundings part by more than
+        # 0.15 + 0.15 |ref| there, as the reference's own do
+        # (tests/test_torch_lm_windows.py); the tolerance is held on the
+        # same weights in float32
+        f32 = lm_models.build(dataclasses.replace(srv.cfg, dtype="float32"))
+        up = _tree.tree_map(lambda t: t.float(), srv.params)
+        diff32, _, over32 = prefill_vs_chain(f32, up, prompt)
+        del f32, up
+        torch.cuda.empty_cache()
+        require(not over32, f"{tag}: float32 prefill vs the decode chain "
+                f"off by {diff32}")
+        consistency = (f"prefill vs the decode chain, the same weights in "
+                       f"float32: max|diff| {diff32:.4f} (tol 0.15 + 0.15 "
+                       f"|ref|); in bf16 (tied head, max|logit| {top:.1f}) "
+                       f"{diff:.4f}, outside 0.15 + 0.15 |ref| on {over} of "
+                       f"{srv.cfg.vocab} logits")
+    else:
+        require(not over, f"{tag}: prefill vs the decode chain off by {diff}")
+    print(f"{prefix} {tag} serve {arch} full size ({srv.cfg.n_layers} layers, "
+          f"d_model {srv.cfg.d_model}, vocab {srv.cfg.vocab}; {n_params:,} "
+          f"parameters, bf16): {I2_REQUESTS} requests "
           f"(prompts {sorted({len(r.prompt) for r in reqs})}, {I2_NEW} new "
           f"tokens each) on {I2_SLOTS} slots, {srv.steps_run} batched "
           f"decode steps in {secs * 1e3:.1f} ms: {step_ms:.3f} ms a step, "
           f"{total / secs:.1f} tokens/s; greedy outputs equal to the direct "
           f"one-sequence chain for {equal} of {len(reqs)} (largest logit "
-          f"gap {worst:.2e} of max|logit|, tol 0.05); prefill vs the decode "
-          f"chain max|diff| {float(diff.max()):.4f} (tol 0.15 + 0.15 |ref|); "
+          f"gap {worst:.2e} of max|logit|, tol 0.05); {consistency}; "
           f"prefill of {I2_SLOTS} x {I2_CAPACITY} tokens "
-          f"{median_ms(prefill):.3f} ms (median of 3 after one); "
-          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
-    del srv
+          f"{median_ms(prefill):.3f} ms (median of 3 after one); {said}"
+          f"peak device memory {peak:.2f} GiB serving ({before:.2f} GiB "
+          f"allocated before the server); {time.perf_counter() - t0:.1f} s; "
+          f"{card}",
+          flush=True)
+    del srv, pf
     torch.cuda.empty_cache()
+    if not cli:
+        return
 
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", I_ARCH,
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--full"], capture_output=True, text=True, env=env, cwd=ROOT,
         timeout=600)
     require(out.returncode == 0 and "served 8 requests, 128 tokens"
-            in out.stdout, f"I2: the serve CLI failed:\n{out.stdout}\n"
+            in out.stdout, f"{tag}: the serve CLI failed:\n{out.stdout}\n"
             f"{out.stderr}")
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("served")]
-    print(f"[pathI] I2 python -m repro_torch.launch.serve --arch {I_ARCH} "
+    print(f"{prefix} {tag} python -m repro_torch.launch.serve --arch {arch} "
           f"--full: exit 0; {line[0]}; {time.perf_counter() - t0:.1f} s; "
           f"{card}", flush=True)
 
@@ -3154,7 +3244,8 @@ def path_i(device, card: str) -> dict:
     t0 = time.perf_counter()
     reset_launch_counts()
     i1 = path_i1(device, card)
-    path_i2(device, card)
+    # I2: Server at internlm2-1.8b's full size, its decode step's trace kept
+    serve_full(I_ARCH, "I2", "[pathI]", device, card, keep_trace=True)
     path_i3(device, card)
     path_i4(device, card)
     counts = launch_counts()
@@ -3825,6 +3916,65 @@ def same_twice(fn) -> bool:
     return all(torch.equal(x, y) for x, y in zip(one, two))
 
 
+def off_by_4_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous view ``flat[1:]`` of a flat buffer: its base
+    sits 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    view = flat[1:].view(t.shape)
+    require(view.data_ptr() % 16 == 4, "K3: the offset view is aligned")
+    return view
+
+
+def k3_offset_states() -> float:
+    """F8: ``wkv6_scan`` with S0, and its backward with dS, at a 4-byte
+    offset (the kernels read both with float4 loads; the wrappers hand
+    them an aligned copy). The forward's final state equal to the plain
+    loop's and y within K3's tolerance; both launches' outputs equal bit
+    for bit to the same launches on aligned states, the gradients within
+    1e-4 of the plain backward loop's max|g|. Returns y's max|err|."""
+    from repro_torch.kernels.recurrence import (wkv6_scan_backward_ref,
+                                                wkv6_scan_ref)
+    from repro_torch.kernels.recurrence import ops as rec_ops
+    shape = K3_WKV6[4]
+    r, k, v, w, u, s0 = k3_inputs("wkv6", shape, True, 8)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dy = torch.randn(r.shape, generator=gen, device="cuda")
+    ds = torch.randn(s0.shape, generator=gen, device="cuda")
+    scan = lambda s: torch.ops.repro_torch.wkv6_scan(r, k, v, w, u, s,
+                                                     rec_ops.CHUNK)
+    with torch.no_grad():
+        (y, st, ck), aligned = scan(off_by_4_bytes(s0)), scan(s0)
+        yr, sr, _ = wkv6_scan_ref(r, k, v, w, u, s0, rec_ops.CHUNK)
+        back = lambda d: torch.ops.repro_torch.wkv6_scan_backward(
+            r, k, v, w, u, aligned[2], dy, d, rec_ops.CHUNK)
+        grads, grads_aligned = back(off_by_4_bytes(ds)), back(ds)
+        plain = wkv6_scan_backward_ref(r, k, v, w, u, s0, dy, ds)
+    y_err = float((y - yr).abs().max())
+    require(torch.equal(st, sr) and all(torch.equal(a, b) for a, b in zip(
+        (y, st, ck), aligned)), f"K3 wkv6_scan {shape}, S0 at a 4-byte "
+        f"offset: final state off the plain loop by "
+        f"{float((st - sr).abs().max())}, or the outputs differ from the "
+        f"aligned launch's")
+    require(bool(((y - yr).abs() <= 1e-5 * yr.abs() + 1e-5 * float(
+        yr.abs().max())).all()), f"K3 wkv6_scan {shape}, S0 at a 4-byte "
+        f"offset: y off by {y_err}")
+    g = [float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+         for a, b in zip(grads, plain)]
+    require(all(torch.equal(a, b) for a, b in zip(grads, grads_aligned))
+            and max(g) <= 1e-4, f"K3 wkv6_scan backward {shape}, dS at a "
+            f"4-byte offset: gradients off the aligned launch's, or off the "
+            f"plain loop by {g} of max|g|")
+    print(f"[pathK] K3 wkv6_scan {shape}, S0 at a 4-byte offset (F8): final "
+          f"state equal to the plain loop bit for bit, y within {y_err:.3e}, "
+          f"y, state and checkpoints equal bit for bit to the launch on the "
+          f"aligned S0; backward with dS at a 4-byte offset: (dr, dk, dv, "
+          f"dw, du, dS0) equal bit for bit to the launch on the aligned dS, "
+          f"within " + ", ".join(f"{e:.2e}" for e in g) + " of the plain "
+          f"loop's max|g| (tol 1e-4)", flush=True)
+    return y_err
+
+
 def path_k3(card: str) -> dict:
     """K3: each scan kernel against its plain version (``kernels.
     recurrence.ref``) on the card: ``rglru_scan``'s states and
@@ -3889,6 +4039,7 @@ def path_k3(card: str) -> dict:
                   f"k, v, w, u, S0) within " + ", ".join(f"{e:.2e}" for e in g)
                   + " of max|g_ref| (tol 1e-4); two launches equal, forward "
                   "and backward", flush=True)
+    errs["wkv6_scan"] = max(errs["wkv6_scan"], k3_offset_states())
     b, _, h, d = K3_WKV6[0]
     res = rec_ops.wkv6_residency(b, h, d)
     print(f"[pathK] K3 wkv6_scan at B {b}, H {h}, Dh {d}: {res['blocks']} "
@@ -4378,6 +4529,267 @@ def path_k(device, card: str) -> dict:
           f"{json.dumps({k: rec[k]['launches'] for k in SCAN_KERNELS})}; "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
     return rec
+
+
+# ------------------------------------------------------------------ path L
+
+# four more architectures at their full published widths and depth, bf16,
+# weights drawn from a seed on the card: L1-L3 served through
+# launch.serve.Server as I2 serves internlm2-1.8b, L4 whisper-base's
+# encoder and cross-attention decode through the step builders, L5 one
+# layer each of the sliding-window, local-window and latent-cache decode
+# held past the point where its cache or its forward changes layout. None
+# of the eight kernels runs on it.
+L_SERVED = ("h2o-danube-3-4b", "minicpm3-4b", "qwen2-vl-2b")
+L_CLI_ARCH = "qwen2-vl-2b"          # the smallest: one CLI run
+L_MROPE = (32, 4, 8, 32)            # text, an image's rows x cols, text
+L4_ARCH, L4_REQUESTS, L4_PROMPT, L4_NEW, L4_CAPACITY = \
+    "whisper-base", 4, 3, 16, 32
+# (arch, mixer kind, steps decoded past the window, or past one
+# attn_chunk where the layer has no window: MLA)
+L5_LAYERS = (("h2o-danube-3-4b", "attn", 256),
+             ("recurrentgemma-9b", "local", 256),
+             ("minicpm3-4b", "attn", 128))
+# |decode - forward| <= L5_TOL * (the position's max|ref| + |ref|)
+L5_TOL = 0.02
+
+
+def mrope_image_positions(before: int, rows: int, cols: int,
+                          after: int) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE positions [3, S] of ``before`` text tokens, an
+    image of ``rows`` x ``cols`` patches and ``after`` text tokens: text
+    equal on the three axes; the image at one temporal position, its
+    height and width axes walking its rows and columns; the text after it
+    from one past the image's largest position."""
+    text = torch.arange(before)
+    img_t = torch.full((rows * cols,), before)
+    img_h = before + torch.arange(rows).repeat_interleave(cols)
+    img_w = before + torch.arange(cols).repeat(rows)
+    tail = before + max(rows, cols) + torch.arange(after)
+    return torch.stack([torch.cat([text, a, tail])
+                        for a in (img_t, img_h, img_w)]).to(torch.int32)
+
+
+def l_mrope_prefill(srv) -> str:
+    """qwen2-vl-2b's prefill with an image block's M-RoPE positions: the
+    logits finite and equal across two runs; printed beside how far the
+    text-only positions move them."""
+    pos = mrope_image_positions(*L_MROPE).to(srv.device)
+    gen = torch.Generator(device=srv.device).manual_seed(7)
+    tokens = torch.randint(0, srv.cfg.vocab, (1, pos.shape[1]),
+                           generator=gen, device=srv.device)
+    pf = lm_steps.make_prefill_step(srv.model)
+    one, two = (pf(srv.params, {"tokens": tokens, "mrope_pos": pos[:, None]})
+                for _ in range(2))
+    text = pf(srv.params, {"tokens": tokens, **text_positions(
+        srv.cfg, 1, pos.shape[1], srv.device)})
+    require(bool(torch.isfinite(one.float()).all()) and torch.equal(one, two),
+            "L3: the M-RoPE image prefill's logits are not finite, or two "
+            "runs differ")
+    moved = float((one.float() - text.float()).abs().max())
+    return (f"M-RoPE prefill of {pos.shape[1]} tokens ({L_MROPE[0]} text, "
+            f"a {L_MROPE[1]} x {L_MROPE[2]} image, {L_MROPE[3]} text; the "
+            f"three axes differ on the image and after it): logits finite, "
+            f"two runs equal, {moved:.4f} from the text-only positions' "
+            f"(max|logit| {float(one.float().abs().max()):.3f}); ")
+
+
+def path_l4(device, card: str) -> None:
+    """L4: whisper-base at its full size through ``make_prefill_step`` and
+    ``make_serve_step(with_enc=True)``: 4 requests on 1,500 frames drawn
+    from a seed, the encoder and the cross-attention keys and values built
+    once, then a prompt of 3 tokens and 16 greedy tokens decoded; the
+    whole loop twice, its tokens equal; the prefill's last logits over the
+    decoded sequence against the decode chain's (the same cross keys and
+    values), within 0.15 + 0.15 |ref|."""
+    t0 = time.perf_counter()
+    cfg = lm_configs.get_config(L4_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    model = lm_models.build(cfg)
+    params = model.init(0, device=device)
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    gen = torch.Generator(device=device).manual_seed(4)
+    frames = torch.randn((L4_REQUESTS, cfg.encoder.n_frames, cfg.d_model),
+                         generator=gen, device=device).to(
+                             lm_common.dtype_of(cfg.dtype))
+    prompts = torch.randint(0, cfg.vocab, (L4_REQUESTS, L4_PROMPT),
+                            generator=gen, device=device)
+    step = lm_steps.make_serve_step(model, with_enc=True)
+
+    def transcribe():
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        with torch.no_grad():
+            enc = model._cross_kvs(params, model.encode(params, frames))
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        caches = model.init_caches(L4_REQUESTS, L4_CAPACITY, device=device)
+        for p in range(L4_PROMPT):
+            logits, caches = step(params, caches, prompts[:, p:p + 1], p,
+                                  enc)
+        out = [torch.argmax(logits, dim=-1)]
+        for n in range(L4_NEW - 1):
+            logits, caches = step(params, caches, out[-1], L4_PROMPT + n,
+                                  enc)
+            out.append(torch.argmax(logits, dim=-1))
+        torch.cuda.synchronize()
+        steps = L4_PROMPT + L4_NEW - 1
+        return (torch.cat(out, dim=1), logits, (tb - ta) * 1e3,
+                (time.perf_counter() - tb) * 1e3 / steps)
+
+    first = transcribe()
+    tokens, logits, enc_ms, step_ms = transcribe()
+    require(torch.equal(first[0], tokens) and bool(torch.isfinite(
+        logits.float()).all()), f"L4: two runs decoded other tokens, or "
+        f"the logits are not finite:\n{first[0].tolist()}\n"
+        f"{tokens.tolist()}")
+    # the prefill over what the chain read: the prompt and all but the
+    # last greedy token; its last logits are the chain's last
+    seq = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    pf = lm_steps.make_prefill_step(model)
+    ref = pf(params, {"tokens": seq, "frames": frames}).float()
+    diff = (logits.float() - ref).abs()
+    require(bool((diff <= 0.15 + 0.15 * ref.abs()).all()),
+            f"L4: prefill vs the decode chain off by {float(diff.max())}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[pathL] L4 {L4_ARCH} full size ({cfg.encoder.n_layers} encoder "
+          f"and {cfg.n_layers} decoder layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}; {n_params:,} parameters, bf16): {L4_REQUESTS} "
+          f"requests on {cfg.encoder.n_frames} frames, the encoder and the "
+          f"cross keys and values {enc_ms:.3f} ms; a prompt of {L4_PROMPT} "
+          f"tokens and {L4_NEW} greedy tokens through make_serve_step("
+          f"with_enc=True): {step_ms:.3f} ms a decode step; two runs' tokens "
+          f"equal; prefill vs the decode chain max|diff| "
+          f"{float(diff.max()):.4f} (tol 0.15 + 0.15 |ref|); peak device "
+          f"memory {peak:.2f} GiB ({before:.2f} GiB allocated before); "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    del model, params, frames, step, pf
+    torch.cuda.empty_cache()
+
+
+def l5_layer(cfg, kind: str, extra: int, device) -> dict:
+    """One attention layer of ``cfg`` (bf16 parameters, batch 1) decoded
+    from an empty cache over ``extra`` steps past its window (the ring
+    wraps) or, with no window, past one ``attn_chunk``; each step's output
+    against the same layer's cacheless forward over the whole sequence
+    (``chunked_attention`` at the config's ``attn_chunk``), within
+    ``L5_TOL * (the position's max|ref| + |ref|)``; the cache's positions
+    at the end the last ``capacity`` positions, its fill counter the
+    length. Returns the layer's figures."""
+    from repro_torch.models import attention as lm_attn
+    window = cfg.window if kind == "attn" else cfg.local_window
+    edge = window or cfg.attn_chunk
+    s = edge + extra
+    key = lm_common.InitKey.from_seed(5, device)
+    params = (lm_attn.init_mla(key, cfg) if cfg.mla
+              else lm_attn.init_gqa(key, cfg))
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=device).to(
+        lm_common.dtype_of(cfg.dtype))
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None]
+
+    def layer(xs, ps, cache=None, win=window):
+        if cfg.mla:
+            return lm_attn.mla_attention(params, xs, ps, cfg, cache=cache)
+        return lm_attn.gqa_attention(params, xs, ps, cfg, window=win,
+                                     cache=cache)
+
+    with torch.no_grad():
+        ref = layer(x, pos).float()
+        # each position's outputs against their own scale (a late one
+        # averages thousands of values and is small), and never looser
+        # than I2's 0.15 + 0.15 |ref|
+        tol = torch.minimum(
+            L5_TOL * (ref.abs().amax(-1, keepdim=True) + ref.abs()),
+            0.15 + 0.15 * ref.abs())
+        # the same forward without the window, past it: the check must
+        # tell it from the windowed one (none for MLA)
+        unwindowed = None
+        if window:
+            off = (layer(x, pos, win=0).float() - ref).abs()[:, edge:]
+            unwindowed = (float(off.max()), float(
+                (off > tol[:, edge:]).float().mean()))
+        cache = (lm_attn.init_mla_cache(cfg, 1, s, device) if cfg.mla else
+                 lm_attn.init_gqa_cache(cfg, 1, s, window, device))
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(s):
+            y, cache = layer(x[:, t:t + 1], pos[:, t:t + 1], cache)
+            outs.append(y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / s
+    got = torch.cat(outs, dim=1).float()
+    top = float(ref.abs().max())
+    err = (got - ref).abs()
+    cap = cache["pos"].shape[1]
+    ring = torch.sort(cache["pos"][0]).values
+    require(torch.equal(ring, pos[0, s - cap:]) and int(cache["idx"]) == s,
+            f"L5 {cfg.name} {kind}: after {s} steps the cache holds "
+            f"positions {ring[:3].tolist()}..{ring[-3:].tolist()} and "
+            f"counter {int(cache['idx'])}")
+    return dict(name=cfg.name, kind=kind, window=window, s=s, cap=cap,
+                edge=edge, err=float(err.max()), past=float(err[:, edge:]
+                                                           .max()),
+                rel=float((err / tol).max()), top=top,
+                ok=bool((err <= tol).all()), ms=ms, unwindowed=unwindowed)
+
+
+def path_l5(device, card: str) -> None:
+    t0 = time.perf_counter()
+    for arch, kind, extra in L5_LAYERS:
+        cfg = lm_configs.get_config(arch)
+        r = l5_layer(cfg, kind, extra, device)
+        where = (f"window {r['window']}, a ring of {r['cap']} slots that "
+                 f"wraps at step {r['edge']}" if r["window"] else
+                 f"the latent cache ({cfg.mla.kv_lora} + {cfg.mla.rope_dim} "
+                 f"a position), attn_chunk {cfg.attn_chunk}")
+        control = ""
+        if r["unwindowed"] is not None:
+            far, share = r["unwindowed"]
+            require(share > 0, f"L5 {arch} {kind}: the check cannot tell "
+                    f"the forward without the window (max|diff| {far:.4e} "
+                    f"past it) from the windowed one")
+            control = (f"; the forward without the window is {far:.4f} "
+                       f"away past it, outside the tolerance on {share:.3f} "
+                       f"of those outputs")
+        require(r["ok"], f"L5 {arch} {kind}: decode off the cacheless "
+                f"forward by {r['err']:.4e}, {r['rel']:.3f} of the "
+                f"tolerance")
+        heads = (f"{cfg.n_heads} heads, MLA" if cfg.mla else
+                 f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV, dh {cfg.dh}")
+        print(f"[pathL] L5 {arch} one {kind} layer (d_model {cfg.d_model}, "
+              f"{heads}; {where}), bf16, batch 1: {r['s']} decode steps "
+              f"from an empty cache against the cacheless forward over "
+              f"{r['s']} positions: max|diff| {r['err']:.4e}, "
+              f"{r['past']:.4e} past step {r['edge']}, at most "
+              f"{r['rel']:.3f} of the tolerance ({L5_TOL} * (the "
+              f"position's max|ref| + |ref|), at most 0.15 + 0.15 |ref|; "
+              f"max|ref| {r['top']:.4f}){control}; the cache "
+              f"ends on the last {r['cap']} positions; {r['ms']:.3f} ms a "
+              f"decode step; {card}", flush=True)
+    print(f"[pathL] L5 {time.perf_counter() - t0:.1f} s in all", flush=True)
+
+
+def path_l(device, card: str) -> None:
+    """Path L: L1-L3 served at full size (L3 with the M-RoPE image prefill
+    and the serve CLI), L4 whisper-base, L5 the three layers decoded past
+    their window or chunk. It launches none of the eight kernels."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    for i, arch in enumerate(L_SERVED):
+        serve_full(arch, f"L{i + 1}", "[pathL]", device, card,
+                   cli=arch == L_CLI_ARCH,
+                   extra=l_mrope_prefill if arch == "qwen2-vl-2b" else None)
+    path_l4(device, card)
+    path_l5(device, card)
+    counts = launch_counts()
+    print(f"[pathL] launches over path L {json.dumps(counts)}; "
+          f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
+    require(not any(counts.values()), "path L launched a kernel of the "
+            "eight: none of its layers has one")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -4939,6 +5351,10 @@ def main() -> None:
 
     # ---- path K: the scan kernels on the recurrent architectures
     k_rec = path_k(device, card)
+
+    # ---- path L: four more architectures served at full size, and the
+    # windows and the latent cache decoded past their edge
+    path_l(device, card)
 
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)

@@ -187,6 +187,28 @@ def _check_head_dim(d: int) -> None:
                          f"{HEAD_DIMS}, not {d}")
 
 
+def _wkv6_forward_args(r, k, v, w, u, s0, chunk: int) -> tuple:
+    """The tensors the forward kernel is handed, in its argument order:
+    r, k, v, w, u, S0, each at a 16-byte aligned base (a copy where not:
+    the copy engine reads r, k, v, w in boxes, and ``load_n`` reads S0
+    with float4 loads, so a state sliced out of a larger buffer would stop
+    the launch), then the fresh y, final state and checkpoints."""
+    b, s, h, d = r.shape
+    return (*_aligned(r, k, v, w, u, s0), torch.empty_like(r),
+            torch.empty_like(s0), r.new_empty((b, h, _chunks(s, chunk), d, d)))
+
+
+def _wkv6_backward_args(r, k, v, w, u, ckpt, dy, ds) -> tuple:
+    """The tensors the backward kernel is handed, in its argument order:
+    r, k, v, w, u, the checkpoints, dy and dS, each at a 16-byte aligned
+    base (``load_n`` reads the checkpoints and dS with float4 loads), then
+    the fresh dr, dk, dv, dw, du's partial sums a batch row and dS0."""
+    b, _, h, d = r.shape
+    return (*_aligned(r, k, v, w, u, ckpt, dy, ds),
+            *(torch.empty_like(r) for _ in range(4)), r.new_empty((b, h, d)),
+            torch.empty_like(ds))
+
+
 @torch.library.custom_op("repro_torch::wkv6_scan", mutates_args=())
 def _wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
@@ -200,19 +222,15 @@ def _wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk not in (0, CHUNK):
         raise ValueError(f"wkv6_scan: the kernel saves its state every "
                          f"{CHUNK} steps or not at all, not every {chunk}")
-    y, s_out = torch.empty_like(r), torch.empty_like(s0)
-    ckpt = r.new_empty((b, h, _chunks(s, chunk), d, d))
-    r, k, v, w = _aligned(r, k, v, w)
+    args = _wkv6_forward_args(r, k, v, w, u, s0, chunk)
     if r.numel():
         fn = _build.c_function("wkv6_scan", "wkv6_scan_f32",
                                (_P,) * 9 + (_I,) * 5 + (_P,))
-        _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        w.data_ptr(), u.data_ptr(), s0.data_ptr(),
-                        y.data_ptr(), s_out.data_ptr(),
-                        ckpt.data_ptr() if chunk else None, b, h, s, d,
+        # an empty checkpoint tensor (chunk 0) goes as a null pointer
+        _build.check(fn(*(t.data_ptr() or None for t in args), b, h, s, d,
                         chunk, _stream(r)), "wkv6_scan")
         wkv6_scan.launches += 1
-    return y, s_out, ckpt
+    return args[6:]
 
 
 @_wkv6_scan.register_fake
@@ -239,21 +257,16 @@ def _wkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk != CHUNK:
         raise ValueError(f"wkv6_scan backward: the kernel reads states "
                          f"saved every {CHUNK} steps, not every {chunk}")
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     if not r.numel():
-        return dr, dk, dv, dw, torch.zeros_like(u), ds.clone()
-    du_part = r.new_empty((b, h, d))
-    ds0 = torch.empty_like(ds)
-    r, k, v, w, dy = _aligned(r, k, v, w, dy)
+        return (*(torch.empty_like(r) for _ in range(4)), torch.zeros_like(u),
+                ds.clone())
+    args = _wkv6_backward_args(r, k, v, w, u, ckpt, dy, ds)
     fn = _build.c_function("wkv6_scan", "wkv6_scan_backward_f32",
                            (_P,) * 14 + (_I,) * 5 + (_P,))
-    _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                    u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
-                    ds.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-                    ds0.data_ptr(), b, h, s, d, chunk, _stream(r)),
-                 "wkv6_scan backward")
+    _build.check(fn(*(t.data_ptr() for t in args), b, h, s, d, chunk,
+                    _stream(r)), "wkv6_scan backward")
     wkv6_scan.launches += 1
+    dr, dk, dv, dw, du_part, ds0 = args[8:]
     return dr, dk, dv, dw, du_part.sum(0), ds0
 
 

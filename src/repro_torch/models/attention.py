@@ -17,6 +17,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .._device import resolve_device
 from .common import (InitKey, _block, _gather_dim, _is_dtensor, _rows_of,
                      _sum_over, apply_rope, dtype_of, einsum, einsum_f32,
                      init_dense, init_full, merge_heads, rms_norm, shard,
@@ -247,7 +248,8 @@ def init_gqa(key: InitKey, cfg: ModelConfig) -> dict:
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, capacity: int,
-                   window: int, device="cpu") -> dict:
+                   window: int, device="cuda") -> dict:
+    device = resolve_device(device)
     cap = min(capacity, window) if window else capacity
     kv, dh = cfg.n_kv_heads, cfg.dh
     dt = dtype_of(cfg.dtype)
@@ -390,7 +392,8 @@ def init_mla(key: InitKey, cfg: ModelConfig) -> dict:
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int,
-                   device="cpu") -> dict:
+                   device="cuda") -> dict:
+    device = resolve_device(device)
     m = cfg.mla
     dt = dtype_of(cfg.dtype)
     return {"ckv": torch.zeros((batch, capacity, m.kv_lora), dtype=dt,

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..kernels.recurrence.ops import rglru_scan, wkv6_scan
 from .common import (InitKey, _is_dtensor, _rows_of, einsum, gelu,
                      init_dense, init_full, merge_heads, shard, split_heads)
@@ -112,7 +113,8 @@ def init_rglru(key: InitKey, cfg: ModelConfig) -> dict:
     }
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:
+def init_rglru_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    device = resolve_device(device)
     w = cfg.rglru_width or cfg.d_model
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, 4, w), dtype=torch.float32,
@@ -198,7 +200,8 @@ def init_rwkv(key: InitKey, cfg: ModelConfig) -> dict:
     }
 
 
-def init_rwkv_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:
+def init_rwkv_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    device = resolve_device(device)
     d = cfg.d_model
     dh = cfg.rwkv_head_dim
     h = d // dh

@@ -2,8 +2,7 @@
 
 CAM-backed k-nearest-neighbor graph construction over LSH band signatures,
 and the synthetic feature-similarity scenarios it opens. The counterpart
-of ``repro.neighbors``; the CAM dirty-frontier modes of
-``repro.streaming.frontier`` are not ported yet.
+of ``repro.neighbors``.
 """
 from .knn import (NEIGHBOR_MODES, band_match_counts, knn_graph,  # noqa: F401
                   select_topk)

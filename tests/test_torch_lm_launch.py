@@ -47,7 +47,8 @@ from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve import Request, Server
 from repro_torch.launch.steps import batch_struct, make_train_step
 from repro_torch.launch.train import TrainConfig, train
-from repro_torch.models import build, params_from_numpy
+from repro_torch.models import attention, build, params_from_numpy
+from repro_torch.models import recurrent
 from repro_torch.optim import AdamWConfig, adamw_init
 
 
@@ -294,12 +295,16 @@ def test_useful_ratio_matches_reference():
 # ------------------------------------------------------------ devices
 @pytest.mark.parametrize("call", [
     "train", "train_cli", "server", "serve_cli", "lm_train", "init",
-    "init_caches", "params_from_numpy"])
+    "init_caches", "params_from_numpy", "init_gqa_cache", "init_mla_cache",
+    "init_rglru_state", "init_rwkv_state"])
 def test_lm_entry_points_raise_without_cuda(call, monkeypatch):
     """Asked for the default device on a host without CUDA, an entry point
     raises; it never falls back to the CPU on its own."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = build(get_config("internlm2-1.8b", smoke=True))
+    mla = get_config("minicpm3-4b", smoke=True)
+    rg, rw = (get_config(a, smoke=True) for a in ("recurrentgemma-9b",
+                                                   "rwkv6-3b"))
     calls = {
         "train": lambda: train(TrainConfig(steps=1)),
         "train_cli": lambda: train_cli.main(["--steps", "1"]),
@@ -309,6 +314,11 @@ def test_lm_entry_points_raise_without_cuda(call, monkeypatch):
         "init": lambda: model.init(0),
         "init_caches": lambda: model.init_caches(1, 8),
         "params_from_numpy": lambda: params_from_numpy({"w": np.ones(2)}),
+        "init_gqa_cache": lambda: attention.init_gqa_cache(
+            model.cfg, 1, 8, 0),
+        "init_mla_cache": lambda: attention.init_mla_cache(mla, 1, 8),
+        "init_rglru_state": lambda: recurrent.init_rglru_state(rg, 1),
+        "init_rwkv_state": lambda: recurrent.init_rwkv_state(rw, 1),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()

@@ -1,5 +1,5 @@
-"""The reference's last public names on the port: ``models.common.cast``
-and ``tuning.measure``'s four runners.
+"""The reference's last public names on the port: ``models.common.cast``,
+``tuning.measure``'s four runners and the eight names ``launch`` exports.
 
 ``cast`` gives the reference's dtype and bits. Each runner takes the
 reference's arguments (the port adds ``device``; ``interpret`` is taken
@@ -54,6 +54,20 @@ def test_cast_matches_reference(arch, dtype):
                                       ref.view(np.int16))
     else:
         np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_launch_exports_the_reference_names():
+    """``repro_torch.launch`` exports what ``repro.launch`` does, each name
+    the port's own object of that name in its submodule."""
+    import repro.launch as jx_launch
+    import repro_torch.launch as launch
+    assert launch.__all__ == jx_launch.__all__
+    for name in launch.__all__:
+        got = getattr(launch, name)
+        assert callable(got) and got.__name__ == name
+        assert got.__module__.startswith("repro_torch.launch.")
+    with pytest.raises(AttributeError):
+        launch.no_such_name
 
 
 @pytest.mark.parametrize("name", RUNNERS)

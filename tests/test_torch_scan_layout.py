@@ -414,3 +414,50 @@ def test_rglru_wrapper_layout_for_the_copy_engine(width, offset):
            for x in rglru_scan_backward_ref(*padded)]
     for x, y in zip(got, rglru_scan_backward_ref(a, want, h0, cot)):
         assert x.is_contiguous() and torch.equal(x, y)
+
+
+def _offset_view(x: np.ndarray, offset: int) -> torch.Tensor:
+    """``x`` as a contiguous view ``flat[offset:]`` of a flat buffer: at
+    offset 1 its base sits 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(x.size + offset)
+    flat[offset:] = torch.from_numpy(x.ravel())
+    return flat[offset:].view(x.shape)
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["S0 zero", "S0 set"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "4-byte offset"])
+def test_wkv6_wrapper_layout_for_the_kernels_loads(offset, init):
+    """The forward and backward wrappers hand their kernels every tensor
+    contiguous at a 16-byte aligned base: S0, the checkpoints and dS too,
+    which the kernels read with float4 loads. The plain loops on what the
+    kernels are handed equal the plain loops on the originals bit for
+    bit."""
+    from repro_torch.kernels.recurrence import ops
+    b, s, h, d = 2, CHUNK + 7, 3, 16
+    rng = np.random.default_rng(7 + offset)
+    r, k, v, w, u, s0 = (_offset_view(x, offset)
+                         for x in _wkv_inputs(rng, b, s, h, d, init))
+    if offset:
+        assert s0.data_ptr() % 16 == 4 and r.data_ptr() % 16 == 4
+    fwd = ops._wkv6_forward_args(r, k, v, w, u, s0, CHUNK)
+    assert len(fwd) == 9 and all(
+        t.is_contiguous() and t.data_ptr() % 16 == 0 for t in fwd)
+    want = wkv6_scan_ref(r, k, v, w, u, s0, CHUNK)
+    for x, y in zip(wkv6_scan_ref(*fwd[:6], CHUNK), want):
+        assert torch.equal(x, y)
+
+    ckpt = _offset_view(want[2].numpy(), offset)
+    dy = _offset_view(rng.normal(size=(b, s, h, d)).astype(np.float32),
+                      offset)
+    ds = _offset_view(rng.normal(size=(b, h, d, d)).astype(np.float32),
+                      offset)
+    bwd = ops._wkv6_backward_args(r, k, v, w, u, ckpt, dy, ds)
+    assert len(bwd) == 14 and all(
+        t.is_contiguous() and t.data_ptr() % 16 == 0 for t in bwd)
+    assert [tuple(t.shape) for t in bwd[8:]] == [(b, s, h, d)] * 4 + [
+        (b, h, d), (b, h, d, d)]
+    r_, k_, v_, w_, u_, ck_, dy_, ds_ = bwd[:8]
+    got = wkv6_scan_backward_ref(r_, k_, v_, w_, u_, ck_[:, :, 0], dy_, ds_)
+    for x, y in zip(got, wkv6_scan_backward_ref(r, k, v, w, u, ckpt[:, :, 0],
+                                                dy, ds)):
+        assert torch.equal(x, y)
