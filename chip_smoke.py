@@ -1437,19 +1437,18 @@ def path_d2(plans: dict, g01, cfg, params, device, d_totals: dict) -> None:
                     f"above the full exchange's")
 
 
-def refresh_window(trace_path: str) -> tuple | None:
-    """(window us, kernel us, copy us) of the ``server.refresh`` range in a
-    ``torch.profiler`` chrome trace: the device time of the kernels and
-    memory copies that start inside the range, clipped to it; None where
-    the trace holds no kernel."""
+def refresh_window(trace_path: str, span) -> tuple | None:
+    """(window us, kernel us, copy us) of the ``server.refresh`` span in a
+    ``torch.profiler`` chrome trace: the span's times on the trace's clock
+    (``Span.wall_ns`` less the trace's ``baseTimeNanoseconds``), and the
+    device time of the kernels and memory copies that start inside it,
+    clipped to it; None where the trace holds no kernel."""
     with open(trace_path) as fh:
-        events = json.load(fh)["traceEvents"]
-    win = [e for e in events if e.get("name") == "server.refresh"
-           and e.get("cat") == "user_annotation"]
-    if not win:
-        return None
-    lo = float(win[0]["ts"])
-    hi = lo + float(win[0]["dur"])
+        trace = json.load(fh)
+    events = trace["traceEvents"]
+    base = trace["baseTimeNanoseconds"]
+    lo = (span.wall_ns(span.t_start) - base) / 1e3
+    hi = (span.wall_ns(span.t_end) - base) / 1e3
     busy = {"kernel": 0.0, "gpu_memcpy": 0.0}
     for e in events:
         cat = e.get("cat")
@@ -1466,9 +1465,9 @@ def trace_refresh(plan_c, cfg, params, device) -> None:
     ``fused``, ideal and bit-accurate, with the port's telemetry on: the
     span split (``server.refresh``; ``plan.forward`` closed by its device
     sync; the rest, ``scatter`` and its copy to the host), then the same
-    refresh under ``torch.profiler`` with the spans mirrored into
-    ``record_function``: the device-busy share of the ``server.refresh``
-    window (kernel time over the window's length)."""
+    refresh under ``torch.profiler``, the span put on the trace's clock:
+    the device-busy share of the ``server.refresh`` window (kernel time
+    over the window's length)."""
     from torch.profiler import ProfilerActivity, profile
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1500,7 +1499,7 @@ def trace_refresh(plan_c, cfg, params, device) -> None:
         window = None
         for attempt in range(3):
             tel.reset()
-            tel.enable(profiler_annotations=True)
+            tel.enable()
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
@@ -1508,7 +1507,9 @@ def trace_refresh(plan_c, cfg, params, device) -> None:
             finally:
                 tel.disable()
             prof.export_chrome_trace(path)
-            window = refresh_window(path)
+            refresh = [r for r in tel.get_tracer().roots
+                       if r.name == "server.refresh"]
+            window = refresh_window(path, refresh[-1])
             if window is not None:
                 break
         if window is None:

@@ -13,6 +13,8 @@ tree of parameters (``has_aux`` as there).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -105,16 +107,22 @@ def tree_map(fn, tree):
     return tdef.unflatten(fn(x) for x in flat)
 
 
-def value_and_grad(fn, params, *args, has_aux: bool = False):
+def value_and_grad(fn, params, *args, has_aux: bool = False,
+                   phases=(contextlib.nullcontext(), contextlib.nullcontext())):
     """(``fn(params, *args)``, its gradient with respect to every leaf of
     ``params`` in the structure of ``params``), both detached. With
-    ``has_aux``, ``fn`` returns (loss, aux) and the value is (loss, aux)."""
+    ``has_aux``, ``fn`` returns (loss, aux) and the value is (loss, aux).
+    ``phases``: two context managers, entered around ``fn`` and around
+    the backward (the training step's spans)."""
     flat, tdef = flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
+    forward, backward = phases
     with torch.enable_grad():
-        out = fn(tdef.unflatten(leaves), *args)
+        with forward:
+            out = fn(tdef.unflatten(leaves), *args)
         loss = out[0] if has_aux else out
-        grads = torch.autograd.grad(loss, leaves)
+        with backward:
+            grads = torch.autograd.grad(loss, leaves)
     if has_aux:
         aux = tree_map(lambda t: t.detach() if isinstance(
             t, torch.Tensor) else t, out[1])

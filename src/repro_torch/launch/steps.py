@@ -9,9 +9,12 @@ eagerly: ``jax.jit`` has no counterpart here.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from .. import _tree
+from .. import telemetry as tel
 from ..distributed import sharding
 from ..models import Transformer, activation_sharding
 from ..models.common import dtype_of
@@ -33,15 +36,30 @@ def make_train_step(model: Transformer, opt_cfg: AdamWConfig,
     the norm and the update run on those blocks, and every new parameter
     and moment is put back to its spec (the reference's ``out_shardings``;
     an all-gather where the parameter is replicated). The metrics come
-    back as plain tensors."""
+    back as plain tensors.
+
+    While telemetry records (``telemetry.recording()``), each call is a
+    ``train.step`` span (attr ``step``: the calls so far) over
+    ``train.forward`` (the loss), ``train.backward`` (``autograd.grad``,
+    the anchor of the autograd thread's spans), ``train.accumulate`` (the
+    microbatch sums), ``train.redistribute`` (with ``shardings``) and
+    ``train.optimizer`` (AdamW, the clipping norm included). The spans
+    launch, synchronise and allocate nothing."""
     rules = act_rules or {}
+    calls = itertools.count()
 
     def grad_fn(params, batch):
         with activation_sharding(rules):
-            return _tree.value_and_grad(model.loss, params, batch,
-                                        has_aux=True)
+            return _tree.value_and_grad(
+                model.loss, params, batch, has_aux=True,
+                phases=(tel.span("train.forward"),
+                        tel.span("train.backward").anchor()))
 
     def train_step(params, opt_state, batch):
+        with tel.span("train.step", step=next(calls)):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if accum_steps == 1:
             (loss, aux), grads = grad_fn(params, batch)
         else:
@@ -57,29 +75,34 @@ def make_train_step(model: Transformer, opt_cfg: AdamWConfig,
             for i in range(accum_steps):
                 (l, aux), g = grad_fn(params, _tree.tree_map(
                     lambda x: x[i], micro))
-                g_sum = _add_trees(g_sum, g)
-                l_sum = l_sum + l
-                lb_sum = lb_sum + aux.get("load_balance", 0.0)
-            grads = _tree.tree_map(lambda g: g / accum_steps, g_sum)
-            loss = l_sum / accum_steps
-            aux = {"ce": loss, "load_balance": lb_sum / accum_steps}
+                with tel.span("train.accumulate"):
+                    g_sum = _add_trees(g_sum, g)
+                    l_sum = l_sum + l
+                    lb_sum = lb_sum + aux.get("load_balance", 0.0)
+            with tel.span("train.accumulate"):
+                grads = _tree.tree_map(lambda g: g / accum_steps, g_sum)
+                loss = l_sum / accum_steps
+                aux = {"ce": loss, "load_balance": lb_sum / accum_steps}
         if shardings is not None:
             mesh, p_spec, m_spec = shardings
-            grads = sharding.redistribute(grads, m_spec, mesh)
-        params, opt_state, gnorm = adamw_update(params, grads, opt_state,
-                                                opt_cfg)
+            with tel.span("train.redistribute"):
+                grads = sharding.redistribute(grads, m_spec, mesh)
+        with tel.span("train.optimizer"):
+            params, opt_state, gnorm = adamw_update(params, grads, opt_state,
+                                                    opt_cfg)
         metrics = {"loss": loss, "gnorm": gnorm,
                    "ce": aux.get("ce", loss),
                    "load_balance": aux.get("load_balance",
                                            torch.zeros((), device=loss.device))}
         if shardings is not None:
-            params = sharding.redistribute(params, p_spec, mesh)
-            opt_state = dict(opt_state,
-                             m=sharding.redistribute(opt_state["m"], m_spec,
-                                                     mesh),
-                             v=sharding.redistribute(opt_state["v"], m_spec,
-                                                     mesh))
-            metrics = {k: sharding.full(v) for k, v in metrics.items()}
+            with tel.span("train.redistribute"):
+                params = sharding.redistribute(params, p_spec, mesh)
+                opt_state = dict(opt_state,
+                                 m=sharding.redistribute(opt_state["m"],
+                                                         m_spec, mesh),
+                                 v=sharding.redistribute(opt_state["v"],
+                                                         m_spec, mesh))
+                metrics = {k: sharding.full(v) for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step

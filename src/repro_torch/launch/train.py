@@ -15,10 +15,20 @@ with the activation rules installed (the reference's ``train.py:80-88``).
 Every rank draws the same parameters and batches from the seed and keeps
 its block. ``--mesh ""`` is one card: no process group, no DTensor.
 
+``--trace PATH`` turns the port's telemetry on for the run and writes the
+span trees it kept (the last 256) as JSONL at the end
+(``telemetry.export_trace``): each step's ``train.step`` tree
+(``launch/steps.py``), and the loop's own ``train.batch`` (the batch's
+copy to the device and its placement), ``train.log`` (the metrics read
+back to the host, a synchronise every ``log_every`` steps) and
+``train.checkpoint`` (``maybe_save``).
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --steps 200 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt [--device cpu]
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --mesh 2x2 --dist-backend gloo [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 3 --batch 2 --seq 32 --trace /tmp/train_spans.jsonl
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import time
 import torch
 
 from .. import _tree
+from .. import telemetry as tel
 from .._device import resolve_device
 from ..checkpoint import CheckpointManager
 from ..configs import get_config
@@ -172,12 +183,14 @@ def train(cfg: TrainConfig, *, hooks=None,
             try:
                 if "fault" in hooks:
                     hooks["fault"](step)
-                batch = placer.batch(_tree.tree_map(lambda x: x.to(dev),
-                                                    stream.batch_at(step)))
+                with tel.span("train.batch", step=step):
+                    batch = placer.batch(_tree.tree_map(
+                        lambda x: x.to(dev), stream.batch_at(step)))
                 params, opt_state, metrics = step_fn(params, opt_state,
                                                      batch)
                 if step % cfg.log_every == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
+                    with tel.span("train.log", step=step):
+                        m = {k: float(v) for k, v in metrics.items()}
                     dt = (time.time() - t0) / max(step - start + 1, 1)
                     print(f"[train] step {step} loss {m['loss']:.4f} "
                           f"gnorm {m['gnorm']:.3f} {dt*1e3:.0f} ms/step",
@@ -185,8 +198,9 @@ def train(cfg: TrainConfig, *, hooks=None,
                 if "on_step" in hooks:
                     hooks["on_step"](step, metrics)
                 if ckpt is not None:
-                    ckpt.maybe_save(step, {"params": params,
-                                           "opt": opt_state})
+                    with tel.span("train.checkpoint", step=step):
+                        ckpt.maybe_save(step, {"params": params,
+                                               "opt": opt_state})
                 step += 1
             except (RuntimeError, ValueError):
                 raise
@@ -223,10 +237,18 @@ def main(argv=None) -> None:
         else:
             ap.add_argument(f"--{f.name.replace('_', '-')}",
                             type=type(f.default), default=f.default)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable telemetry; export the recorded span trees "
+                         "as JSONL to PATH at exit")
     args = ap.parse_args(argv)
     cfg = TrainConfig(**{f.name: getattr(args, f.name)
                          for f in dataclasses.fields(TrainConfig)})
+    if args.trace:
+        tel.enable()
     out = train(cfg)
+    if args.trace:
+        n = tel.export_trace(args.trace)
+        print(f"telemetry: wrote {n} span trees to {args.trace}")
     print(json.dumps(out))
 
 

@@ -20,11 +20,13 @@ f32 logits tensor is never materialized.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import _tree
+from .. import telemetry as tel
 from .._device import resolve_device
 from . import attention as attn
 from . import moe as moe_lib
@@ -101,34 +103,61 @@ def _init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
     raise ValueError(kind)
 
 
+def _mixer(params, h, pos, kind: str, cfg: ModelConfig, cache, mrope_pos):
+    """The block's token mixer on the normed input ``h``: (its output, the
+    new cache or None)."""
+    new_cache = None
+    if kind in ("attn", "local"):
+        window = cfg.window if kind == "attn" else cfg.local_window
+        if cfg.mla:
+            r = attn.mla_attention(params, h, pos, cfg, cache=cache)
+        else:
+            r = attn.gqa_attention(params, h, pos, cfg, window=window,
+                                   cache=cache, mrope_pos=mrope_pos)
+        if cache is not None:
+            r, new_cache = r
+    elif kind == "rglru":
+        r = rec.rglru_mixer(params, h, cfg, state=cache)
+        if cache is not None:
+            r, new_cache = r
+    else:  # rwkv
+        if cache is not None:
+            r, st = rec.rwkv_mixer(params, h, cfg,
+                                   state={"s": cache["s"],
+                                          "x_prev": cache["x_prev"]})
+            new_cache = dict(cache, **st)
+        else:
+            r = rec.rwkv_mixer(params, h, cfg)
+    return r, new_cache
+
+
+def _traced_mixer(params, h, pos, kind: str, cfg: ModelConfig, cache,
+                  mrope_pos):
+    """``_mixer`` inside a ``model.mixer`` span (attr ``kind``: the block
+    kind, ``mla`` for latent attention). Under autograd its backward is a
+    ``model.mixer.backward`` interval on the thread that runs it: from the
+    gradient of the mixer's output arriving to the gradient of ``h``,
+    which only the mixer reads, being complete."""
+    label = "mla" if cfg.mla and kind in ("attn", "local") else kind
+    with tel.span("model.mixer", kind=label):
+        r, new_cache = _mixer(params, h, pos, kind, cfg, cache, mrope_pos)
+    if r.requires_grad and h.requires_grad:
+        opened = []
+        r.register_hook(lambda g: opened.append(time.perf_counter()))
+        h.register_hook(lambda g: tel.record(
+            "model.mixer.backward", opened.pop(), time.perf_counter(),
+            kind=label) if opened else None)
+    return r, new_cache
+
+
 def _apply_block(params, x, pos, kind: str, cfg: ModelConfig, use_moe: bool,
                  cache=None, enc_kv=None, mrope_pos=None):
     """Returns (x, new_cache, aux)."""
     aux = {}
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    new_cache = None
-    if kind in ("attn", "local"):
-        window = cfg.window if kind == "attn" else cfg.local_window
-        if cfg.mla:
-            r = attn.mla_attention(params["mixer"], h, pos, cfg, cache=cache)
-        else:
-            r = attn.gqa_attention(params["mixer"], h, pos, cfg,
-                                   window=window, cache=cache,
-                                   mrope_pos=mrope_pos)
-        if cache is not None:
-            r, new_cache = r
-    elif kind == "rglru":
-        r = rec.rglru_mixer(params["mixer"], h, cfg, state=cache)
-        if cache is not None:
-            r, new_cache = r
-    else:  # rwkv
-        if cache is not None:
-            r, st = rec.rwkv_mixer(params["mixer"], h, cfg,
-                                   state={"s": cache["s"],
-                                          "x_prev": cache["x_prev"]})
-            new_cache = dict(cache, **st)
-        else:
-            r = rec.rwkv_mixer(params["mixer"], h, cfg)
+    mixer = _traced_mixer if tel.recording() else _mixer
+    r, new_cache = mixer(params["mixer"], h, pos, kind, cfg, cache,
+                         mrope_pos)
     x = x + r
     if cfg.is_encdec and enc_kv is not None:
         hx = rms_norm(x, params["ln_x"], cfg.norm_eps)

@@ -14,8 +14,11 @@ shared null singleton; metric mutations no-op).  ``enable()`` turns on span
 trees, span-duration histograms (``span_seconds{span=...}``), counters,
 gauges, audit events, and the ``device_sync`` billing points (a
 ``torch.cuda.synchronize`` of every CUDA device the synced tensors live
-on). ``enable(profiler_annotations=True)`` also mirrors every span into a
-``torch.profiler.record_function`` range.
+on). While a ``torch.profiler`` session records, the process tracer
+records span trees too (nothing else), as ``record_function`` ranges
+would: each span's times convert to the trace's clock
+(``Span.wall_ns``), so the profile's kernels and idle gaps can be put
+down to the spans open at the time.
 
 Exporters: ``export_metrics(path)`` (JSONL), ``export_trace(path)``
 (JSONL span trees), ``prometheus_text()``. ``snapshot()`` returns the
@@ -48,18 +51,20 @@ def enabled() -> bool:
     return _TRACER.enabled
 
 
-def enable(profiler_annotations: bool = False) -> None:
-    """Turn telemetry on process-wide (spans, metrics, sync points);
-    ``profiler_annotations`` mirrors each span into
-    ``torch.profiler.record_function``."""
+def recording() -> bool:
+    """Whether spans are being made now: telemetry is enabled, or a
+    ``torch.profiler`` session records."""
+    return _TRACER.recording
+
+
+def enable() -> None:
+    """Turn telemetry on process-wide (spans, metrics, sync points)."""
     _TRACER.enabled = True
-    _TRACER.profiler_annotations = bool(profiler_annotations)
     _REGISTRY.enabled = True
 
 
 def disable() -> None:
     _TRACER.enabled = False
-    _TRACER.profiler_annotations = False
     _REGISTRY.enabled = False
 
 
@@ -73,6 +78,11 @@ def reset() -> None:
 
 def span(name: str, **attrs: Any):
     return _TRACER.span(name, **attrs)
+
+
+def record(name: str, t_start: float, t_end: float, **attrs: Any) -> None:
+    """A closed interval of this thread (``SpanTracer.record``)."""
+    _TRACER.record(name, t_start, t_end, **attrs)
 
 
 def device_sync(x: Any, name: str = "device_sync") -> Any:
@@ -127,8 +137,9 @@ __all__ = [
     "Span", "SpanTracer", "NULL_SPAN",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_buckets",
     "CommitSample", "DriftLedger", "commit_sample",
-    "get_tracer", "get_registry", "enabled", "enable", "disable", "reset",
-    "span", "device_sync", "counter", "gauge", "histogram", "event",
+    "get_tracer", "get_registry", "enabled", "recording", "enable",
+    "disable", "reset", "span", "record", "device_sync", "counter", "gauge",
+    "histogram", "event",
     "snapshot", "export_metrics", "export_trace", "prometheus_text",
     "instrument_forward", "record_commit", "record_streaming_traffic",
 ]

@@ -4,13 +4,18 @@ percentiles, exporters, the span-bytes == measured-traffic contract,
 observer isolation, streaming counters, the server's query span), run
 with ``device="cpu"``, and the translations of the reference's JAX
 specifics: ``device_sync`` walks tensors, lists, tuples and dicts and
-passes CPU tensors through, and ``profiler_annotations`` mirrors spans
-into ``torch.profiler.record_function`` ranges. The span bytes are also
-held equal to the reference's ``measured_traffic`` on the same graph.
+passes CPU tensors through, and a span's times line up with a
+``torch.profiler`` trace's. The port's own: a stack per thread, intervals
+recorded from hooks, the anchor, spans made while a profiler records, and
+the aggregates under threads that race. The span bytes are also held
+equal to the reference's ``measured_traffic`` on the same graph.
 The port's singletons are reset around each test.
 """
 import json
 import logging
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -112,16 +117,157 @@ def test_enabled_device_sync_walks_containers_and_passes_cpu_through():
 
 
 def test_profiler_annotations_mirror_spans_into_record_function():
-    from torch.profiler import ProfilerActivity, profile
-    tel.enable(profiler_annotations=True)
-    assert tel.get_tracer().profiler_annotations
+    """The join of spans and a ``torch.profiler`` trace: a span's start on
+    the wall clock (``Span.wall_ns``) lies within 1 ms of the ``ts`` of a
+    ``record_function`` opened just inside it, read on the trace's clock
+    (``ts`` after ``baseTimeNanoseconds``)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    tel.enable()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with tel.span("server.refresh"):
-            torch.ones(4).sum()
-    names = {e.name for e in prof.events()}
-    assert "server.refresh" in names
-    tel.disable()
-    assert not tel.get_tracer().profiler_annotations
+        for i in range(3):
+            with tel.span(f"server.refresh{i}"):
+                with record_function(f"refresh{i}"):
+                    torch.ones(4).sum()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    finally:
+        os.remove(path)
+    base = trace["baseTimeNanoseconds"]
+    ts = {e["name"]: e["ts"] for e in trace["traceEvents"]
+          if e.get("name", "").startswith("refresh")}
+    roots = list(tel.get_tracer().roots)
+    assert [r.name for r in roots] == [f"server.refresh{i}"
+                                       for i in range(3)]
+    for i, root in enumerate(roots):
+        start_us = (root.wall_ns(root.t_start) - base) / 1e3
+        assert abs(ts[f"refresh{i}"] - start_us) < 1e3, (i, start_us)
+
+
+def _on_thread(fn):
+    t = threading.Thread(target=fn)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+
+
+def test_spans_of_another_thread_do_not_nest_under_the_main_threads():
+    tr = SpanTracer(enabled=True)
+    seen = {}
+
+    def work():
+        with tr.span("worker") as w:
+            seen["tid"] = threading.get_native_id()
+            with tr.span("worker.inner"):
+                pass
+        seen["span"] = w
+
+    with tr.span("main") as m:
+        _on_thread(work)
+        with tr.span("main.inner"):
+            pass
+    assert [c.name for c in m.children] == ["main.inner"]
+    assert [r.name for r in tr.roots] == ["worker", "main"]
+    w = seen["span"]
+    assert w.parent is None and w.tid == seen["tid"] != m.tid
+    assert w.children[0].parent is w and w.children[0].tid == w.tid
+    assert m.tid == threading.get_native_id()
+    assert m.ident == threading.get_ident()
+
+
+def test_intervals_and_the_anchor():
+    """``record`` takes a closed interval under what the thread holds,
+    else under the anchor; spans opened on a thread with nothing open
+    nest under the anchor too; every span carries its root's step."""
+    tr = SpanTracer(enabled=True)
+    with tr.span("train.step", step=7) as root:
+        with tr.span("train.backward").anchor() as bwd:
+            assert tr.anchor is bwd
+            t0 = time.perf_counter()
+
+            def hooks():
+                tr.record("model.mixer.backward", t0, time.perf_counter(),
+                          kind="attn")
+                with tr.span("model.mixer"):
+                    pass
+
+            _on_thread(hooks)
+            tr.record("here", t0, time.perf_counter())
+        assert tr.anchor is None
+    assert [r.name for r in tr.roots] == ["train.step"]
+    names = [c.name for c in bwd.children]
+    assert names == ["model.mixer.backward", "model.mixer", "here"]
+    iv = bwd.children[0]
+    assert iv.attrs == {"kind": "attn"} and iv.parent is bwd
+    assert iv.tid != root.tid == bwd.children[2].tid
+    assert bwd.t_start <= iv.t_start <= iv.t_end <= bwd.t_end
+    assert {s.step for s in root.walk()} == {7}
+    assert tr.summary()["model.mixer.backward"]["count"] == 1
+    # with nothing open and no anchor, an interval is a root of its own
+    tr.record("lone", 1.0, 2.0)
+    assert tr.roots[-1].name == "lone" and tr.roots[-1].duration_s == 1.0
+    d = root.to_dict()
+    assert d["step"] == 7 and d["tid"] == root.tid
+    assert d["wall_ns"] == root.wall_ns(root.t_start)
+    assert abs(d["wall_ns"] - time.time_ns()) < 60e9
+
+
+def test_spans_follow_the_profiler_and_nothing_else_does():
+    """While a profiler records, the process tracer makes spans with
+    telemetry off, and neither syncs nor counts; a tracer that does not
+    follow the profiler makes none."""
+    from torch.profiler import ProfilerActivity, profile
+    quiet = SpanTracer(enabled=False)
+    quiet.follow_profiler = False
+    assert not tel.recording() and tel.span("x") is NULL_SPAN
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tel.recording() and not tel.enabled()
+        with tel.span("profiled"):
+            tel.device_sync(torch.ones(2))
+        tel.record("interval", 0.0, 1.0)
+        tel.counter("c").inc()
+        assert quiet.span("y") is NULL_SPAN
+    assert not tel.recording()
+    assert [r.name for r in tel.get_tracer().roots] == ["profiled",
+                                                        "interval"]
+    assert tel.get_tracer().roots[0].children == []
+    assert tel.snapshot()["counters"] == {}
+    tel.record("after", 0.0, 1.0)
+    assert len(tel.get_tracer().roots) == 2
+
+
+def test_span_aggregates_hold_under_racing_threads():
+    """Eight threads close spans of one name while the interpreter
+    switches threads every microsecond: no count or total is lost."""
+    tr = SpanTracer(enabled=True)
+    n, per = 8, 2000
+
+    def work():
+        for _ in range(per):
+            tr.record("race", 0.0, 1.0)
+            with tr.span("race"):
+                pass
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    agg = tr.summary()["race"]
+    assert agg["count"] == 2 * n * per
+    assert agg["total_s"] >= n * per
 
 
 def test_disabled_registry_mutations_do_not_register():
