@@ -394,6 +394,8 @@ from repro_torch.core.graph import TABLE2_DATASETS, TAXI_STATS  # noqa: E402
 from repro_torch.core.partition import plan_execution  # noqa: E402
 from repro_torch.kernels import (_build, launch_counts,  # noqa: E402
                                  reset_launch_counts)
+from repro_torch.models.attention import (  # noqa: E402
+    attention_paths, reset_attention_paths)
 from repro_torch.kernels import crossbar_mvm as xb  # noqa: E402
 from repro_torch.kernels.cam_match import (  # noqa: E402
     cam_search, cam_search_ref)
@@ -3244,16 +3246,21 @@ def path_i4(device, card: str) -> None:
 def path_i(device, card: str) -> dict:
     t0 = time.perf_counter()
     reset_launch_counts()
+    reset_attention_paths()
     i1 = path_i1(device, card)
     # I2: Server at internlm2-1.8b's full size, its decode step's trace kept
     serve_full(I_ARCH, "I2", "[pathI]", device, card, keep_trace=True)
+    paths = attention_paths()
     path_i3(device, card)
     path_i4(device, card)
     counts = launch_counts()
-    print(f"[pathI] launches over path I {json.dumps(counts)}; "
+    print(f"[pathI] launches over path I {json.dumps(counts)}; I1 and I2's "
+          f"attention calls by path {json.dumps(paths)}; "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
     require(not any(counts[k] for k in KERNELS),
             "path I launched a GNN kernel")
+    require(paths["kernel"] > 0 and not paths["composed"],
+            f"path I: internlm2's attention left the kernel: {paths}")
     require(counts["rglru_scan"] > 0 and counts["wkv6_scan"] > 0,
             "path I's recurrent smoke configs did not reach the scans")
     return i1
@@ -3810,9 +3817,9 @@ def path_j(device, card: str, i1: dict) -> None:
     counts = launch_counts()
     path_j2_host(card)
     path_j4(card, j1_peak)
-    print(f"[pathJ] launches over path J {json.dumps(counts)} (PR 23 path "
-          f"J: 0 expected); {time.perf_counter() - t0:.1f} s in all; {card}",
-          flush=True)
+    print(f"[pathJ] launches over path J {json.dumps(counts)} (no GNN "
+          f"kernel; flash attention takes J1's bf16 attention); "
+          f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
     require(not any(counts[k] for k in KERNELS),
             "path J launched a GNN kernel")
 
@@ -3830,7 +3837,8 @@ SCAN_KERNELS = {   # name -> (source, the reference's scan it replaces)
     "wkv6_scan": ("src/repro_torch/csrc/wkv6_scan.cu",
                   "src/repro/models/recurrent.py:151"),
 }
-ALL_KERNELS = (*KERNELS, *SCAN_KERNELS)
+FLASH_KERNELS = ("flash_attention_forward", "flash_attention_backward")
+ALL_KERNELS = (*KERNELS, *SCAN_KERNELS, *FLASH_KERNELS)
 K1_ARCH, K2_ARCH = "rwkv6-3b", "recurrentgemma-9b"
 K1_BATCH, K1_SEQ, K1_STEPS, K1_LR = I1_BATCH, I1_SEQ, 6, I1_LR
 K2_SEQ, K2_SLOTS, K2_CAPACITY, K2_NEW = 4096, 4, 64, 8
@@ -4408,6 +4416,7 @@ def path_k2(device, card: str) -> dict:
                                      dtype=torch.int32)}
     pf = lm_steps.make_prefill_step(model)
     reset_launch_counts()
+    reset_attention_paths()
     times = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -4416,7 +4425,11 @@ def path_k2(device, card: str) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - tp) * 1e3)
     counts = launch_counts()
+    paths = attention_paths()
     require(counts["rglru_scan"] > 0, "K2: rglru_scan never launched")
+    require(paths["composed"] > 0 and not paths["kernel"],
+            f"K2: the local layers (head width {mcfg.dh}) reached the "
+            f"flash-attention kernel: {paths}")
     require(logits.shape[0] == 1 and bool(torch.isfinite(
         logits.float()).all()), f"K2: logits {tuple(logits.shape)} not "
         f"finite")
@@ -4450,6 +4463,7 @@ def path_k2(device, card: str) -> dict:
           f"{verdict}; {median_ms(times):.3f} ms a prefill (median of 3 "
           f"after one) against {plain_ms:.1f} ms with the plain loops; "
           f"launches {json.dumps({k: counts[k] for k in SCAN_KERNELS})}; "
+          f"local attention calls by path {json.dumps(paths)}; "
           f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
     del model, params, logits, ref
     torch.cuda.empty_cache()
@@ -4777,20 +4791,350 @@ def path_l5(device, card: str) -> None:
 def path_l(device, card: str) -> None:
     """Path L: L1-L3 served at full size (L3 with the M-RoPE image prefill
     and the serve CLI), L4 whisper-base, L5 the three layers decoded past
-    their window or chunk. It launches none of the eight kernels."""
+    their window or chunk. Only qwen2-vl's prefills (head width 128)
+    launch a kernel, flash attention; danube (120), minicpm3's latent
+    attention and whisper (64) keep the composed path."""
     t0 = time.perf_counter()
     reset_launch_counts()
+    by_arch = {}
     for i, arch in enumerate(L_SERVED):
+        reset_attention_paths()
         serve_full(arch, f"L{i + 1}", "[pathL]", device, card,
                    cli=arch == L_CLI_ARCH,
                    extra=l_mrope_prefill if arch == "qwen2-vl-2b" else None)
+        by_arch[arch] = attention_paths()
+    reset_attention_paths()
     path_l4(device, card)
+    by_arch["whisper-base"] = attention_paths()
     path_l5(device, card)
     counts = launch_counts()
-    print(f"[pathL] launches over path L {json.dumps(counts)}; "
+    print(f"[pathL] launches over path L {json.dumps(counts)}; attention "
+          f"calls by path {json.dumps(by_arch)}; "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
-    require(not any(counts.values()), "path L launched a kernel of the "
-            "eight: none of its layers has one")
+    require(not any(v for k, v in counts.items()
+                    if not k.startswith("flash_attention")),
+            "path L launched a kernel other than flash attention")
+    # qwen2-vl's bf16 prefills take the kernel; its float32 consistency
+    # prefill (the tied head's check) is float32, so composed
+    require(by_arch["qwen2-vl-2b"]["kernel"] > 0,
+            f"path L: qwen2-vl's attention never reached the kernel: "
+            f"{by_arch}")
+    for arch in ("h2o-danube-3-4b", "minicpm3-4b", "whisper-base"):
+        require(not by_arch[arch]["kernel"] and by_arch[arch]["composed"],
+                f"path L: {arch} reached the kernel: {by_arch}")
+
+
+# ------------------------------------------------------------------ path M
+
+# flash attention (csrc/flash_attention.cu, kernels/attention/): the kernel
+# pair against the composed chunked_attention (autograd, float32 inputs
+# holding the same bf16 values) at the LM cells' layer shapes, a window
+# and G = 6 at a length that is no multiple of a tile; the control that
+# rounds P and dS to bf16; timings; the host's cost a call under autograd.
+M_SHAPES = (   # (label, B, S, H, KV, window)
+    ("1x4096", 1, 4096, 16, 8, 0),
+    ("4x512", 4, 512, 16, 8, 0),
+    ("1x4096 window 1000", 1, 4096, 16, 8, 1000),
+    ("G6 2x1000", 2, 1000, 12, 2, 0),
+)
+M_TIMED = ("1x4096", "4x512")
+M_PRODUCTS = 15    # the least for float32 scores and P.V: 1 + 3 forward,
+                   # 1 + 1 + 3 + 3 + 3 backward (the kernels do 17)
+BF16_PEAK = 989.4e12
+M_PAIR_MS = 2.5    # forward plus backward at the 1x4096 layer shape, at most
+M_HOST_MS = 0.2    # the host's ms a kernel call under autograd, under
+
+
+def m_inputs(b: int, s: int, h: int, kv: int, seed: int) -> tuple:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    return draw(b, s, h, 128), draw(b, s, kv, 128), draw(b, s, kv, 128), \
+        draw(b, s, h, 128)
+
+
+def m_positions(q) -> torch.Tensor:
+    return torch.arange(q.shape[1], device=q.device)[None].expand(
+        q.shape[0], -1)
+
+
+def m_composed(q, k, v, dout, window: int) -> tuple:
+    """(O, dq, dk, dv) in float32 from the composed path on float32 copies
+    of the bf16 inputs (the kernel takes no float32 call)."""
+    from repro_torch.models import attention as lm_attn
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    pos = m_positions(q)
+    o = lm_attn.chunked_attention(qf, kf, vf, pos, pos, causal=True,
+                                  window=window, chunk=1024, canonical=True)
+    o.backward(dout.float())
+    return o.detach(), qf.grad, kf.grad, vf.grad
+
+
+def m_exact(q, k, v, dout, window: int) -> tuple:
+    """(O, dq, dk, dv) in float64: softmax over the whole masked score
+    matrix and autograd, the arbiter of the float32 paths."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    i = torch.arange(s, device=q.device)
+    rel = i[:, None] - i[None, :]
+    ok = (rel >= 0) & ((rel < window) if window else True)
+    sc = torch.einsum("bqhd,bkhd->bhqk", qd, kd.repeat_interleave(g, 2))
+    p = torch.softmax(torch.where(ok, sc * d ** -0.5, -math.inf), -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vd.repeat_interleave(g, 2))
+    o.backward(dout.double())
+    return o.detach(), qd.grad, kd.grad, vd.grad
+
+
+def m_lse(q, k, window: int) -> torch.Tensor:
+    """logsumexp of the masked scores in float64, [B, S, H], a head at a
+    time."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    i = torch.arange(s, device=q.device)
+    rel = i[:, None] - i[None, :]
+    ok = (rel >= 0) & ((rel < window) if window else True)
+    out = torch.empty((b, s, h), dtype=torch.float64, device=q.device)
+    for hh in range(h):
+        sc = torch.einsum("bqd,bkd->bqk", q[:, :, hh].double(),
+                          k[:, :, hh // g].double()) * (d ** -0.5)
+        out[:, :, hh] = torch.logsumexp(torch.where(ok, sc, -1e30), -1)
+    return out
+
+
+def rel_err(got, ref) -> float:
+    return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+def bf16_ulps(got, ref) -> tuple:
+    """(largest distance in bf16 steps between ``got`` (bf16) and the bf16
+    rounding of ``ref``, the same over the elements with |ref| at least
+    1/64 of max|ref|)."""
+    def ordered(t):
+        x = t.contiguous().view(torch.int16).int()
+        return torch.where(x < 0, -(x & 0x7FFF), x)
+    dist = (ordered(got) - ordered(ref.to(torch.bfloat16))).abs()
+    big = ref.abs() >= ref.abs().max() / 64
+    return int(dist.max()), int(dist[big].max())
+
+
+def causal_pairs(s: int, window: int) -> int:
+    return sum(min(i + 1, window) if window else i + 1 for i in range(s))
+
+
+def m_check(label, b, s, h, kv, window, seed: int) -> dict:
+    from repro_torch.kernels import attention as fa
+    q, k, v, dout = m_inputs(b, s, h, kv, seed)
+    res = {}
+    for terms in (3, 1):
+        out, o32, lse = fa.flash_attention_forward(q, k, v, window=window,
+                                                   terms=terms)
+        grads = fa.flash_attention_backward(q, k, v, o32, lse, dout,
+                                            window=window, terms=terms,
+                                            f32=True)
+        res[terms] = (out, o32, lse) + tuple(grads)
+    torch.cuda.synchronize()
+    ref = m_exact(q, k, v, dout, window)
+    ref32 = m_composed(q, k, v, dout, window)
+    lse_ref = m_lse(q, k, window)
+    out, o32, lse, dq, dk, dv, dq32, dk32, dv32 = res[3]
+    row = {"shape": label,
+           "out_is_O_rounded": bool(torch.equal(out, o32.to(torch.bfloat16)))}
+    for j, (name, got) in enumerate((("out", out), ("dq", dq), ("dk", dk),
+                                     ("dv", dv))):
+        row[f"{name}_ulps"], row[f"{name}_ulps_big"] = bf16_ulps(got, ref[j])
+        row[f"{name}_ulps_composed_big"] = bf16_ulps(got, ref32[j])[1]
+    row["lse_rel"] = float((lse - lse_ref).abs().max()
+                           / lse_ref.abs().max())
+    for name, i, j in (("O", 1, 0), ("dq", 6, 1), ("dk", 7, 2),
+                       ("dv", 8, 3)):
+        row[f"{name}32"] = rel_err(res[3][i], ref[j])
+        row[f"{name}32_composed"] = rel_err(ref32[j], ref[j])
+        row[f"{name}32_control"] = rel_err(res[1][i], ref[j])
+    same = fa.flash_attention_backward(q, k, v, o32, lse, dout,
+                                       window=window)
+    row["backward_repeats"] = all(torch.equal(x, y)
+                                  for x, y in zip(same, (dq, dk, dv)))
+    del res, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def m_require(row: dict) -> None:
+    """The card test's limits (``tests/test_torch_flash_attention.py``):
+    bf16 out, dq, dk, dv within one bf16 step of the float64 result and
+    of the composed path where |ref| >= max|ref| / 64; L within 1e-6 of
+    max|L|; the float32 accumulators within 1e-4 of max|ref|, the
+    control's more than 20x farther off; out the rounding of the float32
+    O; the backward the same bit for bit twice."""
+    where = f"path M {row['shape']}"
+    for name in ("out", "dq", "dk", "dv"):
+        require(row[f"{name}_ulps_big"] <= 1
+                and row[f"{name}_ulps_composed_big"] <= 1,
+                f"{where}: {name} more than one bf16 step off: {row}")
+    require(row["lse_rel"] < 1e-6, f"{where}: L off by {row['lse_rel']}")
+    for name in ("O", "dq", "dk", "dv"):
+        split, control = row[f"{name}32"], row[f"{name}32_control"]
+        require(split < 1e-4, f"{where}: float32 {name} off by {split}")
+        require(control > 20 * split,
+                f"{where}: the control's {name} ({control}) is not 20x "
+                f"farther off than the split's ({split})")
+    require(row["out_is_O_rounded"],
+            f"{where}: out is not the bf16 rounding of the float32 O")
+    require(row["backward_repeats"], f"{where}: the backward did not repeat")
+
+
+def m_timing(label, b, s, h, kv, window, card: str) -> dict:
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import attention as lm_attn
+    q, k, v, dout = m_inputs(b, s, h, kv, 7)
+    out, o32, lse = fa.flash_attention_forward(q, k, v, window=window)
+
+    def fwd():
+        fa.flash_attention_forward(q, k, v, window=window)
+
+    def bwd():
+        fa.flash_attention_backward(q, k, v, o32, lse, dout, window=window)
+
+    row = {"shape": label,
+           "fwd_ms": cuda_ms(fwd, 20), "bwd_ms": cuda_ms(bwd, 20)}
+    row["pair_ms"] = row["fwd_ms"] + row["bwd_ms"]
+    for kern in ("fwd_kernel", "dq_kernel", "dkv_kernel"):
+        row[kern], _ = profiled_ms(fwd if kern == "fwd_kernel" else bwd,
+                                   kern, 10)
+    flops = 2.0 * b * h * 128 * causal_pairs(s, window)
+    row["bound_ms"] = M_PRODUCTS * flops / BF16_PEAK * 1e3
+    row["tflops_17"] = 17 * flops / (row["pair_ms"] * 1e-3) / 1e12
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    pos = m_positions(q)
+
+    def composed():
+        o = lm_attn.chunked_attention(qg, kg, vg, pos, pos, causal=True,
+                                      window=window, chunk=1024,
+                                      canonical=True)
+        o.backward(dout)
+
+    taken = lm_attn.kernel_takes
+    lm_attn.kernel_takes = lambda *a, **kw: False
+    try:
+        row["composed_ms"] = cuda_ms(composed, 5)
+    finally:
+        lm_attn.kernel_takes = taken
+
+    def plain():
+        o_, o32_, l_ = fa.flash_attention_forward_ref(q, k, v, window=window)
+        fa.flash_attention_backward_ref(q, k, v, o32_, l_, dout,
+                                        window=window)
+    row["plain_ms"] = cuda_ms(plain, 2)
+    print(f"[pathM] {label}: {json.dumps(row)}; {card}", flush=True)
+    return row
+
+
+def m_host_cost(card: str) -> dict:
+    """Host ms a call under autograd, forward and backward, over a chain
+    of 24 calls (a step's layers) at a shape whose device time is small
+    (B 1, S 128), so the host paces the loop; beside it the same chain of
+    the composed path."""
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import attention as lm_attn
+    q, k, v, dout = m_inputs(1, 128, 16, 8, 3)
+    k, v = (t.requires_grad_() for t in (k, v))
+    pos = m_positions(q)
+
+    def kernel(x):
+        return fa.flash_attention(x, k, v)
+
+    def composed(x):
+        return lm_attn.chunked_attention(x, k, v, pos, pos, causal=True,
+                                         window=0, chunk=1024,
+                                         canonical=True)
+
+    def chain(fn) -> tuple:
+        x = q.detach().requires_grad_()
+        t0 = time.perf_counter()
+        y = x
+        for _ in range(24):
+            y = fn(y)
+        t1 = time.perf_counter()
+        y.backward(dout)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / 24 * 1e3, (t2 - t1) / 24 * 1e3
+
+    row = {}
+    taken = lm_attn.kernel_takes
+    for name, fn in (("kernel", kernel), ("composed", composed)):
+        if name == "composed":
+            lm_attn.kernel_takes = lambda *a, **kw: False
+        try:
+            for _ in range(3):
+                chain(fn)
+            runs = [chain(fn) for _ in range(10)]
+        finally:
+            lm_attn.kernel_takes = taken
+        row[f"{name}_forward_ms"] = sorted(r[0] for r in runs)[5]
+        row[f"{name}_backward_ms"] = sorted(r[1] for r in runs)[5]
+    print(f"[pathM] host ms a call under autograd (median of 10 chains of "
+          f"24): {json.dumps(row)}; {card}", flush=True)
+    return row
+
+
+def flash_paths() -> None:
+    """``--flash``: path M, then the LM runs whose attention the kernel
+    takes (I1's training and I2's prefills on internlm2-1.8b, L3's
+    qwen2-vl-2b) or leaves to the composed path (L1 danube, L2 minicpm3,
+    L4 whisper-base, K2's local layers), each held to its own checks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    card = card_line()
+    print(f"[card] {card}; torch {torch.__version__}", flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build_all(("flash_attention", *SCAN_KERNELS))
+    print(f"[build] {len(logs)} sources built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("registers", "spill")):
+                print(f"[build] {name}: {line.strip()}", flush=True)
+    path_m(card)
+    path_i(device, card)
+    path_l(device, card)
+    path_k2(device, card)
+    print(f"[done] --flash: {json.dumps(attention_paths())} since K2's "
+          f"reset; {card}", flush=True)
+
+
+def path_m(card: str) -> dict:
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    reset_attention_paths()
+    rows = []
+    for i, (label, b, s, h, kv, window) in enumerate(M_SHAPES):
+        row = m_check(label, b, s, h, kv, window, 100 + i)
+        print(f"[pathM] check {json.dumps(row)}", flush=True)
+        m_require(row)
+        rows.append(row)
+    timings = [m_timing(*shape, card) for shape in M_SHAPES
+               if shape[0] in M_TIMED]
+    host = m_host_cost(card)
+    counts = launch_counts()
+    print(f"[pathM] launches over path M {json.dumps(counts)}; paths "
+          f"{json.dumps(attention_paths())}; "
+          f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
+    require(counts["flash_attention_forward"] > 0
+            and counts["flash_attention_backward"] > 0,
+            "path M: a flash-attention kernel never launched")
+    pair = next(t["pair_ms"] for t in timings if t["shape"] == "1x4096")
+    require(pair <= M_PAIR_MS, f"path M: the pair took {pair:.3f} ms at the "
+            f"1x4096 layer shape, more than {M_PAIR_MS} ms")
+    slow = {k: v for k, v in host.items()
+            if k.startswith("kernel") and v >= M_HOST_MS}
+    require(not slow, f"path M: the host's ms a kernel call under autograd "
+            f"reached {M_HOST_MS}: {slow}")
+    return {"checks": rows, "timings": timings, "host": host}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -5176,6 +5520,10 @@ def main() -> None:
                     help="only run path K1, rwkv6-3b's training steps "
                          "timed and profiled, on the package beside this "
                          "script (no result line)")
+    ap.add_argument("--flash", action="store_true",
+                    help="only run path M (the flash-attention kernels) "
+                         "and the LM runs whose attention it takes or "
+                         "leaves: I1, I2, L1-L4 and K2 (no result line)")
     args = ap.parse_args()
     if args.f6_loop:
         os.environ["CUDA_LAUNCH_BLOCKING"] = "1"   # before CUDA starts
@@ -5194,6 +5542,9 @@ def main() -> None:
         print(f"[card] {card}; torch {torch.__version__}", flush=True)
         _build.build_all(tuple(SCAN_KERNELS))
         path_k1(torch.device("cuda"), card)
+        return
+    if args.flash:
+        flash_paths()
         return
 
     t_start = time.perf_counter()
@@ -5357,6 +5708,9 @@ def main() -> None:
     # windows and the latent cache decoded past their edge
     path_l(device, card)
 
+    # ---- path M: the flash-attention kernels
+    m_rec = path_m(card)
+
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)
     timings(x2, nbr, wts, params[1], "layer2 64->16", iters=20)
@@ -5373,6 +5727,11 @@ def main() -> None:
     for name, (source, replaces) in SCAN_KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **k_rec[name]))
+    kernels.append(dict(name="flash_attention", route="cuda",
+                        source="src/repro_torch/csrc/flash_attention.cu",
+                        replaces="src/repro/models/attention.py "
+                                 "chunked_attention (no Pallas kernel)",
+                        timings=m_rec["timings"], host=m_rec["host"]))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

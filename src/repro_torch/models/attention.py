@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..kernels.attention import HEAD_DIM, flash_attention
 from .common import (InitKey, _block, _gather_dim, _is_dtensor, _rows_of,
                      _sum_over, apply_rope, dtype_of, einsum, einsum_f32,
                      init_dense, init_full, merge_heads, rms_norm, shard,
@@ -25,6 +26,7 @@ from .common import (InitKey, _block, _gather_dim, _is_dtensor, _rows_of,
 from .config import ModelConfig
 
 NEG_INF = -1e30
+_PATHS = {"kernel": 0, "composed": 0}
 
 
 # ------------------------------------------------------------ chunked core
@@ -50,6 +52,32 @@ def _pad(x: torch.Tensor, dim: int, n: int, value=0) -> torch.Tensor:
                                     device=x.device)], dim=dim)
 
 
+def kernel_takes(q, k, v, *, causal: bool, window: int, k_valid,
+                 canonical: bool) -> bool:
+    """Whether the flash-attention kernels compute this
+    ``chunked_attention`` call: bf16 q [B, Sq, H, 128], k, v [B, Sk, KV,
+    128] with H a multiple of KV, causal, positions arange
+    (``canonical``), no key validity mask, and a window of 0 (none) or
+    more. The device is the caller's to check."""
+    ts = (q, k, v)
+    return (causal and canonical and k_valid is None and window >= 0
+            and all(t.dtype == torch.bfloat16 and t.dim() == 4 for t in ts)
+            and q.shape[-1] == k.shape[-1] == v.shape[-1] == HEAD_DIM
+            and k.shape == v.shape and q.shape[0] == k.shape[0]
+            and q.shape[2] % k.shape[2] == 0)
+
+
+def attention_paths() -> dict:
+    """``{"kernel": n, "composed": n}``: calls of ``chunked_attention`` on
+    CUDA tensors since the last reset, by the path they took."""
+    return dict(_PATHS)
+
+
+def reset_attention_paths() -> None:
+    for key in _PATHS:
+        _PATHS[key] = 0
+
+
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
                       chunk: int, k_valid=None, canonical: bool = False):
     """Online-softmax attention, O(S * chunk) memory.
@@ -65,11 +93,24 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     window) is skipped: after a row's first live chunk such a step changes
     nothing (its probabilities are 0 and its correction 1), and before it
     the next live chunk's correction, 0, erases it.
+
+    On CUDA tensors, a call that ``kernel_takes`` (bf16, head width 128,
+    causal, canonical, no ``k_valid``) runs the hand-written
+    flash-attention kernels (``kernels.attention``) instead: the same
+    float32 scores and products, one launch forward and two backward,
+    ``chunk`` unused. ``attention_paths()`` counts the calls on CUDA
+    tensors by the path taken.
     """
     if _is_dtensor(q):
         return _local_heads(q, k, v, q_pos, k_pos, causal=causal,
                             window=window, chunk=chunk, k_valid=k_valid,
                             canonical=canonical)
+    if q.is_cuda:
+        if kernel_takes(q, k, v, causal=causal, window=window,
+                        k_valid=k_valid, canonical=canonical):
+            _PATHS["kernel"] += 1
+            return flash_attention(q, k, v, window=window)
+        _PATHS["composed"] += 1
     b, sq, h, dk = q.shape
     _, sk, kv, _ = k.shape
     dv = v.shape[-1]

@@ -25,6 +25,9 @@ DISTRIBUTED_SETTINGS = ("decentralized", "semi")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-device subprocess test")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; run on the card with "
+        "`python -m pytest -m card tests/test_torch_flash_attention.py`")
 
 
 @pytest.fixture(params=BACKENDS)

@@ -458,10 +458,14 @@ def test_launch_counters_stay_zero_on_cpu():
     r = torch.rand((2, 5, 3, 16), requires_grad=True)
     wkv6_scan(r, r, r, r, torch.rand((3, 16)),
               torch.zeros((2, 3, 16, 16)))[0].sum().backward()
+    from repro_torch.kernels.attention import flash_attention
+    qkv = torch.randn((1, 20, 2, 128)).bfloat16().requires_grad_()
+    flash_attention(qkv, qkv, qkv).float().sum().backward()
     assert launch_counts() == {
         "fused_ideal_layer": 0, "fused_zmax": 0, "fused_quant_layer": 0,
         "csr_aggregate": 0, "crossbar_matmul_quantized": 0,
-        "cam_search": 0, "rglru_scan": 0, "wkv6_scan": 0}
+        "cam_search": 0, "rglru_scan": 0, "wkv6_scan": 0,
+        "flash_attention_forward": 0, "flash_attention_backward": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
