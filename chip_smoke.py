@@ -285,8 +285,8 @@ Phases, each printing its lines, each failing the run on any error:
          card's residency of the ``wkv6_scan`` launches, and each kernel
          timed (CUDA events), forward and backward apart, beside its
          plain loop and its bound; K1
-         ``train()`` on rwkv6-3b (32 layers, d_model 2,560, 3.07 B
-         parameters, bf16) at I1's batch, 6 AdamW steps, finite losses,
+         ``train()`` on rwkv6-3b (the published Finch block: 32 layers,
+         d_model 2,560, 3.10 B parameters, bf16) at I1's batch, 6 AdamW steps, finite losses,
          the mean loss on the six batches trained on lower at the final
          weights than at the initial ones (a step's loss on a fresh batch
          moves with the batch more than six warm-up steps move it), ms a

@@ -17,12 +17,14 @@ import contextlib
 import dataclasses
 import math
 import threading
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import _tree
+from .. import telemetry as tel
 from .._device import resolve_device
 from .config import ModelConfig
 
@@ -261,6 +263,30 @@ def _block(mesh, dims) -> int:
     return block
 
 
+# ---------------------------------------------------------------- tracing
+def trace_backward(name: str, out, inp: torch.Tensor, **attrs) -> None:
+    """Under autograd, the backward of the work from ``inp`` to ``out`` (a
+    tensor or a tuple of them) as a ``name`` interval
+    (``telemetry.record``) on the thread that runs it: from the gradient of
+    the last of ``out`` arriving to the gradient of ``inp``, which only
+    that work reads, being complete. Gradient hooks; nothing where a
+    tensor takes no gradient."""
+    outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    if not (inp.requires_grad and all(o.requires_grad for o in outs)):
+        return
+    n, arrived, opened = len(outs), [], []
+
+    def arrive(g):
+        arrived.append(None)
+        if len(arrived) == n:
+            opened.append(time.perf_counter())
+
+    for o in outs:
+        o.register_hook(arrive)
+    inp.register_hook(lambda g: tel.record(
+        name, opened.pop(), time.perf_counter(), **attrs) if opened else None)
+
+
 # ---------------------------------------------------------------- numerics
 def dtype_of(name: str) -> torch.dtype:
     """``torch.dtype`` for a config's dtype name (``"bfloat16"``, ...)."""
@@ -292,12 +318,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
-             ) -> torch.Tensor:
-    dt = x.dtype
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x / rms(x) * (1 + scale), in float32; returned in ``dtype`` (by
+    default x's)."""
+    dt = dtype or x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last dimension (the population variance), with
+    a weight and a bias, in float32; returned in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x - x.mean(-1, keepdim=True)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------- init

@@ -7,11 +7,37 @@ config space (see ``repro_torch/configs/*.py``). ``param_count`` and
 keeps the stacked layout of the repeated cycles' parameters (a leading
 axis, looped over); ``remat="full"`` recomputes each cycle in the
 backward pass.
+
+One field is the port's own, defaulting to the JAX package's form:
+``rwkv_block`` selects the RWKV block, ``"simplified"`` (the JAX
+package's: one shared mixing LoRA, RMS block norms, a group norm without
+bias, eps 1e-5) or ``"finch"`` (the published RWKV-6 block of RWKV-LM's
+``RWKV_Tmix_x060`` / ``RWKV_CMix_x060``: five mixing LoRAs, a decay LoRA,
+LayerNorm block norms with bias, a group norm with bias and eps 1e-5
+times ``head_size_divisor`` 8 squared). ``param_count`` is exact for the
+Finch block.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+RWKV_BLOCKS = ("simplified", "finch")
+# the Finch time mix's LoRA ranks, RWKV-LM x060's below a width of 4,096
+FINCH_MIX_RANK = 32
+FINCH_DECAY_RANK = 64
+
+
+def finch_layer_params(d: int, d_ff: int) -> int:
+    """Parameters of one Finch layer: the time mix (``maa_x``, ``maa`` of
+    five, the mixing LoRA, ``decay`` and its LoRA, ``u``, r/k/v/g/o, the
+    group norm's weight and bias), the channel mix (``maa_k``, ``maa_r``,
+    k/v/r) and the two LayerNorms' weights and biases."""
+    time_mix = (6 * d + 2 * d * 5 * FINCH_MIX_RANK + d
+                + 2 * d * FINCH_DECAY_RANK + d + 5 * d * d + 2 * d)
+    channel_mix = 2 * d + 2 * d * d_ff + d * d
+    return time_mix + channel_mix + 4 * d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +92,20 @@ class ModelConfig:
     remat: str = "none"                     # 'none' | 'full'
     attn_chunk: int = 1024                  # chunked-attention block size
     rwkv_head_dim: int = 64
+    rwkv_block: str = "simplified"          # 'simplified' | 'finch'
     rglru_width: int = 0                    # 0 => d_model
     mtp: bool = False                       # deepseek multi-token prediction
     scan_layers: bool = True                # stacked cycles, looped over
+
+    def __post_init__(self):
+        if self.rwkv_block not in RWKV_BLOCKS:
+            raise ValueError(f"rwkv_block {self.rwkv_block!r} is none of "
+                             f"{RWKV_BLOCKS}")
+        if self.rwkv_block == "finch" and (
+                set(self.pattern) != {"rwkv"} or self.moe is not None
+                or self.encoder is not None):
+            raise ValueError("the Finch block makes a stack of RWKV layers "
+                             "alone: pattern ('rwkv',), no MoE, no encoder")
 
     @property
     def dh(self) -> int:
@@ -91,6 +128,9 @@ class ModelConfig:
         """Total parameters (for MODEL_FLOPS / roofline)."""
         d, v = self.d_model, self.vocab
         n = v * d * (1 if self.tie_embeddings else 2)   # embed (+ head)
+        if self.rwkv_block == "finch":
+            # the layers' leaves, each counted, and the final norm
+            return n + d + self.n_layers * finch_layer_params(d, self.d_ff)
         per_layer = {}
         dh = self.dh
         # mixers

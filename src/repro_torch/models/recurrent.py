@@ -1,4 +1,6 @@
-"""Attention-free mixers: RG-LRU (RecurrentGemma) and RWKV-6 "Finch".
+"""Attention-free mixers: RG-LRU (RecurrentGemma) and RWKV-6 "Finch"
+(the JAX package's simplified block, or the published one: ``ModelConfig.
+rwkv_block``).
 
 The counterpart of ``repro.models.recurrent``. Both expose the same
 interface as the attention mixers:
@@ -23,11 +25,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry as tel
 from .._device import resolve_device
 from ..kernels.recurrence.ops import rglru_scan, wkv6_scan
 from .common import (InitKey, _is_dtensor, _rows_of, einsum, gelu,
-                     init_dense, init_full, merge_heads, shard, split_heads)
-from .config import ModelConfig
+                     init_dense, init_full, merge_heads, shard, split_heads,
+                     trace_backward)
+from .config import FINCH_DECAY_RANK, FINCH_MIX_RANK, ModelConfig
 
 
 def _local_placements(x) -> tuple:
@@ -181,8 +185,65 @@ def rglru_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
 
 
 # ================================================================ RWKV-6
+# The block of ``cfg.rwkv_block``. "simplified", the JAX package's: the five
+# token-shift mixes share one LoRA through ``sigmoid(mu + dd)``, the decay
+# adds the mixed input itself, RMS block norms, a group norm without bias,
+# the channel mix's coefficients through a sigmoid. "finch", RWKV-6 as
+# published (RWKV-LM ``RWKV_Tmix_x060`` / ``RWKV_CMix_x060``): with
+# xx = shift(x) - x and xxx = x + xx maa_x,
+#   x_i = x + xx (maa_i + tanh(xxx W1) W2_i)      i in w, k, v, r, g
+#   w   = exp(-exp(decay + tanh(x_w D1) D2))
+# r, k, v, g = silu(.) the projections of x_r, x_k, x_v, x_g; the scan; a
+# group norm of each head with weight and bias; the output gate. Channel
+# mix: sigmoid(x_r Wr) (relu(x_k Wk)^2 Wv), x_* = x + xx maa_*. LayerNorm
+# block norms with bias (``transformer._apply_block``).
+_SCAN_PATHS = {"kernel": 0, "plain": 0}
+# the time mix's group-norm eps by block: Finch's 1e-5 times
+# ``head_size_divisor`` 8 squared, the JAX package's 1e-5
+GN_EPS = {"finch": 6.4e-4, "simplified": 1e-5}
+
+
+def scan_paths() -> dict:
+    """``{"kernel": n, "plain": n}``: ``wkv6_scan`` calls of the time mix
+    on CUDA tensors (the hand-written kernel) and on CPU tensors (the
+    plain loop) since the last reset."""
+    return dict(_SCAN_PATHS)
+
+
+def reset_scan_paths() -> None:
+    for key in _SCAN_PATHS:
+        _SCAN_PATHS[key] = 0
+
+
+def _shifted(xf, last):
+    """The token shift of xf [B, S, D]: each position's previous one,
+    zero before the first, or ``last`` [B, D] (the state's last token)
+    before it."""
+    if last is None:
+        return _front_pad(xf, 1)[:, :-1]
+    return torch.cat([last[:, None, :], xf[:, :-1]], dim=1)
+
+
+def _scan(r, k, v, w, u, s0):
+    """``_wkv6_scan_local``, counted by path. While spans are made, inside
+    a ``model.wkv6`` span, its backward a ``model.wkv6.backward`` interval:
+    from the gradient of y arriving to that of r (the scan's backward gives
+    every input's gradient at once)."""
+    path = {"cuda": "kernel", "cpu": "plain"}.get(r.device.type)
+    if path:
+        _SCAN_PATHS[path] += 1
+    if not tel.recording():
+        return _wkv6_scan_local(r, k, v, w, u, s0)
+    with tel.span("model.wkv6"):
+        y, s = _wkv6_scan_local(r, k, v, w, u, s0)
+    trace_backward("model.wkv6.backward", y, r)
+    return y, s
+
+
 def init_rwkv(key: InitKey, cfg: ModelConfig) -> dict:
     d = cfg.d_model
+    if cfg.rwkv_block == "finch":
+        return _init_finch(key, cfg)
     return {
         # data-dependent token-shift mix coefficients (Finch ddlerp, shared
         # low-rank path simplified to per-channel mu + one lora)
@@ -200,6 +261,32 @@ def init_rwkv(key: InitKey, cfg: ModelConfig) -> dict:
     }
 
 
+def _init_finch(key: InitKey, cfg: ModelConfig) -> dict:
+    """The Finch time mix's parameters: the mixing coefficients and
+    decays in float32, the matrices in the config's dtype. The LoRAs' W2
+    draw at std 0.01 (the published init's scale), their W1 at fan-in;
+    the key and gate matrices at a tenth of fan-in (the published init's
+    gains)."""
+    d, rm, rd = cfg.d_model, FINCH_MIX_RANK, FINCH_DECAY_RANK
+    dense = lambda *shape, scale=None: init_dense(key, shape, scale=scale,
+                                                  dtype=cfg.dtype)
+    return {
+        "maa_x": init_full(key, (d,), 0.5),
+        "maa": init_full(key, (5, d), 0.5),             # w, k, v, r, g
+        "maa_w1": dense(d, 5 * rm),
+        "maa_w2": dense(5, rm, d, scale=0.01),
+        "decay": init_full(key, (d,), -2.0),            # w near 0.87
+        "decay_w1": dense(d, rd),
+        "decay_w2": dense(rd, d, scale=0.01),
+        "u": init_dense(key, (d,), scale=0.5, dtype="float32"),
+        "wr": dense(d, d), "wk": dense(d, d, scale=0.1 * d ** -0.5),
+        "wv": dense(d, d), "wg": dense(d, d, scale=0.1 * d ** -0.5),
+        "wo": dense(d, d),
+        "ln_x": init_full(key, (d,), 1.0),
+        "ln_x_b": init_full(key, (d,), 0.0),
+    }
+
+
 def init_rwkv_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
     device = resolve_device(device)
     d = cfg.d_model
@@ -211,41 +298,68 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
                                   device=device)}
 
 
-def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
-    """RWKV-6 time-mix. x: [B, S, D]."""
-    b, s, d = x.shape
-    dh = cfg.rwkv_head_dim
-    h = d // dh
-    xf = x.float()
-    if state is None:
-        x_prev = _front_pad(xf, 1)[:, :-1]
-    else:
-        x_prev = state["x_prev"][:, None, :]
-    delta = x_prev - xf
+def _simplified_mixes(params, xf, delta):
+    """(x_r, x_k, x_v, x_g, w) of the simplified block."""
     mu = params["mu"].float()
     # data-dependent shift amount (shared lora across the five mixes)
     dd = torch.tanh(torch.einsum("bsd,dr->bsr", xf, params["w1"].float()))
     dd = torch.einsum("bsr,rd->bsd", dd, params["w2"].float())
     xr, xk, xv, xg, xw = (xf + delta * torch.sigmoid(mu[i] + dd)
                           for i in range(5))
+    # data-dependent decay (the Finch signature): w in (0,1)
+    return xr, xk, xv, xg, torch.exp(-torch.exp(params["decay_base"] + xw))
+
+
+def _finch_mixes(params, xf, delta):
+    """(x_r, x_k, x_v, x_g, w) of the Finch block: the five mixing LoRAs
+    and the decay LoRA, in float32."""
+    xxx = xf + delta * params["maa_x"]
+    m = torch.tanh(torch.einsum("bsd,dr->bsr", xxx,
+                                params["maa_w1"].float()))
+    m = torch.einsum("bsir,ird->bsid", split_heads(m, 5, FINCH_MIX_RANK),
+                     params["maa_w2"].float())
+    xw, xk, xv, xr, xg = (xf + delta * (params["maa"][i] + m[:, :, i])
+                          for i in range(5))
+    dec = torch.tanh(torch.einsum("bsd,dr->bsr", xw,
+                                  params["decay_w1"].float()))
+    dec = torch.einsum("bsr,rd->bsd", dec, params["decay_w2"].float())
+    return xr, xk, xv, xg, torch.exp(-torch.exp(params["decay"] + dec))
+
+
+def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
+    """RWKV-6 time-mix of ``cfg.rwkv_block``. x: [B, S, D]."""
+    b, s, d = x.shape
+    dh = cfg.rwkv_head_dim
+    h = d // dh
+    xf = x.float()
+    # the token shift and the mixes: a ``model.ddlerp`` span while spans
+    # are made, its backward an interval from the last of the five
+    # outputs' gradients to x's
+    with tel.span("model.ddlerp"):
+        x_prev = _shifted(xf, None if state is None else state["x_prev"])
+        mixes = (_finch_mixes if cfg.rwkv_block == "finch"
+                 else _simplified_mixes)
+        xr, xk, xv, xg, w = mixes(params, xf, x_prev - xf)
+    if tel.recording():
+        trace_backward("model.ddlerp.backward", (xr, xk, xv, xg, w), x)
 
     r = torch.einsum("bsd,de->bse", xr, params["wr"].float())
     k = torch.einsum("bsd,de->bse", xk, params["wk"].float())
     v = torch.einsum("bsd,de->bse", xv, params["wv"].float())
-    g = torch.einsum("bsd,de->bse", xg, params["wg"].float())
-    # data-dependent decay (the Finch signature): w in (0,1)
-    w = torch.exp(-torch.exp(params["decay_base"] + xw))
+    g = F.silu(torch.einsum("bsd,de->bse", xg, params["wg"].float()))
 
     hd = lambda a: split_heads(a, h, dh)
     u = params["u"].float().reshape(h, dh)
     s0 = state["s"] if state is not None else None
-    y, s_new = _wkv6_scan_local(hd(r), hd(k), hd(v), hd(w), u, s0)
+    y, s_new = _scan(hd(r), hd(k), hd(v), hd(w), u, s0)
     # group-norm per head (ln_x), then output gate
     yh = y.reshape(b, s, h, dh)
     yh = (yh - yh.mean(-1, keepdim=True)) * torch.rsqrt(
-        yh.var(-1, keepdim=True, correction=0) + 1e-5)
+        yh.var(-1, keepdim=True, correction=0) + GN_EPS[cfg.rwkv_block])
     y = merge_heads(yh) * params["ln_x"]
-    y = y * F.silu(g)
+    if cfg.rwkv_block == "finch":
+        y = y + params["ln_x_b"]
+    y = y * g
     out = shard(einsum("bsd,de->bse", y.to(x.dtype), params["wo"]),
                 "residual")
     if state is not None:
@@ -255,8 +369,13 @@ def rwkv_mixer(params, x, cfg: ModelConfig, state: dict | None = None):
 
 def init_rwkv_channel(key: InitKey, cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"mu_k": init_dense(key, (d,), scale=0.5, dtype="float32"),
-            "mu_r": init_dense(key, (d,), scale=0.5, dtype="float32"),
+    if cfg.rwkv_block == "finch":
+        mix = {"maa_k": init_full(key, (d,), 0.5),
+               "maa_r": init_full(key, (d,), 0.5)}
+    else:
+        mix = {"mu_k": init_dense(key, (d,), scale=0.5, dtype="float32"),
+               "mu_r": init_dense(key, (d,), scale=0.5, dtype="float32")}
+    return {**mix,
             "wk": init_dense(key, (d, f), dtype=cfg.dtype),
             "wv": init_dense(key, (f, d), dtype=cfg.dtype),
             "wr": init_dense(key, (d, d), dtype=cfg.dtype)}
@@ -264,21 +383,26 @@ def init_rwkv_channel(key: InitKey, cfg: ModelConfig) -> dict:
 
 def rwkv_channel_mix(params, x, cfg: ModelConfig,
                      x_prev: torch.Tensor | None = None):
-    """RWKV channel-mix ("FFN") with token shift. x: [B, S, D]."""
-    xf = x.float()
-    if x_prev is None:
-        prev = _front_pad(xf, 1)[:, :-1]
-    else:
-        prev = x_prev[:, None, :]
-    delta = prev - xf
-    xk = xf + delta * torch.sigmoid(params["mu_k"])
-    xr = xf + delta * torch.sigmoid(params["mu_r"])
-    kk = einsum("bsd,df->bsf", xk.to(x.dtype), params["wk"])
-    kk = torch.square(torch.relu(kk.float())).to(x.dtype)
-    vv = einsum("bsf,fd->bsd", kk, params["wv"])
-    rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
-                                    params["wr"].float()))
-    out = shard(rr.to(x.dtype) * vv, "residual")
+    """RWKV channel-mix ("FFN") with token shift. x: [B, S, D]. While
+    spans are made, inside a ``model.channel_mix`` span, its backward a
+    ``model.channel_mix.backward`` interval (x is read by it alone)."""
+    with tel.span("model.channel_mix"):
+        xf = x.float()
+        delta = _shifted(xf, x_prev) - xf
+        if cfg.rwkv_block == "finch":
+            xk = xf + delta * params["maa_k"]
+            xr = xf + delta * params["maa_r"]
+        else:
+            xk = xf + delta * torch.sigmoid(params["mu_k"])
+            xr = xf + delta * torch.sigmoid(params["mu_r"])
+        kk = einsum("bsd,df->bsf", xk.to(x.dtype), params["wk"])
+        kk = torch.square(torch.relu(kk.float())).to(x.dtype)
+        vv = einsum("bsf,fd->bsd", kk, params["wv"])
+        rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
+                                        params["wr"].float()))
+        out = shard(rr.to(x.dtype) * vv, "residual")
+    if tel.recording():
+        trace_backward("model.channel_mix.backward", out, x)
     if x_prev is not None:
         return out, xf[:, -1]
     return out

@@ -20,7 +20,6 @@ f32 logits tensor is never materialized.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -33,8 +32,8 @@ from . import moe as moe_lib
 from . import recurrent as rec
 from .common import (InitKey, _block, _rows_of, _sum_over, batch_local,
                      einsum, embed, ffn, init_dense, init_embed,
-                     init_ffn, init_full, merge_heads, rms_norm, settle,
-                     shard, split_heads, unembed)
+                     init_ffn, init_full, layer_norm, merge_heads, rms_norm,
+                     settle, shard, split_heads, trace_backward, unembed)
 from .config import ModelConfig
 
 
@@ -67,9 +66,17 @@ def _init_mixer(key, kind: str, cfg: ModelConfig) -> dict:
 
 def _init_block(key, kind: str, cfg: ModelConfig, use_moe: bool) -> dict:
     d = cfg.d_model
-    p = {"ln1": init_full(key, (d,), 0.0),
-         "ln2": init_full(key, (d,), 0.0),
-         "mixer": _init_mixer(key, kind, cfg)}
+    if cfg.rwkv_block == "finch":
+        # LayerNorms: weight 1, bias 0
+        p = {"ln1": init_full(key, (d,), 1.0),
+             "ln1_b": init_full(key, (d,), 0.0),
+             "ln2": init_full(key, (d,), 1.0),
+             "ln2_b": init_full(key, (d,), 0.0)}
+    else:
+        # RMS norms: the scale an offset from 1
+        p = {"ln1": init_full(key, (d,), 0.0),
+             "ln2": init_full(key, (d,), 0.0)}
+    p["mixer"] = _init_mixer(key, kind, cfg)
     if kind == "rwkv":
         p["ffn"] = rec.init_rwkv_channel(key, cfg)
     elif use_moe:
@@ -141,20 +148,23 @@ def _traced_mixer(params, h, pos, kind: str, cfg: ModelConfig, cache,
     label = "mla" if cfg.mla and kind in ("attn", "local") else kind
     with tel.span("model.mixer", kind=label):
         r, new_cache = _mixer(params, h, pos, kind, cfg, cache, mrope_pos)
-    if r.requires_grad and h.requires_grad:
-        opened = []
-        r.register_hook(lambda g: opened.append(time.perf_counter()))
-        h.register_hook(lambda g: tel.record(
-            "model.mixer.backward", opened.pop(), time.perf_counter(),
-            kind=label) if opened else None)
+    trace_backward("model.mixer.backward", r, h, kind=label)
     return r, new_cache
+
+
+def _block_norm(params, name: str, x, cfg: ModelConfig):
+    """The block's norm ``name`` of ``x``: LayerNorm with bias in the Finch
+    block, else the RMS norm."""
+    if cfg.rwkv_block == "finch":
+        return layer_norm(x, params[name], params[f"{name}_b"], cfg.norm_eps)
+    return rms_norm(x, params[name], cfg.norm_eps)
 
 
 def _apply_block(params, x, pos, kind: str, cfg: ModelConfig, use_moe: bool,
                  cache=None, enc_kv=None, mrope_pos=None):
     """Returns (x, new_cache, aux)."""
     aux = {}
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    h = _block_norm(params, "ln1", x, cfg)
     mixer = _traced_mixer if tel.recording() else _mixer
     r, new_cache = mixer(params["mixer"], h, pos, kind, cfg, cache,
                          mrope_pos)
@@ -162,7 +172,7 @@ def _apply_block(params, x, pos, kind: str, cfg: ModelConfig, use_moe: bool,
     if cfg.is_encdec and enc_kv is not None:
         hx = rms_norm(x, params["ln_x"], cfg.norm_eps)
         x = x + attn.cross_attention(params["cross"], hx, enc_kv, cfg)
-    h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
+    h2 = _block_norm(params, "ln2", x, cfg)
     if kind == "rwkv":
         if cache is not None:
             f, chan_prev = rec.rwkv_channel_mix(params["ffn"], h2, cfg,
@@ -273,8 +283,11 @@ class Transformer:
         return rms_norm(x, params["enc"]["final_ln"], cfg.norm_eps)
 
     # ------------------------------------------------------------ trunk
-    def _trunk(self, params, x, pos, enc_kvs=None, mrope_pos=None):
-        """Full-sequence trunk (train/prefill). Returns (hidden, aux)."""
+    def _trunk(self, params, x, pos, enc_kvs=None, mrope_pos=None,
+               out_dtype=None):
+        """Full-sequence trunk (train/prefill). Returns (hidden, aux), the
+        hidden states after the final norm in ``out_dtype`` (by default
+        the stream's)."""
         cfg = self.cfg
         prelude, pattern, n_cycles, tail = _layer_kinds(cfg)
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -318,7 +331,7 @@ class Transformer:
                 aux_sum = aux_sum + aux["load_balance"]
                 drop_sum = drop_sum + aux["dropped_frac"]
             li += 1
-        x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        x = rms_norm(x, params["final_ln"], cfg.norm_eps, out_dtype)
         return x, {"load_balance": aux_sum, "dropped": drop_sum}
 
     # ------------------------------------------------------------ losses
@@ -334,13 +347,16 @@ class Transformer:
         if cfg.is_encdec:
             enc_out = self.encode(params, batch["frames"])
             enc_kvs = self._cross_kvs(params, enc_out)
+        # the final norm's output in float32, so the head's gradient
+        # reaches the norm's float32 backward unrounded (``_FloatLogits``)
         h, aux = self._trunk(params, x, pos, enc_kvs,
-                             mrope_pos=batch.get("mrope_pos"))
+                             mrope_pos=batch.get("mrope_pos"),
+                             out_dtype=torch.float32)
         loss = _chunked_ce(params["embed"], h, batch["labels"], cfg)
         total = loss + 0.01 * aux["load_balance"]
         if cfg.mtp:
-            total = total + 0.3 * self._mtp_loss(params, h, tokens,
-                                                 batch["labels"], pos)
+            total = total + 0.3 * self._mtp_loss(
+                params, h.to(x.dtype), tokens, batch["labels"], pos)
         return total, dict(aux, ce=loss)
 
     def _mtp_loss(self, params, h, tokens, labels, pos):
@@ -497,9 +513,44 @@ def _gold(logits, lx):
     return settle(_sum_over(picked, mesh, vocab, bpl))
 
 
+class _FloatLogits(torch.autograd.Function):
+    """``x @ w`` as float32 logits, the product in w's dtype (x is cast to
+    it). The backward hands x's gradient back in float32.
+
+    The mean over n labelled positions makes the gold token's gradient,
+    -(1 - p) / n, nearly one number at every position while p is small
+    (as at initialisation). Rounded once to bf16 it is off by the same
+    share everywhere (-0.2 % at n = 2,044), and every gradient of the
+    model below the head would be scaled by it. So x's gradient takes two
+    products, of hi = g rounded and of lo = g - hi rounded, summed in
+    float32: with a float32 x (the final norm's output) the rounding to
+    bf16 waits for the norm's backward, where each element differs. w's
+    gradient takes hi alone: a gold column seen once stays a bf16 value
+    over n, off by that share whatever the rounding."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xw = x.to(w.dtype)
+        ctx.save_for_backward(xw, w)
+        ctx.x_dtype = x.dtype
+        return shard(einsum("...d,dv->...v", xw, w), "logits").float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        hi = g.to(w.dtype)
+        dx = einsum("...v,dv->...d", hi, w).float()
+        if w.dtype != torch.float32:
+            lo = torch.sub(g, hi, out=torch.empty_like(hi))
+            dx = dx + einsum("...v,dv->...d", lo, w).float()
+        return dx.to(ctx.x_dtype), einsum("...d,...v->dv", x, hi)
+
+
 def _ce_chunk(embed_params, hx, lx, cfg: ModelConfig):
     """(summed CE, count of labelled positions) of one sequence chunk."""
-    logits = unembed(embed_params, hx, cfg).float()
+    w = (embed_params["tok"].T if cfg.tie_embeddings
+         else embed_params["head"])
+    logits = _FloatLogits.apply(hx, w)
     logz = _logsumexp(logits)
     gold = _gold(logits, lx)
     valid = (lx >= 0).float()

@@ -10,11 +10,26 @@ import torch
 
 from repro.configs import get_config as jx_get_config
 from repro.models import build as jx_build
+from repro.models.config import ModelConfig as JxModelConfig
 from repro_torch.configs import get_config
 from repro_torch.models import build, params_from_numpy
 
 B, S = 2, 16
 DECODE_STEPS = 3
+# the field the port adds to ModelConfig (rwkv_block)
+PORT_FIELDS = tuple(
+    f.name for f in dataclasses.fields(get_config("rwkv6-3b"))
+    if f.name not in {g.name for g in dataclasses.fields(JxModelConfig)})
+
+
+def jax_form(cfg):
+    """``cfg`` with every field the port adds to ``ModelConfig`` at its
+    default, the JAX package's form: the model the JAX package builds
+    from the config of the same name (rwkv6-3b's published Finch block
+    back to the JAX package's simplified one)."""
+    return dataclasses.replace(cfg, **{
+        f.name: f.default for f in dataclasses.fields(cfg)
+        if f.name in PORT_FIELDS})
 
 
 def _np_batch(cfg, seed=0) -> dict:

@@ -18,7 +18,9 @@ differences of the port's program are taken out (``_attributed``,
 ``_attributed_bytes``): the port skips the attention chunk pairs the
 causal mask or the local window hides entirely (the reference computes all
 of them), it recomputes each cross-entropy chunk's logits in the backward
-pass (the reference saves them), and its eager decode step of an
+pass (the reference saves them) and takes the hidden state's gradient
+there from two products, of the logits' gradient rounded and of its
+rounding error (``transformer._FloatLogits``), and its eager decode step of an
 attention-free model holds the position scalar the reference's jit drops
 as unused. The scans are one op each and charged by
 ``analysis.opcount``'s rule, the reference's scan-body products times its
@@ -143,8 +145,9 @@ def _attributed(arch: str, kind: str) -> float:
     if kind == "train":
         # forward 2, recomputed 2, backward 4 products a pair
         ce = 2 * b_loc * (-(-SEQ // 512) * 512) * cfg.d_model \
-            * (cfg.vocab // 4)                   # one recomputed logits
-        return ce - skipped * 8 * pair
+            * (cfg.vocab // 4)                   # one logits product
+        # the recomputed logits and the hidden state's second product
+        return 2 * ce - skipped * 8 * pair
     return 0.0
 
 

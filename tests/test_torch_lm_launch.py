@@ -36,6 +36,7 @@ from repro.launch.steps import make_train_step as jx_make_train_step
 from repro.models import build as jx_build
 from repro.optim import AdamWConfig as JxAdamWConfig
 from repro.optim import adamw_init as jx_adamw_init
+from _lm_cases import jax_form
 from repro_torch import _tree
 from repro_torch.analysis.roofline import H100, RooflineTerms, model_flops
 from repro_torch.checkpoint import CheckpointManager
@@ -277,8 +278,9 @@ def test_serve_buckets_mixed_lengths():
 def test_model_flops_match_reference(arch):
     for kind in ("train", "prefill", "decode"):
         for n in (1, 4096 * 256):
-            assert model_flops(get_config(arch), n, kind) == jx_model_flops(
-                jx_get_config(arch), n, kind)
+            assert model_flops(jax_form(get_config(arch)), n,
+                               kind) == jx_model_flops(jx_get_config(arch),
+                                                       n, kind)
 
 
 def test_useful_ratio_matches_reference():

@@ -8,7 +8,9 @@ is allocated), and both rule sets read a stand-in mesh with ``.shape``
 and ``.axis_names``. The specs must be equal entry for entry, on every
 mesh, with FSDP defaulted and forced; so must the optimizer, activation,
 batch and cache rules and ``preferred_tp``. ``placements`` turns a spec
-into DTensor placements.
+into DTensor placements. rwkv6-3b is held in the JAX package's form
+(``_lm_cases.jax_form``): its full config is the published Finch block,
+whose leaves the reference does not have.
 """
 import functools
 
@@ -18,6 +20,7 @@ import pytest
 from jax.sharding import PartitionSpec as JP
 from torch.distributed.tensor import Replicate, Shard
 
+from _lm_cases import jax_form
 from repro.configs import ARCHS, SHAPES, get_config as jx_get_config
 from repro.distributed import sharding as R
 from repro.launch.mesh import preferred_tp as jx_preferred_tp
@@ -52,7 +55,7 @@ MESHES = {
 def _params(arch):
     ref = jax.eval_shape(jx_build(jx_get_config(arch)).init,
                          jax.random.key(0))
-    port = build(get_config(arch)).init(InitKey.abstract())
+    port = build(jax_form(get_config(arch))).init(InitKey.abstract())
     return ref, port
 
 
@@ -62,7 +65,8 @@ def _caches(arch):
     b, s = spec.global_batch, spec.seq_len
     ref = jax.eval_shape(functools.partial(
         jx_build(jx_get_config(arch)).init_caches, b, s))
-    port = build(get_config(arch)).init_caches(b, s, device="meta")
+    port = build(jax_form(get_config(arch))).init_caches(b, s,
+                                                         device="meta")
     return ref, port
 
 
@@ -84,7 +88,8 @@ def test_param_and_optimizer_specs_match_reference(arch, mesh):
     m = MESHES[mesh]
     for fsdp in (None, True):
         r = R.param_shardings(ref, jx_get_config(arch), m, fsdp=fsdp)
-        p = S.param_shardings(port, get_config(arch), m, fsdp=fsdp)
+        p = S.param_shardings(port, jax_form(get_config(arch)), m,
+                              fsdp=fsdp)
         assert _port_specs(p) == _ref_specs(r), (arch, mesh, fsdp)
         ro = R.optimizer_shardings(r, ref, m)
         po = S.optimizer_shardings(p, port, m)
@@ -95,7 +100,7 @@ def test_param_and_optimizer_specs_match_reference(arch, mesh):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_activation_batch_and_cache_specs_match_reference(arch, mesh):
     m = MESHES[mesh]
-    jc, pc = jx_get_config(arch), get_config(arch)
+    jc, pc = jx_get_config(arch), jax_form(get_config(arch))
     for sp in (False, True):
         r = R.activation_rules(jc, m, seq_parallel=sp)
         p = S.activation_rules(pc, m, seq_parallel=sp)
@@ -129,7 +134,7 @@ def test_abstract_params_and_caches_have_the_reference_shapes():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_preferred_tp_matches_reference(arch):
-    cfg, jc = get_config(arch), jx_get_config(arch)
+    cfg, jc = jax_form(get_config(arch)), jx_get_config(arch)
     for n in (1, 2, 4, 8, 16, 32, 64, 256, 512):
         for max_tp in (16, 8):
             assert preferred_tp(cfg, n, max_tp) == \
