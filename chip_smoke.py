@@ -199,6 +199,9 @@ Phases, each printing its lines, each failing the run on any error:
          repro_torch.examples.taxi_forecast --nodes 10000 --steps 150``,
          its Table-1 lines equal to the cost model's in this process. Over
          path G ``fused_ideal_layer`` and ``csr_aggregate`` must launch.
+         On the card ``adamw_update`` updates its tree in place, so the
+         profiled steps and G1's training get clones of what is read
+         afterwards.
        * path H, the SPMD runtime (``launch.mesh``, the SPMD forwards of
          ``distributed.halo``), on the collab 0.1 plans before path D
          mutates them: H1 a world of one rank on NCCL, a decentralized
@@ -248,7 +251,8 @@ Phases, each printing its lines, each failing the run on any error:
          ``launch.train --mesh``, ``launch.elastic``, ``launch.dryrun``),
          which launches none of the six kernels: J1 ``train(mesh="1x1")``
          on a world of one NCCL rank at I1's size, seed and batches (the
-         DTensor path), its losses within 1e-5 relative and every
+         DTensor path; AdamW's kernels on its blocks, every step a
+         ``dtensor`` call of ``update_paths()``), its losses within 1e-5 relative and every
          parameter within 1e-4 of its leaf's max|ref| of I1's, ms a step
          beside I1's and peak memory; J2 F7's probe (two ranks sharing
          cuda:0: gloo's plain all-gather and the functional one through
@@ -323,6 +327,20 @@ Phases, each printing its lines, each failing the run on any error:
          max|ref| + |ref|) of the cacheless forward, the forward without
          the window outside that tolerance, the cache ending on the last
          positions.
+       * path N (after path M), the AdamW kernels (``csrc/adamw.cu``,
+         ``kernels.optim``) through ``optim.adamw_update``: the leaves of
+         internlm2-1.8b and rwkv6-3b at full size (with their own
+         gradient dtypes, and internlm2's with float32 gradients, the
+         accumulation path's), leaves of 1, 7, 32,795 and 734,003,200
+         elements and one off 16-byte alignment for each (parameter,
+         gradient) dtype pair, and 100 leaves (more than a launch takes):
+         the tensors handed back are those handed in, p, m and v equal
+         bit for bit to the plain version's (``kernels.optim.ref``) given
+         the kernel's clip scale, the norm within 1e-6 of a float64 sum
+         and equal on a second run; the kernels timed (CUDA events) beside
+         their bound and the plain version; then ``train()`` at I1's size
+         for 3 steps: one ``kernel`` call of ``adamw_update`` and 2 + 2
+         launches a step.
   4. each kernel's time (CUDA events) beside its plain version's, its
      bound on an H100 SXM and, for aggregation, ``torch.sparse.mm`` of the
      CSR sample matrix as the library yardstick: the serving kernels at
@@ -356,6 +374,8 @@ port's route) reported, not raised.
 steps, each timed with the allocator's counts and profiled), on the
 package beside the script: copied into another checkout, it compares
 that checkout's K1 with this one's on the same card.
+
+``python3 chip_smoke.py --adamw`` runs only path N.
 
 ``python3 chip_smoke.py --f6-loop ROUNDS`` runs none of that: it loops
 path H1's eight cases ROUNDS times with CUDA_LAUNCH_BLOCKING=1 and a
@@ -420,9 +440,11 @@ from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
                                     save_checkpoint)
 from repro_torch.core import taxi  # noqa: E402
 from repro_torch.examples import taxi_forecast  # noqa: E402
+from repro_torch.kernels import optim as kopt  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
                                adamw_update, compressed_psum, int8_compress,
-                               int8_decompress)
+                               int8_decompress, reset_update_paths,
+                               update_paths)
 from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
 from repro_torch.tuning import (AggregateGeometry, CamGeometry,  # noqa: E402
                                 CrossbarGeometry, FusedGeometry, TuneCache,
@@ -2219,10 +2241,16 @@ def learnable_labels(x: torch.Tensor, n_classes: int, seed: int):
     return torch.argmax(x @ r, dim=-1).to(torch.int32)
 
 
+def clones(tree):
+    """A copy of every leaf: ``adamw_update`` on the card writes over the
+    tree it is handed."""
+    return _tree.tree_map(torch.clone, tree)
+
+
 def train(grad, params, opt_cfg: AdamWConfig, steps: int) -> tuple:
     """(params, losses, ms per step): ``steps`` AdamW steps of
     ``grad(params, step) -> (loss, grads)``, each on the host clock
-    between two device syncs."""
+    between two device syncs; ``params`` is updated in place."""
     opt = adamw_init(params)
     losses, times = [], []
     for step in range(steps):
@@ -2394,13 +2422,13 @@ def path_g1(plan_c, x1, nbr, wts, g01, device) -> float:
     labels = learnable_labels(x1, OUT, seed=0)
     initial = gnn.init_params(cfg, seed=1, device=device)
     params, losses, times = train(
-        lambda p, _: gnn.grad_fn(p, x1, nbr, wts, labels, cfg), initial,
-        G1_OPT, G1_STEPS)
+        lambda p, _: gnn.grad_fn(p, x1, nbr, wts, labels, cfg),
+        clones(initial), G1_OPT, G1_STEPS)
     print(f"[pathG] G1 collab 1.0 ({x1.shape[0]} nodes, {cfg.dims}): "
           f"{G1_STEPS} AdamW steps, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}", flush=True)
     step_profile("G1", lambda: adamw_update(
-        params, gnn.grad_fn(params, x1, nbr, wts, labels, cfg)[1],
+        clones(params), gnn.grad_fn(params, x1, nbr, wts, labels, cfg)[1],
         adamw_init(params), G1_OPT))
 
     # the card's gradients against the host's at collab 0.1: held at the
@@ -2489,7 +2517,7 @@ def path_g2(device) -> float:
     params = taxi.init_params(cfg, seed=1, device=device)
     params, losses, times = train(grad, params, G2_OPT, G2_STEPS)
     step_profile("G2", lambda: adamw_update(
-        params, grad(params, 0)[1], adamw_init(params), G2_OPT))
+        clones(params), grad(params, 0)[1], adamw_init(params), G2_OPT))
     learned = losses[-1] < 0.5 * losses[0]
     print(f"[pathG] G2 taxi {n} nodes ({cfg}): {G2_STEPS} AdamW steps, mse "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -3331,6 +3359,7 @@ def path_j1(device, card: str, i1: dict) -> float:
             losses.append(float(metrics["loss"]))
 
         t0 = time.perf_counter()
+        reset_update_paths()
         lm_train.train(lm_train.TrainConfig(
             arch=I_ARCH, smoke=False, steps=I1_STEPS, batch=I1_BATCH,
             seq=I1_SEQ, lr=I1_LR, log_every=I1_STEPS, device=str(device),
@@ -3339,6 +3368,9 @@ def path_j1(device, card: str, i1: dict) -> float:
                    "on_end": lambda p, o: final.update(params=p)})
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         own = peak - held / 2 ** 30
+        require(update_paths() == {"kernel": 0, "plain": 0,
+                                   "dtensor": I1_STEPS},
+                f"J1: adamw_update by path {update_paths()}")
         got = [full(x) for x in _tree.leaves(final.pop("params"))]
         verdict = j_check("J1", losses, i1["losses"],
                           leaf_errs(got, i1["params"]))
@@ -3818,10 +3850,13 @@ def path_j(device, card: str, i1: dict) -> None:
     path_j2_host(card)
     path_j4(card, j1_peak)
     print(f"[pathJ] launches over path J {json.dumps(counts)} (no GNN "
-          f"kernel; flash attention takes J1's bf16 attention); "
+          f"kernel; flash attention takes J1's bf16 attention, AdamW's "
+          f"kernels the DTensor steps' blocks); "
           f"{time.perf_counter() - t0:.1f} s in all; {card}", flush=True)
     require(not any(counts[k] for k in KERNELS),
             "path J launched a GNN kernel")
+    require(all(counts[k] for k in ADAMW_KERNELS),
+            "path J's DTensor steps launched no AdamW kernel")
 
 
 # ------------------------------------------------------------------ path K
@@ -3838,7 +3873,8 @@ SCAN_KERNELS = {   # name -> (source, the reference's scan it replaces)
                   "src/repro/models/recurrent.py:151"),
 }
 FLASH_KERNELS = ("flash_attention_forward", "flash_attention_backward")
-ALL_KERNELS = (*KERNELS, *SCAN_KERNELS, *FLASH_KERNELS)
+ADAMW_KERNELS = ("adamw_norm", "adamw_update")
+ALL_KERNELS = (*KERNELS, *SCAN_KERNELS, *FLASH_KERNELS, *ADAMW_KERNELS)
 K1_ARCH, K2_ARCH = "rwkv6-3b", "recurrentgemma-9b"
 K1_BATCH, K1_SEQ, K1_STEPS, K1_LR = I1_BATCH, I1_SEQ, 6, I1_LR
 K2_SEQ, K2_SLOTS, K2_CAPACITY, K2_NEW = 4096, 4, 64, 8
@@ -4327,10 +4363,13 @@ def path_k1(device, card: str) -> dict:
     t0 = time.perf_counter()
     final = {}
     reset_launch_counts()
+    reset_update_paths()
     out = lm_train.train(k1_config(device), hooks={
         "on_step": on_step, "on_end": lambda p, o: final.update(params=p)})
     torch.cuda.synchronize()
     counts = launch_counts()
+    require(update_paths() == {"kernel": K1_STEPS, "plain": 0, "dtensor": 0},
+            f"K1: adamw_update by path {update_paths()}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     require(out["last_step"] == K1_STEPS - 1 and all(np.isfinite(losses)),
             f"K1: training did not run its steps with finite losses: "
@@ -4371,7 +4410,9 @@ def path_k1(device, card: str) -> dict:
           + f"); {ms:.3f} ms a step (host clock between syncs, median after "
           f"the first), {tokens / (ms / 1e3):,.0f} tokens/s, model FLOPs "
           f"{share:.4f} of the bf16 peak; peak memory {peak:.2f} GiB; "
-          f"launches {json.dumps({k: counts[k] for k in SCAN_KERNELS})}; "
+          f"launches {json.dumps({k: counts[k] for k in SCAN_KERNELS})}, "
+          f"{json.dumps({k: counts[k] for k in ADAMW_KERNELS})} (adamw_update "
+          f"by path {json.dumps(update_paths())}); "
           f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
     steps = np.diff(stamps) * 1e3
     per_step = np.diff(np.stack(allocs), axis=0)
@@ -5092,7 +5133,7 @@ def flash_paths() -> None:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}", flush=True)
     t0 = time.perf_counter()
-    logs = _build.build_all(("flash_attention", *SCAN_KERNELS))
+    logs = _build.build_all(("flash_attention", "adamw", *SCAN_KERNELS))
     print(f"[build] {len(logs)} sources built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -5135,6 +5176,189 @@ def path_m(card: str) -> dict:
     require(not slow, f"path M: the host's ms a kernel call under autograd "
             f"reached {M_HOST_MS}: {slow}")
     return {"checks": rows, "timings": timings, "host": host}
+
+
+# ------------------------------------------------------------------ path N
+
+# The AdamW kernels at the benchmark's leaves (the cells' optimizer,
+# perfbench/traffic, at step N_STEP), at ragged sizes (the last rwkv6-3b's
+# largest leaf) for each (parameter, gradient) dtype pair, and past one
+# launch's leaves; then train() at I1's size for N_TRAIN_STEPS steps.
+N_ARCHS = ("internlm2-1.8b", "rwkv6-3b")
+N_OPT = AdamWConfig(lr=3e-4, warmup=1)
+N_STEP = 3
+N_RAGGED = (1, 7, 8 * 4099 + 3, 734_003_200)
+N_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+           (torch.bfloat16, torch.float32))
+N_MANY = 100
+N_TRAIN_STEPS = 3
+
+
+def n_leaf(spec, seed: int) -> tuple:
+    """(p, g, m, v) of one leaf on the card, the same for the same seed:
+    p ~ N(0, 0.02), g ~ N(0, 1e-3) in their dtypes, m ~ N(0, 1e-4) and
+    v = N(0, 1e-3)^2 in float32. ``spec`` (shape, p dtype, g dtype,
+    offset): p is a view ``offset`` elements into its storage."""
+    shape, p_dtype, g_dtype, offset = spec
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draw = lambda s, n=0: torch.randn(
+        (math.prod(shape) + n,), generator=gen, device="cuda") * s
+    p = draw(0.02, offset).to(p_dtype)[offset:].view(shape)
+    g = draw(1e-3).to(g_dtype).view(shape)
+    return p, g, draw(1e-4).view(shape), draw(1e-3).square_().view(shape)
+
+
+def n_bytes(specs) -> tuple:
+    """(the update's bytes, the norm's): p, g, m, v read and p, m, v
+    written once; g read once more."""
+    size = lambda d: torch.empty((), dtype=d).element_size()
+    n = [math.prod(s) for s, *_ in specs]
+    return (sum(k * (2 * size(p) + size(g) + 16)
+                for k, (_, p, g, _o) in zip(n, specs)),
+            sum(k * size(g) for k, (_, _p, g, _o) in zip(n, specs)))
+
+
+def n_schedule(step):
+    """``adamw_update``'s lr and bias corrections at ``step``, op for op."""
+    warmup = torch.full((), float(max(N_OPT.warmup, 1)), device=step.device)
+    return (N_OPT.lr * torch.clamp_max(step.float() / warmup, 1.0),
+            1.0 - N_OPT.b1 ** step.float(), 1.0 - N_OPT.b2 ** step.float())
+
+
+def n_plain(p, g, m, v) -> None:
+    """One step of the plain version over the leaves, its results
+    dropped leaf by leaf (the composed path's work)."""
+    scale, _ = kopt.clip_scale(g, N_OPT.clip_norm)
+    lr, b1c, b2c = n_schedule(torch.full((), N_STEP, device="cuda"))
+    for leaf in zip(p, g, m, v):
+        kopt.adamw_leaf(*leaf, scale, lr, b1c, b2c, N_OPT)
+
+
+def n_case(label: str, specs: list, timed: bool, card: str) -> dict:
+    """One tree of leaves ``specs`` through ``optim.adamw_update`` on the
+    card: the tensors it hands back are those it was handed; p, m and v
+    equal bit for bit to the plain version's on the same draws given the
+    kernel's clip scale; the kernel's norm equal on two runs and within
+    1e-6 of a float64 sum. With ``timed``, the kernels and the plain
+    version timed (CUDA events) beside the bound."""
+    t0 = time.perf_counter()
+    p, g, m, v = (list(x) for x in zip(*(n_leaf(s, 1000 + i)
+                                          for i, s in enumerate(specs))))
+    scale, gn = kopt.adamw_norm(g, N_OPT.clip_norm)
+    scale2, gn2 = kopt.adamw_norm(g, N_OPT.clip_norm)
+    want_gn = math.sqrt(sum(float(t.double().square_().sum()) for t in g))
+    rel = abs(float(gn) - want_gn) / want_gn
+    require(torch.equal(gn, gn2) and torch.equal(scale, scale2),
+            f"N {label}: two runs of the norm differ: {float(gn)!r}, "
+            f"{float(gn2)!r}")
+    require(rel <= 1e-6, f"N {label}: the norm {float(gn)!r} is {rel:.3e} "
+            f"off the float64 sum {want_gn!r}")
+    state = {"m": m, "v": v, "step": torch.tensor(N_STEP - 1,
+                                                   dtype=torch.int32,
+                                                   device="cuda")}
+    ptrs = [t.data_ptr() for t in p + m + v]
+    reset_update_paths()
+    got_p, got_s, got_gn = adamw_update(p, g, state, N_OPT)
+    torch.cuda.synchronize()
+    require(update_paths() == {"kernel": 1, "plain": 0, "dtensor": 0},
+            f"N {label}: adamw_update by path {update_paths()}")
+    require(got_p is p and got_s["m"] is m and got_s["v"] is v
+            and [t.data_ptr() for t in p + m + v] == ptrs
+            and torch.equal(got_gn, gn), f"N {label}: adamw_update did not "
+            f"hand back the tensors it was handed, or another norm")
+    lr, b1c, b2c = n_schedule(got_s["step"])
+    bad = []
+    for i, spec in enumerate(specs):
+        want = kopt.adamw_leaf(*n_leaf(spec, 1000 + i), scale, lr, b1c, b2c,
+                               N_OPT)
+        for name, got, w in zip("pmv", (p[i], m[i], v[i]), want):
+            if not torch.equal(got, w):
+                bad.append(f"leaf {i} {spec[0]} {name}: "
+                           f"{int((got != w).sum())} elements differ")
+        del want
+    require(not bad, f"N {label}: the kernel is off the plain version: "
+            + "; ".join(bad[:6]))
+    pairs = sorted({(str(s[1]).split(".")[1], str(s[2]).split(".")[1])
+                    for s in specs})
+    row = dict(case=label, leaves=len(specs),
+               elements=sum(math.prod(s[0]) for s in specs),
+               pairs=["/".join(x) for x in pairs], norm_rel=rel,
+               equal="bit for bit")
+    if timed:
+        upd_b, norm_b = n_bytes(specs)
+        row["norm_ms"] = cuda_ms(lambda: kopt.adamw_norm(g, N_OPT.clip_norm),
+                                 5)
+        row["update_ms"] = cuda_ms(lambda: kopt.adamw_update(
+            p, g, m, v, scale, lr, b1c, b2c, N_OPT), 5)
+        row["kernel_ms"] = row["norm_ms"] + row["update_ms"]
+        row["bound_ms"] = (upd_b + norm_b) / HBM_BPS * 1e3
+        row["roofline"] = row["bound_ms"] / row["kernel_ms"]
+        row["plain_ms"] = cuda_ms(lambda: n_plain(p, g, m, v), 2)
+    row["s"] = round(time.perf_counter() - t0, 1)
+    print(f"[pathN] {json.dumps(row)}; {card}", flush=True)
+    del p, g, m, v, state, got_p, got_s
+    torch.cuda.empty_cache()
+    return row
+
+
+def n_train(card: str) -> dict:
+    """``train()`` at I1's size for N_TRAIN_STEPS steps: ``adamw_update``
+    takes the kernels every step, 2 norm launches a step and one update
+    launch a dtype pair (internlm2-1.8b: bf16 and float32 leaves)."""
+    reset_update_paths()
+    reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm_train.train(lm_train.TrainConfig(
+        arch=I_ARCH, smoke=False, steps=N_TRAIN_STEPS, batch=I1_BATCH,
+        seq=I1_SEQ, lr=I1_LR, log_every=N_TRAIN_STEPS, device="cuda"))
+    torch.cuda.synchronize()
+    paths, counts = update_paths(), launch_counts()
+    row = dict(arch=I_ARCH, steps=N_TRAIN_STEPS, paths=paths,
+               launches={k: counts[k] for k in ADAMW_KERNELS},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               s=round(time.perf_counter() - t0, 1))
+    print(f"[pathN] train() {json.dumps(row)}; {card}", flush=True)
+    require(paths == {"kernel": N_TRAIN_STEPS, "plain": 0, "dtensor": 0}
+            and row["launches"] == {"adamw_norm": 2 * N_TRAIN_STEPS,
+                                    "adamw_update": 2 * N_TRAIN_STEPS},
+            f"N train(): adamw_update by path {paths}, launches "
+            f"{row['launches']}")
+    return row
+
+
+def path_n(card: str) -> dict:
+    """Path N; returns the record of the kernels line."""
+    t0 = time.perf_counter()
+    _build.build_all(("adamw",))
+    reset_launch_counts()
+    rows = []
+    for arch in N_ARCHS:
+        leaves = _tree.leaves(lm_models.build(lm_configs.get_config(
+            arch)).init(lm_common.InitKey.abstract()))
+        rows.append(n_case(arch, [(tuple(t.shape), t.dtype, t.dtype, 0)
+                                  for t in leaves], True, card))
+        if arch == I_ARCH:
+            rows.append(n_case(f"{arch}, float32 gradients",
+                               [(tuple(t.shape), t.dtype, torch.float32, 0)
+                                for t in leaves], True, card))
+    for p_dtype, g_dtype in N_PAIRS:
+        specs = [((n,), p_dtype, g_dtype, 0) for n in N_RAGGED]
+        rows.append(n_case(f"ragged {p_dtype} / {g_dtype}",
+                           specs + [((1000,), p_dtype, g_dtype, 1)], False,
+                           card))
+    # 50 leaves of a pair: two update launches each, three norm launches
+    rows.append(n_case(f"{N_MANY} leaves", [
+        ((97 * i + 1,), *N_PAIRS[i // 50], i % 2) for i in range(N_MANY)],
+        False, card))
+    counts = launch_counts()
+    print(f"[pathN] launches over the cases {json.dumps(counts)}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    train_row = n_train(card)
+    print(f"[pathN] {time.perf_counter() - t0:.1f} s in all; {card}",
+          flush=True)
+    return {"checks": rows, "train": train_row}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -5520,6 +5744,10 @@ def main() -> None:
                     help="only run path K1, rwkv6-3b's training steps "
                          "timed and profiled, on the package beside this "
                          "script (no result line)")
+    ap.add_argument("--adamw", action="store_true",
+                    help="only run path N, the AdamW kernels at the "
+                         "benchmark's leaves and ragged sizes, and "
+                         "train() at I1's size (no result line)")
     ap.add_argument("--flash", action="store_true",
                     help="only run path M (the flash-attention kernels) "
                          "and the LM runs whose attention it takes or "
@@ -5540,11 +5768,17 @@ def main() -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         print(f"[card] {card}; torch {torch.__version__}", flush=True)
-        _build.build_all(tuple(SCAN_KERNELS))
+        _build.build_all((*SCAN_KERNELS, "adamw"))
         path_k1(torch.device("cuda"), card)
         return
     if args.flash:
         flash_paths()
+        return
+    if args.adamw:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        print(f"[card] {card}; torch {torch.__version__}", flush=True)
+        path_n(card)
         return
 
     t_start = time.perf_counter()
@@ -5711,6 +5945,9 @@ def main() -> None:
     # ---- path M: the flash-attention kernels
     m_rec = path_m(card)
 
+    # ---- path N: the AdamW kernels
+    n_rec = path_n(card)
+
     # ---- times at layer 1 and layer 2 of the centralized path
     rec1 = timings(x1, nbr, wts, params[0], "layer1 496->64", iters=10)
     timings(x2, nbr, wts, params[1], "layer2 64->16", iters=20)
@@ -5732,6 +5969,10 @@ def main() -> None:
                         replaces="src/repro/models/attention.py "
                                  "chunked_attention (no Pallas kernel)",
                         timings=m_rec["timings"], host=m_rec["host"]))
+    kernels.append(dict(name="adamw", route="cuda",
+                        source="src/repro_torch/csrc/adamw.cu",
+                        replaces="src/repro/optim/adamw.py adamw_update "
+                                 "(no Pallas kernel)", **n_rec))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SOURCES = ("cam_match", "crossbar_mvm", "csr_aggregate", "fused_layer",
-           "rglru_scan", "wkv6_scan", "flash_attention")
+           "rglru_scan", "wkv6_scan", "flash_attention", "adamw")
 _QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 

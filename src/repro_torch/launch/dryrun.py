@@ -16,10 +16,12 @@ FLOPs, bytes and collectives are counted per device as each rank's local
 ops run, and memory is read from the storage they make:
 ``argument_bytes`` is the local shards of every input, ``temp_bytes``
 the peak of storage the step allocated on top of them, ``live_bytes`` =
-argument + temp - alias, as the reference computes it. The port's eager
-steps donate nothing (the caller holds the parameters, the optimizer
-state and the caches while the step builds the new ones), so
-``alias_bytes`` is 0 and ``live_bytes`` is argument + temp. The roofline
+argument + temp - alias, as the reference computes it. ``alias_bytes``
+is 0 and ``live_bytes`` is argument + temp: the training step's AdamW
+writes the parameters and moments over its arguments (on the meta shards
+as on the card: ``optim.adamw``), so the new ones make no storage, and
+the other steps donate nothing (the caller holds the parameters and the
+caches while the step builds the new ones). The roofline
 uses ``analysis.roofline.H100`` (NVIDIA's data sheet, not a measurement),
 and each record says so (``hw``).
 

@@ -461,11 +461,18 @@ def test_launch_counters_stay_zero_on_cpu():
     from repro_torch.kernels.attention import flash_attention
     qkv = torch.randn((1, 20, 2, 128)).bfloat16().requires_grad_()
     flash_attention(qkv, qkv, qkv).float().sum().backward()
+    from repro_torch.kernels.optim import adamw_norm, adamw_update
+    from repro_torch.optim import AdamWConfig
+    leaf = lambda: [torch.rand(5)]
+    scale, _ = adamw_norm(leaf(), 1.0)
+    adamw_update(leaf(), leaf(), leaf(), leaf(), scale, torch.tensor(1e-3),
+                 torch.tensor(0.1), torch.tensor(0.05), AdamWConfig())
     assert launch_counts() == {
         "fused_ideal_layer": 0, "fused_zmax": 0, "fused_quant_layer": 0,
         "csr_aggregate": 0, "crossbar_matmul_quantized": 0,
         "cam_search": 0, "rglru_scan": 0, "wkv6_scan": 0,
-        "flash_attention_forward": 0, "flash_attention_backward": 0}
+        "flash_attention_forward": 0, "flash_attention_backward": 0,
+        "adamw_norm": 0, "adamw_update": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -2,12 +2,18 @@
 against the JAX package's.
 
 Both sides take the same numpy inputs. AdamW over 5 steps of the same
-gradients within rtol 1e-5, atol 1e-6 * max|ref|; the int8 compression,
+gradients within rtol 1e-5, atol 1e-6 * max|ref| (``adamw_update`` and
+the AdamW kernels' plain version, ``kernels.optim.ref``, alike); on the CPU
+``adamw_update`` builds new trees and leaves its inputs as they were; CUDA
+leaves (stubbed) go to the kernels and are handed back updated in place,
+DTensors (on a mesh of gloo ranks) to the same wrappers as their local
+blocks; the int8 compression,
 the graph batches and the tree order equal the reference's exactly; a
 checkpoint written by either package restores into the other.
 """
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -31,9 +37,15 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,
 from repro_torch.core import taxi
 from repro_torch.core.graph import random_graph
 from repro_torch.data import graph_batches
+from repro_torch.kernels.optim import ref as adamw_ref
+from repro_torch.launch.mesh import spawn
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, int8_compress,
-                               int8_decompress)
+                               int8_decompress, reset_update_paths,
+                               update_paths)
+from repro_torch.optim import adamw as pt_adamw
+
+import _optim_ranks as optim_ranks
 
 SEEDS = list(range(12))
 
@@ -155,6 +167,130 @@ def test_adamw_converges_quadratic():
         params, state, _ = adamw_update(params, {"w": 2 * params["w"]},
                                         state, cfg)
     assert float((params["w"] ** 2).sum()) < 1e-3
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(lr=1e-2, clip_norm=1e3, weight_decay=0.0, warmup=1),
+    dict(lr=5e-2, clip_norm=0.1, weight_decay=0.3, warmup=2),
+], ids=["unclipped", "clipped-decay"])
+def test_kernels_plain_version_matches_reference(cfg_kw):
+    """``kernels.optim.ref``, the arithmetic the kernels repeat, step by
+    step as ``adamw_update`` composes it, against the reference."""
+    cfg = AdamWConfig(**cfg_kw)
+    ref = _np_tree(0)
+    flat, tdef = _tree.flatten(_to_torch(ref))
+    st_jx = jx_adamw_init(ref)
+    m = [torch.zeros_like(p) for p in flat]
+    v = [torch.zeros_like(p) for p in flat]
+    for step in range(1, 6):
+        g_np = jax.tree.map(lambda a: a * step, _np_tree(100 + step))
+        ref, st_jx, gn_jx = jx_adamw_update(ref, g_np, st_jx,
+                                            JxAdamWConfig(**cfg_kw))
+        grads = _tree.leaves(_to_torch(g_np))
+        scale, gn = adamw_ref.clip_scale(grads, cfg.clip_norm)
+        t = torch.tensor(float(step))
+        lr = cfg.lr * torch.clamp_max(t / max(cfg.warmup, 1), 1.0)
+        out = [adamw_ref.adamw_leaf(p, g, mi, vi, scale, lr,
+                                    1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t,
+                                    cfg)
+               for p, g, mi, vi in zip(flat, grads, m, v)]
+        flat, m, v = ([o[i] for o in out] for i in range(3))
+        np.testing.assert_allclose(float(gn), float(gn_jx), rtol=1e-6)
+    _assert_tree_close(tdef.unflatten(flat), ref)
+    _assert_tree_close(tdef.unflatten(m), st_jx["m"])
+    _assert_tree_close(tdef.unflatten(v), st_jx["v"])
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_on_cpu_builds_new_trees(g_dtype):
+    """On CPU tensors the step runs the plain version: new parameters and
+    moments, its inputs as they were, one ``plain`` call counted."""
+    params = {"w": torch.randn(4, 3).bfloat16(), "b": torch.randn(5)}
+    grads = {k: torch.randn(p.shape).to(g_dtype) for k, p in params.items()}
+    state = adamw_init(params)
+    state["m"] = _tree.tree_map(torch.randn_like, state["m"])
+    before = _tree.tree_map(torch.clone, (params, grads, state))
+    reset_update_paths()
+    new_p, new_s, _ = adamw_update(params, grads, state,
+                                   AdamWConfig(lr=1e-2, warmup=1))
+    assert update_paths() == {"kernel": 0, "plain": 1, "dtensor": 0}
+    for a, b in zip(_tree.leaves((params, grads, state)),
+                    _tree.leaves(before)):
+        assert torch.equal(a, b)
+    for new, old in zip(_tree.leaves((new_p, new_s["m"], new_s["v"])),
+                        _tree.leaves((params, state["m"], state["v"]))):
+        assert new is not old and new.data_ptr() != old.data_ptr()
+        assert not torch.equal(new, old)
+    assert int(new_s["step"]) == 1 and int(state["step"]) == 0
+
+
+class _Cuda(torch.Tensor):
+    is_cuda = True
+
+
+@pytest.mark.parametrize("kind", ["cuda", "dtensor"])
+def test_adamw_update_sends_leaves_by_kind(kind, monkeypatch,
+                                           tmp_path_factory):
+    """Plain CUDA leaves (CPU tensors posing as them, the kernels stubbed)
+    go to the kernel wrappers, which get the flat leaves and the step's
+    lr and bias corrections, and the same trees come back. DTensors (four
+    gloo ranks on a 2x2 mesh) go to the same wrappers as their local
+    blocks in the moments' placements, the norm's partial sums reduced
+    over the mesh and a replicated leaf counted on its first rank alone;
+    the results are the plain version's on the whole leaves."""
+    if kind == "dtensor":
+        rdv = str(tmp_path_factory.mktemp("optim") / "rendezvous")
+        res = spawn(optim_ranks.dtensor_step, 4, (rdv, (2, 2), "cpu"),
+                    deadline=120.0)
+        for rank, r in enumerate(res):
+            assert r["paths"] == {"kernel": 0, "plain": 0, "dtensor": 1}
+            assert r["seen"]["update"] == [(5,), (4, 3), (4, 6)]
+            # rank (data, model) = divmod(rank, 2) counts b at (0, 0), u
+            # (its moments replicated over data) at data 0, w at model 0
+            data, model = divmod(rank, 2)
+            counted = [(5,) if rank == 0 else (0,),
+                       (4, 3) if data == 0 else (0,),
+                       (4, 6) if model == 0 else (0,)]
+            assert r["seen"]["norm"] == (counted, True)
+            assert r["gn"][0] == pytest.approx(r["gn"][1], rel=1e-6)
+            assert max(r["errs"]) <= 1e-6
+            assert r["unchanged"] and r["step"] == 1
+        return
+    calls = []
+
+    def norm(grads, max_norm, reduce=None):
+        calls.append(("norm", len(grads), max_norm, reduce))
+        return torch.tensor(0.5), torch.tensor(2.0)
+
+    def update(ps, gs, ms, vs, scale, lr, b1c, b2c, cfg):
+        calls.append(("update", len(ps), float(scale), float(lr),
+                      float(b1c), float(b2c)))
+    monkeypatch.setattr(pt_adamw, "_kernel", types.SimpleNamespace(
+        adamw_norm=norm, adamw_update=update))
+    params = {"w": torch.randn(4, 3), "b": [torch.randn(5)]}
+    grads = _tree.tree_map(torch.randn_like, params)
+    state = adamw_init(params)
+    cfg = AdamWConfig(lr=1e-2, warmup=4, clip_norm=0.3)
+    pose = lambda tree: _tree.tree_map(lambda t: t.as_subclass(_Cuda), tree)
+    state_c = dict(state, m=pose(state["m"]), v=pose(state["v"]))
+    params_c = pose(params)
+    reset_update_paths()
+    got_p, got_s, gn = adamw_update(params_c, pose(grads), state_c, cfg)
+    assert update_paths() == {"kernel": 1, "plain": 0, "dtensor": 0}
+    close = lambda x: pytest.approx(x, rel=1e-6)
+    assert calls == [("norm", 2, 0.3, None),
+                     ("update", 2, 0.5, close(2.5e-3), close(0.1),
+                      close(0.05))]
+    assert got_p is params_c and got_s["m"] is state_c["m"]
+    assert got_s["v"] is state_c["v"] and float(gn) == 2.0
+    assert int(got_s["step"]) == 1
+
+
+def test_adamw_update_refuses_leaves_split_across_devices():
+    params = [torch.randn(3), torch.randn(3).as_subclass(_Cuda)]
+    with pytest.raises(ValueError, match="some leaves are on CUDA"):
+        adamw_update(params, _tree.tree_map(torch.randn_like, params),
+                     adamw_init(params), AdamWConfig())
 
 
 # ------------------------------------------------------------ compression
